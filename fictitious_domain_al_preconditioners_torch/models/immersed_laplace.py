@@ -1,0 +1,335 @@
+"""Immersed-boundary Poisson problem with a Lagrange-multiplier constraint on
+an embedded curve Γ (the flagship DLM problem), augmented-Lagrangian solve.
+
+Counterpart of
+``fictitious_domain_al_preconditioners_tpu.models.immersed_laplace`` for the
+paper's method (``solver="augmented"``, operator-form AL term,
+W = diag(M)) on a uniform Q1 background with Dirichlet conditions on all
+four sides:
+
+    -Δu = f in Ω,   u = g on Γ,   u = g_D on ∂Ω
+    [ K   Cᵀ ] [u]   [f]
+    [ C   0  ] [λ] = [g]
+
+One solve runs outer FGMRES (CGS2) on ``[[Aug, Cᵀ], [C, 0]]`` with the AL
+preconditioner; ``Aug⁻¹`` is an inner CG preconditioned by a lattice GMG
+V-cycle that re-discretizes the AL term on every level.  Every inner vector
+is an (ny, nx) lattice tensor; the flat dof vector is a view of the same
+buffer.
+
+On CUDA each level whose Γ-band is interior to the lattice applies the
+augmented operator with kernel K2 (``ops.kernels.fused_augmented_2d``, mode
+``op``) and smooths with K2 ``pre``/``post``; a coarse level whose band
+touches ∂Ω uses kernel K1 (``masked_laplace_2d``) plus the compact AL block
+and the plain Chebyshev smoother.  On the CPU the same wrappers run their
+plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..core.grid import GridSpace, UniformGrid
+from ..core.immersed import parametrized_curve
+from ..ops.assembly import (imm_mass_matrix, imm_rhs, interpolate,
+                            rhs_vector)
+from ..ops.blocks import BlockLayout, block_operator
+from ..ops.coupling import build_coupling
+from ..ops.kernels import (AugmentedStencil2D, fused_augmented_2d,
+                           masked_laplace_2d)
+from ..ops.krylov import cg, fgmres
+from ..ops.linop import LinOp
+from ..ops.operators import dirichlet_rhs
+from ..parallel.lattice import LatticeOps
+from ..precond.al import al_preconditioner
+from ..precond.gmg import FusedSmoother, build_gmg
+from ..precond.weights import inv_diag
+from ..utils.expressions import ParsedFunction
+
+__all__ = ["SolverControlConfig", "ImmersedLaplaceConfig",
+           "ImmersedLaplaceProblem"]
+
+# symmetric 5-plane compression of the 9-point patch: centre + the 4
+# "positive" offsets (0,1), (1,0), (1,1), (1,-1), as w9[a, b] indices
+_PLANES = ((1, 1), (1, 2), (2, 1), (2, 2), (2, 0))
+
+
+@dataclass
+class SolverControlConfig:
+    max_steps: int = 1000
+    tolerance: float = 1e-12
+    reduction: float | None = 1e-12
+
+
+@dataclass
+class ImmersedLaplaceConfig:
+    """Mirror of the reference's Parameters class (immersed_laplace.cc:70-233);
+    field names and defaults as in the JAX package."""
+
+    initial_refinement: int = 4
+    delta_refinement: int = 0
+    initial_embedded_refinement: int = 5
+    dirichlet_ids: tuple = (0, 1, 2, 3)
+    embedding_space_degree: int = 1
+    embedded_space_degree: int = 1
+    embedded_configuration_degree: int = 1
+    coupling_quadrature_order: int = 3
+    use_displacement: bool = False
+    solver: str = "CG"
+    use_operator_form: bool = False
+    use_diagonal_inverse: bool = False
+    schur: SolverControlConfig = field(default_factory=SolverControlConfig)
+    embedded_configuration: tuple = ("R*cos(2*pi*x)+Cx; R*sin(2*pi*x)+Cy",
+                                     "R=.3, Cx=.4,Cy=.4")
+    embedding_rhs: tuple = ("0", "")
+    embedded_value: tuple = ("1", "")
+    dirichlet_boundary: tuple = ("0", "")
+    gamma: float = 10.0
+    # FGMRES basis size; the V and Z bases take (2*restart+1) vectors
+    fgmres_restart: int = 50
+    inner_max_steps: int = 100
+    inner_tolerance: float = 1e-2
+    use_bf16_multigrid: bool = False
+    gmg_smoother_degree: int = 4
+
+
+class ImmersedLaplaceProblem:
+    """``ImmersedLaplaceProblem(cfg, device=..., dtype=...).setup()`` then
+    ``.solve()``.  ``dtype`` defaults to float64 on the CPU and float32 on
+    CUDA.  ``lanczos_start(level_index, n) -> ndarray`` (optional attribute)
+    injects the GMG Lanczos start vectors."""
+
+    def __init__(self, config: ImmersedLaplaceConfig, *, device="cpu",
+                 dtype=None):
+        self.cfg = config
+        self.device = torch.device(device)
+        self.dtype = dtype or (torch.float64 if self.device.type == "cpu"
+                               else torch.float32)
+        self.results = {}
+        self.stats = {"host_syncs": 0}
+        self.lanczos_start = None
+        self._solver = None
+
+    def _check_supported(self):
+        cfg = self.cfg
+        missing = []
+        if cfg.solver != "augmented" or not cfg.use_operator_form \
+                or not cfg.use_diagonal_inverse:
+            missing.append("solver modes other than augmented + operator form "
+                           "+ diagonal inverse")
+        if cfg.delta_refinement:
+            missing.append("delta_refinement")
+        if cfg.embedding_space_degree != 1 or cfg.embedded_space_degree != 1:
+            missing.append("element degrees other than 1")
+        if set(cfg.dirichlet_ids) != {0, 1, 2, 3}:
+            missing.append("partial Dirichlet boundaries")
+        if cfg.use_bf16_multigrid:
+            missing.append("the bf16 multigrid")
+        if missing:
+            raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+    # -- setup --------------------------------------------------------------
+
+    def setup(self):
+        self._check_supported()
+        cfg = self.cfg
+        dev, dt = self.device, self.dtype
+        conf = ParsedFunction(*cfg.embedded_configuration)
+        if cfg.use_displacement:
+            def conf_fn(pts):
+                return pts[:, :2] + np.asarray(conf(pts))
+        else:
+            def conf_fn(pts):
+                return np.asarray(conf(pts))
+        self.curve = parametrized_curve(
+            conf_fn, cfg.initial_embedded_refinement,
+            geom_degree=cfg.embedded_configuration_degree)
+        self.imm_space = self.curve.space(cfg.embedded_space_degree)
+        self.grid = UniformGrid.hyper_cube(2, 0.0, 1.0, cfg.initial_refinement)
+        self.space = GridSpace.q(self.grid, cfg.embedding_space_degree)
+        # mesh-compatibility guard (immersed_laplace.cc:364-369)
+        if self.curve.h_max >= self.grid.cell_diameter:
+            raise ValueError(
+                "The embedding grid is too refined (or the embedded grid "
+                "is too coarse): "
+                f"h_Gamma={self.curve.h_max:.3e} >= "
+                f"h_Omega={self.grid.cell_diameter:.3e}")
+
+        deg, kdeg = cfg.embedding_space_degree, cfg.embedded_space_degree
+        self.f_fn = ParsedFunction(*cfg.embedding_rhs)
+        self.g_fn = ParsedFunction(*cfg.embedded_value)
+        self.bc_fn = ParsedFunction(*cfg.dirichlet_boundary)
+        self.rhs_f = rhs_vector(self.space, self.f_fn, order=deg + 1,
+                                device=dev, dtype=dt)
+        self.M = imm_mass_matrix(self.imm_space, order=max(kdeg + 1, 2),
+                                 device=dev, dtype=dt)
+        self.rhs_g = imm_rhs(self.imm_space, self.g_fn,
+                             order=max(kdeg + 1, 2), device=dev, dtype=dt)
+        self.free = torch.as_tensor(
+            ~self.space.boundary_dof_mask(list(cfg.dirichlet_ids)), device=dev)
+        self.bc_values = interpolate(self.space, self.bc_fn, device=dev,
+                                     dtype=dt)
+        self.C = build_coupling(self.space, self.imm_space,
+                                cfg.coupling_quadrature_order, device=dev,
+                                dtype=dt)
+        self.layout = BlockLayout((self.space.n_dofs, self.imm_space.n_dofs))
+        self._solver = None
+        return self
+
+    def load_state(self, state):
+        """Replace the setup arrays by carried ones (see
+        :func:`..utils.carry.state_from_jax`); the solver is rebuilt at the
+        next solve."""
+        self.rhs_f, self.rhs_g = state.rhs_f, state.rhs_g
+        self.bc_values, self.free = state.bc_values, state.free
+        self.C, self.M = state.coupling, state.mass
+        if state.lanczos_starts is not None:
+            starts = state.lanczos_starts
+            self.lanczos_start = lambda i, n: starts[i]
+        self._solver = None
+        return self
+
+    # -- solve ----------------------------------------------------------------
+
+    def solve(self):
+        """Build the solver (once per setup) and run it.  Returns
+        ``(u, lam, SolveInfo)``; ``results`` records the outer iterations,
+        convergence, solve seconds and host syncs of this solve."""
+        if self._solver is None:
+            t0 = time.perf_counter()
+            self._solver = self._augmented_run()
+            self.results["build_seconds"] = time.perf_counter() - t0
+        self.stats["host_syncs"] = 0
+        t0 = time.perf_counter()
+        u, lam, info = self._solver(self.rhs_f, self.rhs_g, self.bc_values)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.u, self.lam = u, lam
+        self.results.update(
+            outer_iterations=int(info.iterations),
+            residual=float(info.residual),
+            converged=bool(info.converged),
+            solve_seconds=time.perf_counter() - t0,
+            host_syncs=self.stats["host_syncs"],
+            dofs_background=self.space.n_dofs,
+            dofs_immersed=self.imm_space.n_dofs)
+        return u, lam, info
+
+    def _level_operator(self, sp, coupling, gamma):
+        """Masked augmented operator of one lattice level: ``(op, diag,
+        smoother_builder)`` for :func:`..precond.gmg.build_gmg`, and the
+        level's :class:`AugmentedStencil2D` (None on a compact-AL level)."""
+        dev, dt = self.device, self.dtype
+        lat = LatticeOps.for_space(sp)
+        ny, nx = lat.shape
+        k_diag = lat.laplace_diag()
+        pw = coupling.patch_w9(sp, gamma)
+        if pw is not None:
+            box, w9 = pw
+            r0, c0, pr, pc = box
+            planes = torch.as_tensor(np.stack([w9[a, b] for a, b in _PLANES]),
+                                     dtype=dt, device=dev)
+            st = AugmentedStencil2D(lat.h, lat.shape, planes, box)
+            al_diag = np.zeros((ny, nx))
+            al_diag[r0:r0 + pr, c0:c0 + pc] = w9[1, 1]
+
+            def op(x2):
+                return fused_augmented_2d("op", st, x2)
+
+            def smoother_builder(lam, degree, eig_ratio):
+                kw = dict(lam_max=lam, degree=degree, eig_ratio=eig_ratio)
+                return FusedSmoother(
+                    lambda b: fused_augmented_2d("smooth", st, b, **kw),
+                    pre=lambda b: fused_augmented_2d("pre", st, b, **kw),
+                    post=lambda b, x0: fused_augmented_2d("post", st, b, x0,
+                                                          **kw))
+
+            return (op, k_diag + al_diag.reshape(-1), smoother_builder), st
+
+        # Γ-band touches ∂Ω on this (coarse) level: compact AL block
+        al, al_diag = coupling.compact_al(gamma)
+        free = ~sp.boundary_dof_mask(list(self.cfg.dirichlet_ids))
+        m = torch.as_tensor(free.reshape(ny, nx), device=dev)
+
+        def op(x2):
+            al_x = al(torch.where(m, x2, 0.0).reshape(-1)).reshape(ny, nx)
+            return masked_laplace_2d(x2, lat.h) + torch.where(m, al_x, 0.0)
+
+        return (op, k_diag + al_diag, None), None
+
+    def _augmented_run(self):
+        """The flagship solve: returns ``run(rhs_f, rhs_g, bc_values) ->
+        (u, lam, info)``."""
+        cfg = self.cfg
+        dev, dt = self.device, self.dtype
+        gamma = cfg.gamma / self.curve.h_max
+        C_lin = self.C.as_linop()
+        Ct_lin = C_lin.T
+        layout = self.layout
+        free = self.free
+        inv_w = inv_diag(self.M)
+        lat_fine = LatticeOps.for_space(self.space)
+        shape = lat_fine.shape
+        n = self.space.n_dofs
+
+        self.level_stencils = []   # per GMG level, fine first
+
+        def op_factory(sp):
+            coupling = build_coupling(
+                sp, self.imm_space, order=2 * cfg.embedding_space_degree + 1,
+                device=dev, dtype=dt)
+            level, st = self._level_operator(sp, coupling, gamma)
+            self.level_stencils.append(st)
+            return level
+
+        gmg = build_gmg(self.space, op_factory, free_mask=free,
+                        smoother_degree=cfg.gmg_smoother_degree,
+                        lanczos_start=self.lanczos_start, dtype=dt,
+                        stats=self.stats)
+        self._last_gmg = gmg
+        aug_lat = gmg.levels[0].op   # the fine level's augmented operator
+
+        def aug_mv(x):
+            return aug_lat(x.reshape(shape)).reshape(-1)
+
+        Aug = LinOp(aug_mv, (n, n), aug_mv, name="Aug")
+
+        def aug_inv(v):
+            x2, _ = cg(aug_lat, v.reshape(shape), M=gmg.apply,
+                       tol=cfg.inner_tolerance, max_steps=cfg.inner_max_steps,
+                       stats=self.stats)
+            return x2.reshape(-1)
+
+        AA = block_operator(layout, layout, [[Aug, Ct_lin], [C_lin, None]])
+        prec = al_preconditioner(layout, aug_inv, Ct_lin, inv_w, gamma)
+        # FGMRES keeps the V and Z bases, 2*restart+1 vectors: the restart is
+        # capped so that they fit about 6 GB on very large layouts (never
+        # engaged at the ~4-30 outer iterations of this method)
+        restart = min(cfg.fgmres_restart,
+                      max(12, int(6e9 / (8 * max(layout.total, 1)))))
+
+        def k_mv(x):
+            return lat_fine.laplace(x.reshape(shape)).reshape(-1)
+
+        def run(rhs_f, rhs_g, bc_values):
+            b0 = dirichlet_rhs(k_mv, rhs_f, free, bc_values)
+            b0 = b0 + torch.where(free, gamma * Ct_lin(inv_w(rhs_g)), 0.0)
+            x, info = fgmres(AA, layout.concat((b0, rhs_g)), prec,
+                             tol=cfg.schur.tolerance,
+                             reduction=cfg.schur.reduction,
+                             max_steps=cfg.schur.max_steps, restart=restart,
+                             stats=self.stats)
+            u, lam = layout.split(x)
+            return torch.where(free, u, bc_values), lam, info
+
+        return run
+
+    # -- diagnostics ----------------------------------------------------------
+
+    def constraint_residual(self) -> float:
+        """||C u - (g, ψ)||_inf: residual of the constraint block equation."""
+        return float(torch.max(torch.abs(self.C.mv(self.u) - self.rhs_g)))
