@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship AL solve on one CUDA card.
+"""Drive the PyTorch port's immersed_laplace solves on one CUDA card.
 
-    python3 chip_smoke.py            # all phases, flagship at refinement 12
+    python3 chip_smoke.py                  # all phases, refinement 12
+    python3 chip_smoke.py --refinement 9   # the same at a quick size
 
 Phases (any failure exits non-zero before the last line is printed):
 
 1. device: require CUDA, print the card's name and power limit, build the
    kernels from ``fictitious_domain_al_preconditioners_torch/csrc``;
-2. kernels against their plain PyTorch versions on the card (float32): K1
-   and K2 in all four modes at n = 65, n = 1025 and (530, 777), with patch
-   planes from flagship couplings;
-3. the flagship solve (``bench.py``'s configuration) at refinement 12: a
-   warm-up solve, then a timed solve, through
-   ``ImmersedLaplaceProblem(cfg, device="cuda").setup()`` and ``.solve()``;
-   the launch counters must show K1 and K2 ``op``/``pre``/``post`` on that
-   path; afterwards every kernel is compared with its plain version again at
-   the shapes that path gave it, and timed at the fine level;
+2. kernels against their plain PyTorch versions on the card (float32): K1,
+   K6, and K2 in all four modes with patch planes (from flagship couplings)
+   and without, at n = 65, n = 1025 and (530, 777);
+3. the flagship solve (``bench.py``'s configuration, ``solver="augmented"``)
+   at the refinement: a warm-up solve, then a timed solve, through
+   ``ImmersedLaplaceProblem(cfg).setup()`` and ``.solve()``; the launch
+   counters must show K1, K6 and K2 ``op``/``pre``/``post`` on that path;
+   afterwards every kernel is compared with its plain version again at the
+   shapes that path gave it, and timed at the fine level;
+5. the ``rational`` and ``CG`` modes at the refinement and ``ELMAN_triang``
+   at refinement 9 (at most the refinement), on the f = 0, g = 1 circle with
+   the flagship's stopping rule, each a warm-up and a timed solve; the
+   counters must show K1, K6 and K2 without patch ``pre``/``post`` on each
+   path; afterwards the kernels are compared with their plain versions at
+   the shapes those paths gave them, and K6 and the no-patch K2 are timed at
+   the fine level (K6 also against ``torch.nn.functional.conv2d``);
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
-   versions) in float32 with the same Lanczos start vectors.
+   versions) in float32 with the same Lanczos start vectors, for the
+   flagship and the three modes.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Launch counts are set to 0 just before each path (phases 3 and 5) and read
+just after it.  The line before the last is a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -37,17 +47,29 @@ import traceback
 import numpy as np
 
 PKG = "fictitious_domain_al_preconditioners_torch"
-SOURCE = f"{PKG}/csrc/fdal_kernels.cu"
-REPLACES = {
-    "masked_laplace_2d":
-        "fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py:193",
-    "fused_augmented_2d":
-        "fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py:394",
-}
+SOURCE = {"masked_laplace_2d": f"{PKG}/csrc/fdal_kernels.cu",
+          "fused_augmented_2d": f"{PKG}/csrc/fdal_kernels.cu",
+          "laplace_stencil_2d": f"{PKG}/csrc/fdal_stencil.cu"}
+_TPU = "fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py"
+REPLACES = {"masked_laplace_2d": f"{_TPU}:193",
+            "fused_augmented_2d": f"{_TPU}:394",
+            "laplace_stencil_2d": f"{_TPU}:31"}
 # max |kernel - plain| / max |plain| (float32): one application vs the
 # Chebyshev recurrence (the bounds of tests/test_fused_cheb.py)
-TOL = {"masked_laplace_2d": 1e-6, "op": 1e-6, "smooth": 2e-5, "pre": 2e-5,
-       "post": 5e-5}
+TOL = {"masked_laplace_2d": 1e-6, "laplace_stencil_2d": 1e-6, "op": 1e-6,
+       "smooth": 2e-5, "pre": 2e-5, "post": 5e-5}
+# the solver modes of phase 5 and the refinement of ELMAN_triang, the
+# negative control whose counts grow with refinement (BASELINE.md:31)
+MODE_SOLVERS = ("rational", "CG", "ELMAN_triang")
+ELMAN_REFINEMENT = 9
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the
+# tensor cores (the on-chip-measurement guide's table)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# operations of one 9-point tensor-product stencil apply per point: 3
+# column sums (1 add) each feeding two 3-term factors (2 mul + 1 add each),
+# then 6 mul + 3 add in the row combination
+STENCIL_FLOPS = 30
 
 
 class SmokeFailure(RuntimeError):
@@ -77,6 +99,24 @@ def flagship_config(refinement):
     )
     cfg.schur.tolerance = 3e-5
     cfg.schur.reduction = 1e-6
+    return cfg
+
+
+def mode_config(solver, refinement):
+    """The f = 0, g = 1 circle of tests/test_baseline_tables.py:25-38 for
+    ``solver``, with the flagship's float32 stopping rule."""
+    from fictitious_domain_al_preconditioners_torch.models.immersed_laplace \
+        import ImmersedLaplaceConfig
+
+    cfg = ImmersedLaplaceConfig(
+        initial_refinement=refinement,
+        initial_embedded_refinement=refinement,
+        embedded_configuration=("R*cos(2*pi*x)+Cx; R*sin(2*pi*x)+Cy",
+                                "R=.2, Cx=.4, Cy=.4"),
+        embedding_rhs=("0", ""), embedded_value=("1", ""), solver=solver)
+    cfg.schur.tolerance = 3e-5
+    cfg.schur.reduction = 1e-6
+    cfg.schur.max_steps = 1000
     return cfg
 
 
@@ -125,9 +165,37 @@ def flagship_planes(refinement, device):
     return torch.as_tensor(planes, dtype=torch.float32, device=device), box
 
 
-def compare_kernels(st, device, lam, seed, tag, errs):
-    """K1 and K2 (all modes) against their plain versions on one lattice;
-    appends ``(kernel, mode, tag, abs_err, rel_err)`` to ``errs``."""
+def record(errs, kernel, mode, tag, got, ref):
+    """Append ``(kernel, mode, tag, abs_err, rel_err)`` of one comparison
+    and fail above the kernel's tolerance."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    check(bool(torch.isfinite(got).all()), f"{kernel}:{mode} {tag}: "
+          "non-finite output")
+    abs_err = float((got - ref).abs().max())
+    rel = abs_err / max(float(ref.abs().max()), 1e-300)
+    errs.append((kernel, mode, tag, abs_err, rel))
+    check(rel <= TOL[kernel if mode == "-" else mode.split(":")[0]],
+          f"{kernel}:{mode} {tag}: rel err {rel:.3e} > tol")
+
+
+def compare_stencils(h, shape, device, seed, tag, errs):
+    """K1 and K6 against their plain versions on one lattice."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    u = torch.as_tensor(np.random.default_rng(seed).standard_normal(shape),
+                        dtype=torch.float32, device=device)
+    record(errs, "masked_laplace_2d", "-", tag, K.masked_laplace_2d(u, h),
+           K.masked_laplace_2d_plain(u, h))
+    record(errs, "laplace_stencil_2d", "-", tag, K.laplace_stencil_2d(u, h),
+           K.laplace_stencil_2d_plain(u, h))
+
+
+def compare_fused(st, device, lam, seed, tag, errs):
+    """K2 in all four modes against its plain version on one stencil (with
+    or without patch planes)."""
     import torch
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
@@ -136,29 +204,15 @@ def compare_kernels(st, device, lam, seed, tag, errs):
                         device=device)
     x0 = torch.as_tensor(rng.standard_normal(st.shape), dtype=torch.float32,
                          device=device)
-
-    def record(kernel, mode, got, ref):
-        got, ref = got.double(), ref.double()
-        check(bool(torch.isfinite(got).all()), f"{kernel}:{mode} {tag}: "
-              "non-finite output")
-        abs_err = float((got - ref).abs().max())
-        rel = abs_err / max(float(ref.abs().max()), 1e-300)
-        errs.append((kernel, mode, tag, abs_err, rel))
-        check(rel <= TOL[mode if kernel != "masked_laplace_2d" else kernel],
-              f"{kernel}:{mode} {tag}: rel err {rel:.3e} > tol")
-
-    record("masked_laplace_2d", "-", K.masked_laplace_2d(b, st.h),
-           K.masked_laplace_2d_plain(b, st.h))
     kw = dict(lam_max=lam, degree=4, eig_ratio=30.0)
+    form = "" if st.patched else ":no_patch"
     for mode in K.MODES:
         xin = x0 if mode == "post" else None
         got = K.fused_augmented_2d(mode, st, b, xin, **kw)
         ref = K.fused_augmented_2d_plain(mode, st, b, xin, **kw)
-        if mode == "pre":
-            record("fused_augmented_2d", "pre", got[0], ref[0])
-            record("fused_augmented_2d", "pre", got[1], ref[1])
-        else:
-            record("fused_augmented_2d", mode, got, ref)
+        pairs = zip(got, ref) if mode == "pre" else [(got, ref)]
+        for g, r in pairs:
+            record(errs, "fused_augmented_2d", mode + form, tag, g, r)
 
 
 def stencil_lam(st):
@@ -172,7 +226,7 @@ def stencil_lam(st):
         return (st.dinv * st.op_plain(v.reshape(shape))).reshape(-1)
 
     return lanczos_max_eig(mv, shape[0] * shape[1], steps=10,
-                           dtype=st.planes.dtype, device=st.planes.device)
+                           dtype=st.dtype, device=st.device)
 
 
 def phase_kernels(device):
@@ -189,118 +243,205 @@ def phase_kernels(device):
     # sits on a tile edge of the pre/post kernels (24 x 56 output tiles)
     planes, (_, _, pr, pc) = flagship_planes(9, device)
     cases.append(("(530,777)", (530, 777), planes, (48, 56, pr, pc)))
-    for tag, shape, planes, box in cases:
+    for i, (tag, shape, planes, box) in enumerate(cases):
         h = (1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1))
-        st = AugmentedStencil2D(h, shape, planes, box)
-        lam = stencil_lam(st)
-        compare_kernels(st, device, lam, seed=len(errs), tag=tag, errs=errs)
-        print(f"phase 2: {tag} box={tuple(box)} lam_max={lam:.6f} ok",
-              flush=True)
+        compare_stencils(h, shape, device, seed=i, tag=tag, errs=errs)
+        for st in (AugmentedStencil2D(h, shape, planes, box),
+                   AugmentedStencil2D(h, shape, device=device,
+                                      dtype=planes.dtype)):
+            lam = stencil_lam(st)
+            compare_fused(st, device, lam, seed=10 + i, tag=tag, errs=errs)
+            print(f"phase 2: {tag} box={st.box} lam_max={lam:.6f} ok",
+                  flush=True)
     return errs
 
 
-def phase_flagship(refinement, device):
+def drive(prob_factory, device):
+    """Set the launch counts to 0, set up, run a warm-up and a timed solve,
+    read the counts, check the result; return ``(prob, out)``."""
     import torch
-    from fictitious_domain_al_preconditioners_torch.models import \
-        ImmersedLaplaceProblem
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
     torch.cuda.reset_peak_memory_stats(device)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    prob = ImmersedLaplaceProblem(flagship_config(refinement),
-                                  device=device).setup()
+    prob = prob_factory().setup()
     setup_s = time.perf_counter() - t0
     prob.solve()                                          # warm-up
     warm = dict(prob.results)
-    u, lam, info = prob.solve()                           # timed
-    launches = dict(K.LAUNCHES)
+    u, _, _ = prob.solve()                                # timed
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
     res = prob.results
     dofs = prob.space.n_dofs
-    cres = prob.constraint_residual()
     out = dict(
-        refinement=refinement, dofs_background=dofs,
-        dofs_immersed=prob.imm_space.n_dofs, setup_seconds=setup_s,
-        build_seconds=warm["build_seconds"],
+        solver=prob.cfg.solver, refinement=prob.cfg.initial_refinement,
+        dofs_background=dofs, dofs_immersed=prob.imm_space.n_dofs,
+        setup_seconds=setup_s, build_seconds=warm["build_seconds"],
         warmup_solve_seconds=warm["solve_seconds"],
+        warmup_outer_iterations=warm["outer_iterations"],
         outer_iterations=res["outer_iterations"],
         converged=res["converged"], residual=res["residual"],
-        constraint_residual=cres, solve_seconds=res["solve_seconds"],
+        constraint_residual=prob.constraint_residual(),
+        solve_seconds=res["solve_seconds"],
         mdof_iter_per_s=dofs * max(res["outer_iterations"], 1)
         / res["solve_seconds"] / 1e6,
         host_syncs=res["host_syncs"],
         peak_memory_bytes=torch.cuda.max_memory_allocated(device),
         launches=launches)
-    print("phase 3: " + json.dumps(out), flush=True)
-    check(res["converged"], "phase 3: flagship solve did not converge")
-    check(math.isfinite(cres), "phase 3: constraint residual not finite")
+    tag = f"{prob.cfg.solver}@{prob.cfg.initial_refinement}"
+    check(res["converged"], f"{tag}: solve did not converge (residual "
+          f"{res['residual']:.3e})")
+    check(math.isfinite(out["constraint_residual"]),
+          f"{tag}: constraint residual not finite")
     check(tuple(u.shape) == (dofs,) and bool(torch.isfinite(u).all()),
-          "phase 3: solution has the wrong shape or non-finite values")
-    check(launches["masked_laplace_2d"] > 0, "phase 3: K1 never launched")
-    for mode in ("op", "pre", "post"):
-        check(launches[f"fused_augmented_2d:{mode}"] > 0,
-              f"phase 3: K2 {mode} never launched")
+          f"{tag}: solution has the wrong shape or non-finite values")
     return prob, out
 
 
-def phase_path_shapes(prob, device):
+def require_launches(out, keys, tag):
+    for key in keys:
+        check(out["launches"].get(key, 0) > 0, f"{tag}: {key} never launched")
+
+
+def phase_flagship(refinement, device):
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops.kernels import \
+        launch_key
+
+    prob, out = drive(lambda: ImmersedLaplaceProblem(
+        flagship_config(refinement), device=device), device)
+    print("phase 3: " + json.dumps(out), flush=True)
+    require_launches(out, ["masked_laplace_2d", "laplace_stencil_2d"]
+                     + [launch_key(m) for m in ("op", "pre", "post")],
+                     "phase 3")
+    return prob, out
+
+
+def phase_flagship_shapes(prob, device):
     """Every kernel against its plain version at the shapes the flagship
     path gave it, with that path's planes and Lanczos bounds."""
-    import torch
-    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
-
     errs = []
     for i, (level, st) in enumerate(zip(prob._last_gmg.levels,
                                         prob.level_stencils)):
-        if st is not None:
-            compare_kernels(st, device, level.lam_max, seed=100 + i,
-                            tag=f"level {i} {st.shape}", errs=errs)
-            continue
         lat = tuple(reversed(level.space.n_points_1d))
         h = tuple(1.0 / (n - 1) for n in lat)
-        rng = np.random.default_rng(100 + i)
-        b = torch.as_tensor(rng.standard_normal(lat), dtype=torch.float32,
-                            device=device)
-        got, ref = K.masked_laplace_2d(b, h), K.masked_laplace_2d_plain(b, h)
-        abs_err = float((got - ref).abs().max())
-        rel = abs_err / float(ref.abs().max())
-        errs.append(("masked_laplace_2d", "-", f"level {i} {lat}", abs_err,
-                     rel))
-        check(rel <= TOL["masked_laplace_2d"],
-              f"K1 level {i}: rel err {rel:.3e}")
+        compare_stencils(h, lat, device, seed=100 + i,
+                         tag=f"flagship level {i} {lat}", errs=errs)
+        if st is not None:
+            compare_fused(st, device, level.lam_max, seed=200 + i,
+                          tag=f"flagship level {i} {lat}", errs=errs)
     print(f"phase 3: kernels agree with plain at all {len(errs)} "
           "path comparisons", flush=True)
     return errs
 
 
-def time_kernels(prob, device):
-    """Kernel and plain times at the fine level of the flagship path."""
+def phase_mode(solver, refinement, device):
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops.kernels import \
+        launch_key
+
+    prob, out = drive(lambda: ImmersedLaplaceProblem(
+        mode_config(solver, refinement), device=device), device)
+    print("phase 5: " + json.dumps(out), flush=True)
+    require_launches(out, ["masked_laplace_2d", "laplace_stencil_2d"]
+                     + [launch_key(m, False) for m in ("pre", "post")],
+                     f"phase 5 {solver}")
+    errs = []
+    for i, (level, st) in enumerate(zip(prob._kinv_gmg.levels,
+                                        prob.kinv_stencils)):
+        tag = f"{solver} K_inv level {i} {st.shape}"
+        compare_stencils(st.h, st.shape, device, seed=300 + i, tag=tag,
+                         errs=errs)
+        compare_fused(st, device, level.lam_max, seed=400 + i, tag=tag,
+                      errs=errs)
+    print(f"phase 5: {solver}: kernels agree with plain at all {len(errs)} "
+          "path comparisons", flush=True)
+    return prob, out, errs
+
+
+def cuda_time_pair(fn, plain, reps=20):
+    """(kernel ms, plain ms), each the median of ``reps`` CUDA-event timed
+    calls, taken in turns kernel, plain, plain, kernel."""
+    a1, p1 = cuda_time_ms(fn, reps // 2), cuda_time_ms(plain, reps // 2)
+    p2, a2 = cuda_time_ms(plain, reps // 2), cuda_time_ms(fn, reps // 2)
+    return statistics.median([a1, a2]), statistics.median([p1, p2])
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    bytes over the memory rate against operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_bound(mode, st, degree):
+    """Bound of one K2 call: the lattice inputs read once (b, and x0 in
+    post), the outputs written once (x, and r in pre), the planes read once;
+    the stencil applications, Chebyshev updates and patch terms done."""
+    ny, nx = st.shape
+    n = ny * nx
+    box = st.box[2] * st.box[3]
+    arrays = {"op": 2, "smooth": 2, "pre": 3, "post": 3}[mode]
+    apps = {"op": 1, "smooth": degree - 1, "pre": degree,
+            "post": degree}[mode]
+    updates = 0 if mode == "op" else degree - 1
+    nbytes = 4 * (arrays * n + 5 * box)
+    flops = n * (apps * STENCIL_FLOPS + 6 * updates + 4) + box * apps * 18
+    return bound(nbytes, flops)
+
+
+def time_fused(st, lam, degree, device, times):
+    """K2's modes at one stencil: kernel and plain times, and the bound."""
     import torch
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
-    st = prob.level_stencils[0]
-    lam = prob._last_gmg.levels[0].lam_max
     rng = np.random.default_rng(7)
     b = torch.as_tensor(rng.standard_normal(st.shape), dtype=torch.float32,
                         device=device)
     x0 = torch.as_tensor(rng.standard_normal(st.shape), dtype=torch.float32,
                          device=device)
-    kw = dict(lam_max=lam, degree=prob.cfg.gmg_smoother_degree,
-              eig_ratio=30.0)
-    times = {"masked_laplace_2d": (
-        cuda_time_ms(lambda: K.masked_laplace_2d(b, st.h)),
-        cuda_time_ms(lambda: K.masked_laplace_2d_plain(b, st.h)))}
+    kw = dict(lam_max=lam, degree=degree, eig_ratio=30.0)
+    form = "" if st.patched else ":no_patch"
     for mode in K.MODES:
         xin = x0 if mode == "post" else None
-        times[mode] = (
-            cuda_time_ms(lambda: K.fused_augmented_2d(mode, st, b, xin,
-                                                      **kw)),
-            cuda_time_ms(lambda: K.fused_augmented_2d_plain(mode, st, b, xin,
-                                                            **kw)))
-    for k, (ms, pms) in times.items():
-        print(f"time {k} at {st.shape}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms", flush=True)
-    return times
+        ms, pms = cuda_time_pair(
+            lambda: K.fused_augmented_2d(mode, st, b, xin, **kw),
+            lambda: K.fused_augmented_2d_plain(mode, st, b, xin, **kw))
+        times[mode + form] = dict(ms=ms, plain_ms=pms, library_ms=None,
+                                  shape=list(st.shape))
+        times[mode + form]["bound_ms"], times[mode + form]["bound_by"] = \
+            fused_bound(mode, st, degree)
+
+
+def time_stencils(h, shape, device, times):
+    """K1 and K6 at one lattice: kernel, plain and bound; K6 also against
+    ``conv2d`` with its 3x3 weight and ``padding=1`` (the body of
+    ``_conv9_pallas``, without the edge corrections)."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    u = torch.as_tensor(np.random.default_rng(8).standard_normal(shape),
+                        dtype=torch.float32, device=device)
+    n = shape[0] * shape[1]
+    b = bound(8 * n, STENCIL_FLOPS * n)
+    ms, pms = cuda_time_pair(lambda: K.masked_laplace_2d(u, h),
+                             lambda: K.masked_laplace_2d_plain(u, h))
+    times["masked_laplace_2d"] = dict(ms=ms, plain_ms=pms, library_ms=None,
+                                      bound_ms=b[0], bound_by=b[1],
+                                      shape=list(shape))
+    K0, M0, K1, M1 = K.stencil_factors_2d(h)
+    w = torch.as_tensor(np.outer(K0, M1) + np.outer(M0, K1),
+                        dtype=torch.float32, device=device)[None, None]
+    ms, pms = cuda_time_pair(lambda: K.laplace_stencil_2d(u, h),
+                             lambda: K.laplace_stencil_2d_plain(u, h))
+    lib = cuda_time_ms(lambda: torch.nn.functional.conv2d(
+        u[None, None], w, padding=1))
+    times["laplace_stencil_2d"] = dict(ms=ms, plain_ms=pms, library_ms=lib,
+                                       bound_ms=b[0], bound_by=b[1],
+                                       shape=list(shape))
 
 
 def phase_crosscheck(device, refinement=7):
@@ -310,59 +451,95 @@ def phase_crosscheck(device, refinement=7):
     from fictitious_domain_al_preconditioners_torch.ops.assembly import \
         l2_error
 
-    runs = {}
-    for dev in (device, torch.device("cpu")):
-        prob = ImmersedLaplaceProblem(flagship_config(refinement), device=dev,
-                                      dtype=torch.float32).setup()
-        u, _, info = prob.solve()
-        runs[dev.type] = (u.cpu().double(), int(info.iterations),
-                          bool(info.converged), prob)
-    ug, itg, cg_, pg = runs["cuda"]
-    uc, itc, cc, _ = runs["cpu"]
-    diff = float((ug - uc).abs().max())
-    scale = float(uc.abs().max())
-    l2 = l2_error(pg.space, ug, exact_solution)
-    out = dict(refinement=refinement, iterations_gpu=itg, iterations_cpu=itc,
-               converged=(cg_, cc), max_abs_diff=diff, max_abs_cpu=scale,
-               l2_error_gpu=l2)
-    print("phase 4: " + json.dumps(out), flush=True)
-    check(cg_ and cc, "phase 4: a cross-check solve did not converge")
-    check(abs(itg - itc) <= 1, f"phase 4: outer counts {itg} vs {itc}")
-    check(diff <= 1e-3 * scale, f"phase 4: |u_gpu - u_cpu| = {diff:.3e}")
-    check(l2 < 6e-3, f"phase 4: L2 error {l2:.3e}")
-    return out
+    outs = []
+    for solver in ("augmented",) + MODE_SOLVERS:
+        runs = {}
+        for dev in (device, torch.device("cpu")):
+            cfg = (flagship_config(refinement) if solver == "augmented"
+                   else mode_config(solver, refinement))
+            prob = ImmersedLaplaceProblem(cfg, device=dev,
+                                          dtype=torch.float32).setup()
+            u, _, info = prob.solve()
+            runs[dev.type] = (u.cpu().double(), int(info.iterations),
+                              bool(info.converged), prob)
+        ug, itg, cg_, pg = runs["cuda"]
+        uc, itc, cc, _ = runs["cpu"]
+        diff = float((ug - uc).abs().max())
+        scale = float(uc.abs().max())
+        out = dict(solver=solver, refinement=refinement, iterations_gpu=itg,
+                   iterations_cpu=itc, converged=(cg_, cc),
+                   max_abs_diff=diff, max_abs_cpu=scale)
+        if solver == "augmented":
+            out["l2_error_gpu"] = l2_error(pg.space, ug, exact_solution)
+        print("phase 4: " + json.dumps(out), flush=True)
+        check(cg_ and cc, f"phase 4 {solver}: a solve did not converge")
+        check(abs(itg - itc) <= 1, f"phase 4 {solver}: outer counts {itg} "
+              f"vs {itc}")
+        check(diff <= 1e-3 * scale, f"phase 4 {solver}: |u_gpu - u_cpu| = "
+              f"{diff:.3e}")
+        if solver == "augmented":
+            check(out["l2_error_gpu"] < 6e-3,
+                  f"phase 4: L2 error {out['l2_error_gpu']:.3e}")
+        outs.append(out)
+    return outs
 
 
-def kernel_report(launches, errs, times):
-    """The kernels' JSON line: one entry per kernel, K2's modes inside."""
+def kernel_report(path_launches, errs, times):
+    """The kernels' JSON line: one entry per kernel, K2's modes inside.
+    ``launches`` sums the paths of phases 3 and 5 (``launches_by_path``
+    lists them)."""
+    from fictitious_domain_al_preconditioners_torch.ops.kernels import (
+        MODES, launch_key)
+
     def worst(kernel, mode=None):
         return max(e[3] for e in errs if e[0] == kernel
                    and (mode is None or e[1] == mode))
 
-    modes = {m: {"launches": launches[f"fused_augmented_2d:{m}"],
-                 "max_abs_err": worst("fused_augmented_2d", m),
-                 "ms": times[m][0], "plain_ms": times[m][1]}
-             for m in ("op", "smooth", "pre", "post")}
+    def launches(key):
+        by_path = {p: n.get(key, 0) for p, n in path_launches.items()}
+        return sum(by_path.values()), by_path
+
+    def entry(name, key, t):
+        total, by_path = launches(key)
+        return dict(name=name, route="cuda", source=SOURCE[name],
+                    replaces=REPLACES[name], launches=total,
+                    launches_by_path=by_path, max_abs_err=worst(name),
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"], shape=t["shape"])
+
+    modes = {}
+    for patch in (True, False):
+        for m in MODES:
+            key = m if patch else f"{m}:no_patch"
+            total, by_path = launches(launch_key(m, patch))
+            modes[key] = dict(times[key], launches=total,
+                              launches_by_path=by_path,
+                              max_abs_err=worst("fused_augmented_2d", key))
+    # K2's own times are those of its patched op mode; its launches sum
+    # every mode and form
+    k2 = entry("fused_augmented_2d", launch_key("op"), times["op"])
+    k2["launches_by_path"] = {
+        p: sum(n.get(launch_key(m, q), 0) for m in MODES
+               for q in (True, False))
+        for p, n in path_launches.items()}
+    k2["launches"] = sum(k2["launches_by_path"].values())
+    k2["modes"] = modes
     return {"kernels": [
-        {"name": "masked_laplace_2d", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES["masked_laplace_2d"],
-         "launches": launches["masked_laplace_2d"],
-         "max_abs_err": worst("masked_laplace_2d"),
-         "ms": times["masked_laplace_2d"][0],
-         "plain_ms": times["masked_laplace_2d"][1]},
-        {"name": "fused_augmented_2d", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES["fused_augmented_2d"],
-         "launches": sum(m["launches"] for m in modes.values()),
-         "max_abs_err": worst("fused_augmented_2d"),
-         "ms": times["op"][0], "plain_ms": times["op"][1],
-         "modes": modes},
+        entry("masked_laplace_2d", "masked_laplace_2d",
+              times["masked_laplace_2d"]),
+        k2,
+        entry("laplace_stencil_2d", "laplace_stencil_2d",
+              times["laplace_stencil_2d"]),
     ]}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--refinement", type=int, default=12,
-                    help="refinement of the flagship solve (phase 3)")
+                    help="refinement of the flagship, rational and CG solves "
+                         f"(ELMAN_triang runs at min({ELMAN_REFINEMENT}, "
+                         "this))")
     args = ap.parse_args(argv)
 
     import torch
@@ -376,6 +553,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: cannot import {PKG}: {exc}", file=sys.stderr)
         return 1
     try:
+        t_start = time.perf_counter()
         device = torch.device("cuda", 0)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -389,13 +567,39 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.2f} s", flush=True)
 
         errs = phase_kernels(device)
+        path_launches, times = {}, {}
         prob, flag = phase_flagship(args.refinement, device)
-        errs += phase_path_shapes(prob, device)
-        times = time_kernels(prob, device)
+        path_launches["augmented"] = flag["launches"]
+        errs += phase_flagship_shapes(prob, device)
+        fine = prob.level_stencils[0]
+        time_stencils(fine.h, fine.shape, device, times)
+        time_fused(fine, prob._last_gmg.levels[0].lam_max,
+                   prob.cfg.gmg_smoother_degree, device, times)
         del prob
         torch.cuda.empty_cache()
+
+        for solver in MODE_SOLVERS:
+            ref = (min(ELMAN_REFINEMENT, args.refinement)
+                   if solver == "ELMAN_triang" else args.refinement)
+            prob, out, mode_errs = phase_mode(solver, ref, device)
+            path_launches[solver] = out["launches"]
+            errs += mode_errs
+            if solver == "rational":
+                time_fused(prob.kinv_stencils[0],
+                           prob._kinv_gmg.levels[0].lam_max, 4, device,
+                           times)
+            del prob
+            torch.cuda.empty_cache()
+        for k, t in times.items():
+            print(f"time {k} at {tuple(t['shape'])}: kernel {t['ms']:.4f} "
+                  f"ms, plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+                  f"{t['library_ms']} ms", flush=True)
+
         phase_crosscheck(device)
-        report = kernel_report(flag["launches"], errs, times)
+        report = kernel_report(path_launches, errs, times)
+        print(f"chip_smoke: all phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1

@@ -8,7 +8,7 @@
 //     out = m*(K0(x)M1 + M0(x)K1)(m*u) + (1-m)*u on an (ny, nx) lattice, m the
 //     all-sides-Dirichlet interior mask.
 //     Bound: bytes.  One read and one write of the lattice per apply (8 B per
-//     point in f32) against 17 flops per point.  Design: one thread per output
+//     point in f32) against 30 flops per point.  Design: one thread per output
 //     point on 32x8 tiles, the 1-point halo read straight from global memory
 //     (the L1 cache serves the 9-fold reuse), so device memory sees each value
 //     about once; the mask comes from the row and column index.

@@ -1,28 +1,37 @@
 """Immersed-boundary Poisson problem with a Lagrange-multiplier constraint on
-an embedded curve Γ (the flagship DLM problem), augmented-Lagrangian solve.
+an embedded curve Γ (the flagship DLM problem).
 
 Counterpart of
-``fictitious_domain_al_preconditioners_tpu.models.immersed_laplace`` for the
-paper's method (``solver="augmented"``, operator-form AL term,
-W = diag(M)) on a uniform Q1 background with Dirichlet conditions on all
-four sides:
+``fictitious_domain_al_preconditioners_tpu.models.immersed_laplace`` on a
+uniform Q1 background with Dirichlet conditions on all four sides:
 
     -Δu = f in Ω,   u = g on Γ,   u = g_D on ∂Ω
     [ K   Cᵀ ] [u]   [f]
     [ C   0  ] [λ] = [g]
 
-One solve runs outer FGMRES (CGS2) on ``[[Aug, Cᵀ], [C, 0]]`` with the AL
-preconditioner; ``Aug⁻¹`` is an inner CG preconditioned by a lattice GMG
-V-cycle that re-discretizes the AL term on every level.  Every inner vector
-is an (ny, nx) lattice tensor; the flat dof vector is a view of the same
-buffer.
+Solver modes (``cfg.solver``, immersed_laplace.cc:502-951):
 
-On CUDA each level whose Γ-band is interior to the lattice applies the
-augmented operator with kernel K2 (``ops.kernels.fused_augmented_2d``, mode
-``op``) and smooths with K2 ``pre``/``post``; a coarse level whose band
-touches ∂Ω uses kernel K1 (``masked_laplace_2d``) plus the compact AL block
-and the plain Chebyshev smoother.  On the CPU the same wrappers run their
-plain PyTorch versions.
+- ``augmented`` (the paper's method; operator-form AL term, W = diag(M)):
+  outer FGMRES (CGS2) on ``[[Aug, Cᵀ], [C, 0]]`` with the AL
+  preconditioner; ``Aug⁻¹`` is an inner CG preconditioned by a lattice GMG
+  V-cycle that re-discretizes the AL term on every level.
+- ``CG``: exact Schur complement ``S = C K⁻¹ Cᵀ`` by CG.
+- ``ELMAN_triang``: BFBt block-triangular preconditioner, right GMRES.
+- ``rational``: ``diag(K⁻¹, (−Δ_Γ)^{-1/2})`` with AAA poles; MINRES in
+  float64, FGMRES in float32 (MINRES stagnates there).
+
+The last three share ``K⁻¹``: a tight GMG-preconditioned CG on the
+constrained stiffness.  Every inner vector is an (ny, nx) lattice tensor; the
+flat dof vector is a view of the same buffer.
+
+On CUDA the kernels carry the lattice work: K2 (``fused_augmented_2d``)
+applies the augmented operator (``op``) and smooths (``pre``/``post``) on
+every level whose Γ-band is interior, and smooths ``K⁻¹``'s levels in its
+no-patch form; K1 (``masked_laplace_2d``) is the constrained stiffness of
+``K⁻¹`` and of a coarse level whose band touches ∂Ω; K6
+(``laplace_stencil_2d``, through ``LatticeOps.laplace``) is the
+unconstrained stiffness that lifts the Dirichlet data.  On the CPU the same
+wrappers run their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -35,18 +44,19 @@ import torch
 
 from ..core.grid import GridSpace, UniformGrid
 from ..core.immersed import parametrized_curve
-from ..ops.assembly import (imm_mass_matrix, imm_rhs, interpolate,
-                            rhs_vector)
+from ..ops.assembly import (imm_mass_matrix, imm_rhs, imm_stiffness_matrix,
+                            interpolate, rhs_vector)
 from ..ops.blocks import BlockLayout, block_operator
 from ..ops.coupling import build_coupling
 from ..ops.kernels import (AugmentedStencil2D, fused_augmented_2d,
                            masked_laplace_2d)
-from ..ops.krylov import cg, fgmres
+from ..ops.krylov import cg, fgmres, gmres, minres
 from ..ops.linop import LinOp
 from ..ops.operators import dirichlet_rhs
 from ..parallel.lattice import LatticeOps
 from ..precond.al import al_preconditioner
 from ..precond.gmg import FusedSmoother, build_gmg
+from ..precond.rational import rational_preconditioner
 from ..precond.weights import inv_diag
 from ..utils.expressions import ParsedFunction
 
@@ -56,6 +66,8 @@ __all__ = ["SolverControlConfig", "ImmersedLaplaceConfig",
 # symmetric 5-plane compression of the 9-point patch: centre + the 4
 # "positive" offsets (0,1), (1,0), (1,1), (1,-1), as w9[a, b] indices
 _PLANES = ((1, 1), (1, 2), (2, 1), (2, 2), (2, 0))
+
+SOLVERS = ("augmented", "CG", "ELMAN_triang", "rational")
 
 
 @dataclass
@@ -98,12 +110,14 @@ class ImmersedLaplaceConfig:
 
 
 class ImmersedLaplaceProblem:
-    """``ImmersedLaplaceProblem(cfg, device=..., dtype=...).setup()`` then
-    ``.solve()``.  ``dtype`` defaults to float64 on the CPU and float32 on
-    CUDA.  ``lanczos_start(level_index, n) -> ndarray`` (optional attribute)
-    injects the GMG Lanczos start vectors."""
+    """``ImmersedLaplaceProblem(cfg).setup()`` then ``.solve()``.  The
+    problem runs on the CUDA card unless ``device="cpu"`` is given; ``dtype``
+    defaults to float64 on the CPU and float32 on CUDA.
+    ``lanczos_start(level_index, n) -> ndarray`` (optional attribute)
+    injects the GMG Lanczos start vectors (those of the augmented operator's
+    hierarchy and of ``K⁻¹``'s, which has the same levels)."""
 
-    def __init__(self, config: ImmersedLaplaceConfig, *, device="cpu",
+    def __init__(self, config: ImmersedLaplaceConfig, *, device="cuda",
                  dtype=None):
         self.cfg = config
         self.device = torch.device(device)
@@ -112,14 +126,17 @@ class ImmersedLaplaceProblem:
         self.results = {}
         self.stats = {"host_syncs": 0}
         self.lanczos_start = None
-        self._solver = None
+        self._solvers = {}
 
     def _check_supported(self):
         cfg = self.cfg
+        if cfg.solver not in SOLVERS:
+            raise ValueError(f"unknown solver {cfg.solver!r}; one of "
+                             f"{SOLVERS}")
         missing = []
-        if cfg.solver != "augmented" or not cfg.use_operator_form \
-                or not cfg.use_diagonal_inverse:
-            missing.append("solver modes other than augmented + operator form "
+        if cfg.solver == "augmented" and (not cfg.use_operator_form
+                                          or not cfg.use_diagonal_inverse):
+            missing.append("the augmented solver other than operator form "
                            "+ diagonal inverse")
         if cfg.delta_refinement:
             missing.append("delta_refinement")
@@ -167,6 +184,8 @@ class ImmersedLaplaceProblem:
                                 device=dev, dtype=dt)
         self.M = imm_mass_matrix(self.imm_space, order=max(kdeg + 1, 2),
                                  device=dev, dtype=dt)
+        self.A_imm = imm_stiffness_matrix(self.imm_space, order=deg + 1,
+                                          device=dev, dtype=dt)
         self.rhs_g = imm_rhs(self.imm_space, self.g_fn,
                              order=max(kdeg + 1, 2), device=dev, dtype=dt)
         self.free = torch.as_tensor(
@@ -177,7 +196,7 @@ class ImmersedLaplaceProblem:
                                 cfg.coupling_quadrature_order, device=dev,
                                 dtype=dt)
         self.layout = BlockLayout((self.space.n_dofs, self.imm_space.n_dofs))
-        self._solver = None
+        self._solvers = {}
         return self
 
     def load_state(self, state):
@@ -187,25 +206,34 @@ class ImmersedLaplaceProblem:
         self.rhs_f, self.rhs_g = state.rhs_f, state.rhs_g
         self.bc_values, self.free = state.bc_values, state.free
         self.C, self.M = state.coupling, state.mass
+        if state.stiffness is not None:
+            self.A_imm = state.stiffness
         if state.lanczos_starts is not None:
             starts = state.lanczos_starts
             self.lanczos_start = lambda i, n: starts[i]
-        self._solver = None
+        self._solvers = {}
         return self
 
     # -- solve ----------------------------------------------------------------
 
     def solve(self):
-        """Build the solver (once per setup) and run it.  Returns
-        ``(u, lam, SolveInfo)``; ``results`` records the outer iterations,
-        convergence, solve seconds and host syncs of this solve."""
-        if self._solver is None:
+        """Build the solver of ``cfg.solver`` (once per setup) and run it.
+        Returns ``(u, lam, SolveInfo)``; ``results`` records the outer
+        iterations, convergence, solve seconds and host syncs of this
+        solve."""
+        key = self.cfg.solver
+        if key not in self._solvers:
+            builder = {"augmented": self._augmented_run,
+                       "CG": self._build_schur_cg,
+                       "ELMAN_triang": self._build_elman,
+                       "rational": self._build_rational}[key]
             t0 = time.perf_counter()
-            self._solver = self._augmented_run()
+            self._solvers[key] = builder()
             self.results["build_seconds"] = time.perf_counter() - t0
         self.stats["host_syncs"] = 0
         t0 = time.perf_counter()
-        u, lam, info = self._solver(self.rhs_f, self.rhs_g, self.bc_values)
+        u, lam, info = self._solvers[key](self.rhs_f, self.rhs_g,
+                                          self.bc_values)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.u, self.lam = u, lam
@@ -272,8 +300,7 @@ class ImmersedLaplaceProblem:
         layout = self.layout
         free = self.free
         inv_w = inv_diag(self.M)
-        lat_fine = LatticeOps.for_space(self.space)
-        shape = lat_fine.shape
+        shape = LatticeOps.for_space(self.space).shape
         n = self.space.n_dofs
 
         self.level_stencils = []   # per GMG level, fine first
@@ -311,9 +338,7 @@ class ImmersedLaplaceProblem:
         # engaged at the ~4-30 outer iterations of this method)
         restart = min(cfg.fgmres_restart,
                       max(12, int(6e9 / (8 * max(layout.total, 1)))))
-
-        def k_mv(x):
-            return lat_fine.laplace(x.reshape(shape)).reshape(-1)
+        k_mv = self._k_mv()
 
         def run(rhs_f, rhs_g, bc_values):
             b0 = dirichlet_rhs(k_mv, rhs_f, free, bc_values)
@@ -327,6 +352,175 @@ class ImmersedLaplaceProblem:
             return torch.where(free, u, bc_values), lam, info
 
         return run
+
+    def _k_mv(self):
+        """The unconstrained fine stiffness on flat vectors (kernel K6 on
+        CUDA), which lifts the Dirichlet data."""
+        lat = LatticeOps.for_space(self.space)
+
+        def k_mv(x):
+            return lat.laplace(x.reshape(lat.shape)).reshape(-1)
+
+        return k_mv
+
+    def _kg_inv(self, reduction=1e-13):
+        """Tight GMG-preconditioned CG inverse of the constrained stiffness
+        (the reference's stand-in for UMFPACK/AMG, immersed_laplace.py:234-281
+        of the JAX package, lattice branch).  Every level operator is K1, the
+        smoother is K2 without patch, the level diagonal ``laplace_diag``.
+        CG stops on its recurrence residual at ``reduction`` of the initial
+        one.  Returns ``(K_c, K_inv)`` on flat vectors."""
+        dev, dt = self.device, self.dtype
+        shape = LatticeOps.for_space(self.space).shape
+        self.kinv_stencils = []   # per GMG level, fine first
+
+        def factory(sp):
+            lat = LatticeOps.for_space(sp)
+            st = AugmentedStencil2D(lat.h, lat.shape, device=dev, dtype=dt)
+            self.kinv_stencils.append(st)
+
+            def op(x2):
+                return masked_laplace_2d(x2, lat.h)
+
+            def smoother_builder(lam, degree, eig_ratio):
+                kw = dict(lam_max=lam, degree=degree, eig_ratio=eig_ratio)
+                return FusedSmoother(
+                    lambda b: fused_augmented_2d("smooth", st, b, **kw),
+                    pre=lambda b: fused_augmented_2d("pre", st, b, **kw),
+                    post=lambda b, x0: fused_augmented_2d("post", st, b, x0,
+                                                          **kw))
+
+            return op, lat.laplace_diag(), smoother_builder
+
+        gmg = build_gmg(self.space, factory, free_mask=self.free,
+                        lanczos_start=self.lanczos_start, dtype=dt,
+                        stats=self.stats)
+        self._kinv_gmg = gmg
+        k_lat = gmg.levels[0].op
+        n = self.space.n_dofs
+
+        def k_c(x):
+            return k_lat(x.reshape(shape)).reshape(-1)
+
+        def K_inv(v):
+            x2, _ = cg(k_lat, v.reshape(shape), M=gmg.apply, tol=0.0,
+                       reduction=reduction, max_steps=2000, stats=self.stats)
+            return x2.reshape(-1)
+
+        return LinOp(k_c, (n, n), k_c, name="K_c"), K_inv
+
+    def _build_schur_cg(self):
+        """Exact-Schur CG (immersed_laplace.cc:507-525)."""
+        cfg = self.cfg
+        _, K_inv = self._kg_inv()
+        C_lin = self.C.as_linop()
+        Ct_lin = C_lin.T
+        free = self.free
+        k_mv = self._k_mv()
+
+        def run(rhs_f, rhs_g, bc_values):
+            b0 = dirichlet_rhs(k_mv, rhs_f, free, bc_values)
+
+            def S(lam):
+                return C_lin(K_inv(Ct_lin(lam)))
+
+            rhs = C_lin(K_inv(b0)) - rhs_g
+            lam, info = cg(S, rhs, tol=cfg.schur.tolerance,
+                           reduction=cfg.schur.reduction,
+                           max_steps=cfg.schur.max_steps, stats=self.stats)
+            u = K_inv(b0 - Ct_lin(lam))
+            return torch.where(free, u, bc_values), lam, info
+
+        return run
+
+    def _build_elman(self):
+        """Elman BFBt block-triangular GMRES (immersed_laplace.cc:526-584)."""
+        cfg = self.cfg
+        K_c, K_inv = self._kg_inv()
+        C_lin = self.C.as_linop()
+        Ct_lin = C_lin.T
+        layout = self.layout
+        free = self.free
+        k_mv = self._k_mv()
+
+        def CCt(lam):
+            return C_lin(Ct_lin(lam))
+
+        def CCt_inv(v):
+            x, _ = cg(CCt, v, tol=1e-12, max_steps=40, fixed_iters=True,
+                      stats=self.stats)
+            return x
+
+        def S_inv(v):
+            return CCt_inv(C_lin(K_c(Ct_lin(CCt_inv(v)))))
+
+        def prec(x):
+            x0, x1 = layout.split(x)
+            s = S_inv(x1)
+            return layout.concat((K_inv(x0) + K_inv(Ct_lin(s)), -s))
+
+        AA = block_operator(layout, layout, [[K_c, Ct_lin], [C_lin, None]])
+
+        def run(rhs_f, rhs_g, bc_values):
+            b0 = dirichlet_rhs(k_mv, rhs_f, free, bc_values)
+            x, info = gmres(AA, layout.concat((b0, rhs_g)), prec,
+                            tol=cfg.schur.tolerance,
+                            reduction=cfg.schur.reduction,
+                            max_steps=cfg.schur.max_steps,
+                            restart=cfg.fgmres_restart, stats=self.stats)
+            u, lam = layout.split(x)
+            return torch.where(free, u, bc_values), lam, info
+
+        return run
+
+    def _build_rational(self):
+        """MINRES + rational preconditioner diag(K⁻¹, (−Δ_Γ)^{-1/2})
+        (immersed_laplace.cc:585-635).  In float32 the outer is FGMRES: the
+        preconditioner's inner solves stop on tolerances, so it varies
+        between outer iterations and MINRES, which assumes a fixed SPD
+        preconditioner, stagnates (the JAX package measured 1000 iterations
+        at refinement 5 against 22 for FGMRES)."""
+        cfg = self.cfg
+        K_c, K_inv = self._kg_inv()
+        C_lin = self.C.as_linop()
+        Ct_lin = C_lin.T
+        layout = self.layout
+        free = self.free
+        k_mv = self._k_mv()
+        # ρ bound: ℓ∞ norm of A_Γ over the smallest diagonal of M (:609-614)
+        rho_bound = (self._imm_linfty_norm(self.A_imm)
+                     / float(self.M.diag().min()))
+        prec = rational_preconditioner(layout, K_inv, self.A_imm, self.M,
+                                       rho_bound, stats=self.stats)
+        AA = block_operator(layout, layout, [[K_c, Ct_lin], [C_lin, None]])
+        # restart truncation stalls the float32 FGMRES near its precision
+        # floor, so keep a generous basis within ~2 GB, hard-capped at ~6 GB
+        # for the V and Z bases (8 bytes a dof per basis vector)
+        budget = min(200, int(2e9 / (4 * max(layout.total, 1))))
+        hard_cap = max(8, int(6e9 / (8 * max(layout.total, 1))))
+        restart = min(max(cfg.fgmres_restart, budget), hard_cap)
+        f32 = self.dtype == torch.float32
+
+        def run(rhs_f, rhs_g, bc_values):
+            b0 = dirichlet_rhs(k_mv, rhs_f, free, bc_values)
+            b = layout.concat((b0, rhs_g))
+            ctl = dict(tol=cfg.schur.tolerance, reduction=cfg.schur.reduction,
+                       max_steps=cfg.schur.max_steps, stats=self.stats)
+            if f32:
+                x, info = fgmres(AA, b, prec, restart=restart, **ctl)
+            else:
+                x, info = minres(AA, b, prec, **ctl)
+            u, lam = layout.split(x)
+            return torch.where(free, u, bc_values), lam, info
+
+        return run
+
+    @staticmethod
+    def _imm_linfty_norm(A) -> float:
+        rows, _, vals = A.to_coo()
+        sums = np.zeros(A.shape[0])
+        np.add.at(sums, rows, np.abs(vals))
+        return float(sums.max())
 
     # -- diagnostics ----------------------------------------------------------
 

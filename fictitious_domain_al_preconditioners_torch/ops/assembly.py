@@ -1,9 +1,10 @@
-"""FEM assembly for the flagship slice.
+"""FEM assembly for the immersed_laplace problem.
 
 Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.assembly``
-(the Q1 lattice load vector, the immersed mass matrix and load vector, nodal
-interpolation and the L2 error).  Setup-time work runs in float64 NumPy on
-the host; results are handed over as tensors on the requested device.
+(the Q1 lattice load vector, the immersed mass and stiffness matrices and
+load vector, nodal interpolation and the L2 error).  Setup-time work runs
+in float64 NumPy on the host; results are handed over as tensors on the
+requested device (CUDA unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -14,11 +15,11 @@ import torch
 from ..core.quadrature import gauss
 from .operators import CellMatrix
 
-__all__ = ["rhs_vector", "imm_mass_matrix", "imm_rhs", "interpolate",
-           "l2_error"]
+__all__ = ["rhs_vector", "imm_mass_matrix", "imm_stiffness_matrix", "imm_rhs",
+           "interpolate", "l2_error"]
 
 
-def rhs_vector(space, fn, order=None, *, device="cpu", dtype=torch.float64):
+def rhs_vector(space, fn, order=None, *, device="cuda", dtype=torch.float64):
     """(f, φ_i) load vector of a Q1-continuous background space."""
     order = order or space.fe.degree + 1
     if not (space.fe.degree == 1 and space.continuous):
@@ -56,7 +57,7 @@ def _lattice_rhs(space, fn, order: int) -> np.ndarray:
     return out.reshape(-1)
 
 
-def imm_mass_matrix(ispace, order=None, *, device="cpu",
+def imm_mass_matrix(ispace, order=None, *, device="cuda",
                     dtype=torch.float64) -> CellMatrix:
     """Immersed mass matrix M (embedded_mass_matrix,
     immersed_laplace.cc:471)."""
@@ -70,7 +71,24 @@ def imm_mass_matrix(ispace, order=None, *, device="cpu",
                       dtype=dtype)
 
 
-def imm_rhs(ispace, fn, order=None, *, device="cpu", dtype=torch.float64):
+def imm_stiffness_matrix(ispace, order=None, *, device="cuda",
+                         dtype=torch.float64) -> CellMatrix:
+    """Immersed Laplace-Beltrami stiffness A_Γ through the first fundamental
+    form (embedded_stiffness_matrix, immersed_laplace.cc:467; used by the
+    rational preconditioner)."""
+    order = order or (ispace.fe.degree + 1)
+    rule = gauss(ispace.mesh.dim, order)
+    grad = ispace.fe.tabulate_grad(rule.points)        # (nq, nloc, d)
+    _, J, jxw = ispace.mesh.quad_geometry(rule)
+    G = np.einsum("cqsd,cqse->cqde", J, J)
+    Ginv = np.linalg.inv(G)
+    local = np.einsum("qad,cqde,qbe,cq->cab", grad, Ginv, grad, jxw)
+    return CellMatrix(ispace.cell_dofs, ispace.cell_dofs, local,
+                      (ispace.n_dofs, ispace.n_dofs), device=device,
+                      dtype=dtype)
+
+
+def imm_rhs(ispace, fn, order=None, *, device="cuda", dtype=torch.float64):
     """(g, ψ_j)_Γ load vector on the immersed space (scalar ``fn``)."""
     order = order or (ispace.fe.degree + 1)
     rule = gauss(ispace.mesh.dim, order)
@@ -84,7 +102,7 @@ def imm_rhs(ispace, fn, order=None, *, device="cpu", dtype=torch.float64):
     return torch.as_tensor(out, dtype=dtype, device=device)
 
 
-def interpolate(space, fn, *, device="cpu", dtype=torch.float64):
+def interpolate(space, fn, *, device="cuda", dtype=torch.float64):
     """Nodal interpolation (VectorTools::interpolate), host NumPy."""
     return torch.as_tensor(np.array(fn(space.dof_points)), dtype=dtype,
                            device=device)

@@ -180,7 +180,7 @@ def _cell_dofs_of(space, cells):
 
 
 def build_coupling(bg_space, imm_space, order: int = 3, *,
-                   device="cpu", dtype=torch.float64) -> Coupling:
+                   device="cuda", dtype=torch.float64) -> Coupling:
     """Assemble the quad-point coupling table ('Coupling quadrature order'
     in every reference prm) by NumPy point location on the uniform grid."""
     mesh = imm_space.mesh

@@ -1,5 +1,5 @@
-"""The flagship path's two lattice kernels: wrappers, plain PyTorch versions
-and the build of their CUDA sources.
+"""The lattice kernels: wrappers, plain PyTorch versions and the build of
+their CUDA sources.
 
 Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.pallas_kernels``:
 
@@ -8,17 +8,22 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.pallas_kernels``:
   ``m*K(m*u) + (1-m)*u`` on an (ny, nx) lattice.
 - **K2** :func:`fused_augmented_2d` replaces ``fused_chebyshev_2d``
   (``pallas_kernels.py:394``): the masked augmented operator (stiffness plus
-  the Γ-band AL patch) in four modes, ``op``, ``smooth``, ``pre`` and
-  ``post``.
+  the Γ-band AL patch, or the stiffness alone when the stencil has no patch
+  planes) in four modes, ``op``, ``smooth``, ``pre`` and ``post``.
+- **K6** :func:`laplace_stencil_2d` replaces ``_conv9_pallas``
+  (``pallas_kernels.py:31``) with the edge corrections of
+  ``SeparableStencil2D``: the unconstrained Q1 stiffness apply.
 
-Both kernels are CUDA C++ for ``sm_90a`` in ``csrc/fdal_kernels.cu`` behind a
-plain C interface; :func:`build` compiles them with ``nvcc`` into
-``build/torch_kernels/`` at first use and they are called through ctypes.
+K1 and K2 are CUDA C++ for ``sm_90a`` in ``csrc/fdal_kernels.cu``, K6 in
+``csrc/fdal_stencil.cu``, all behind a plain C interface; :func:`build`
+compiles the sources with ``nvcc`` (one process each, run together) into one
+library under ``build/torch_kernels/`` at first use, called through ctypes.
 Nothing is built or imported from CUDA when this module is imported.
 
 Dispatch rule of every wrapper: a CPU tensor goes to the plain PyTorch
 version; a CUDA tensor launches the kernel (float32, contiguous) or raises.
-Each launch adds one to :data:`LAUNCHES` (K2 per mode).
+Each launch adds one to :data:`LAUNCHES` (K2 per mode, and per form: with or
+without patch planes).
 """
 
 from __future__ import annotations
@@ -35,16 +40,23 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "build", "stencil_factors_2d",
            "masked_laplace_2d", "masked_laplace_2d_plain",
+           "laplace_stencil_2d", "laplace_stencil_2d_plain",
            "AugmentedStencil2D", "fused_augmented_2d",
-           "fused_augmented_2d_plain", "MODES"]
+           "fused_augmented_2d_plain", "launch_key", "MODES"]
 
 MODES = ("op", "smooth", "pre", "post")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 _MAX_DEGREE = 6  # csrc/fdal_kernels.cu MAX_DEG
 
-#: kernel launches made by the wrappers, keyed by kernel (K2 by mode)
-LAUNCHES = {"masked_laplace_2d": 0,
-            **{f"fused_augmented_2d:{m}": 0 for m in MODES}}
+
+def launch_key(mode: str, patch: bool = True) -> str:
+    """The :data:`LAUNCHES` key of K2 in ``mode``, with or without patch."""
+    return f"fused_augmented_2d:{mode}" + ("" if patch else ":no_patch")
+
+
+#: kernel launches made by the wrappers, keyed by kernel (K2 by mode and form)
+LAUNCHES = {"masked_laplace_2d": 0, "laplace_stencil_2d": 0,
+            **{launch_key(m, p): 0 for p in (True, False) for m in MODES}}
 
 
 def reset_launch_counts():
@@ -53,7 +65,8 @@ def reset_launch_counts():
 
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "fdal_kernels.cu")
+SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f)
+                for f in ("fdal_kernels.cu", "fdal_stencil.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 
@@ -65,21 +78,46 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile ``csrc/fdal_kernels.cu`` for sm_90a into a shared library
-    under ``build/torch_kernels/`` (named by the source's hash, so an edited
-    source rebuilds) and return its path."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
-    lib = os.path.join(BUILD_DIR, f"libfdal_kernels_{digest}.so")
+    """Compile the CUDA sources for sm_90a, one ``nvcc`` process each, all
+    started together, and link them into one shared library under
+    ``build/torch_kernels/`` (named by the sources' hash, so an edited source
+    rebuilds); return its path."""
+    digest = hashlib.sha1()
+    for src in SOURCES:
+        with open(src, "rb") as fh:
+            digest.update(fh.read())
+    tag = digest.hexdigest()[:12]
+    lib = os.path.join(BUILD_DIR, f"libfdal_kernels_{tag}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+    jobs = []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}."
+                                      f"{os.getpid()}.o")
+        cmd = [nvcc, *flags, "-Xcompiler", "-fPIC", "-c", "-o", obj, src]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src} ({proc.returncode}):\n{err}")
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if not errors:
+        res = subprocess.run([nvcc, *flags, "-shared", "-o", tmp,
+                              *(obj for _, obj, _ in jobs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            errors.append(f"nvcc link failed ({res.returncode}):\n"
+                          f"{res.stderr}")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, lib)
     return lib
 
@@ -90,6 +128,8 @@ def _library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fdal_masked_laplace_2d.argtypes = [vp, vp, ci, ci, vp, vp]
     lib.fdal_masked_laplace_2d.restype = ci
+    lib.fdal_laplace_stencil_2d.argtypes = [vp, vp, ci, ci, vp, vp]
+    lib.fdal_laplace_stencil_2d.restype = ci
     lib.fdal_fused_augmented_2d.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci,
                                             ci, vp, ci, ci, ci, ci, vp, vp]
     lib.fdal_fused_augmented_2d.restype = ci
@@ -197,6 +237,83 @@ def masked_laplace_2d(u: torch.Tensor, h) -> torch.Tensor:
     return out
 
 
+# --------------------------------------------------------------------- K6 --
+
+def _edge_factors_2d(h):
+    """(off, centre, boundary centre) of the 1D factors K0, M0, K1, M1 of the
+    unconstrained Q1 stiffness K0⊗M1 + M0⊗K1 (``laplace_stencil_2d`` of the
+    reference, ``pallas_kernels.py:149-156``): a boundary node has half an
+    interior node's support, so its centre is half the interior one."""
+    return tuple((float(f[0]), float(f[1]), 0.5 * float(f[1]))
+                 for f in stencil_factors_2d(h))
+
+
+def _line_stencil(v, off, diag, axis):
+    """3-point Toeplitz stencil with zero ends along ``axis`` of a 2D tensor."""
+    v = torch.movedim(v, axis, 0)
+    pad = torch.zeros_like(v[:1])
+    out = diag * v + off * (torch.cat([pad, v[:-1]], 0)
+                            + torch.cat([v[1:], pad], 0))
+    return torch.movedim(out, 0, axis)
+
+
+def laplace_stencil_2d_plain(u: torch.Tensor, h) -> torch.Tensor:
+    """Plain PyTorch K6: ``SeparableStencil2D.__call__`` with ``_conv9_xla``
+    (``pallas_kernels.py:81-146``), the constant 9-point stencil of the
+    zero-padded input plus the rank-1 edge-row, edge-column and corner
+    corrections of the boundary diagonals."""
+    ny, nx = u.shape
+    K0, M0, K1, M1 = _edge_factors_2d(h)
+    pairs = ((K0, M1), (M0, K1))
+    w = sum(np.outer([p0[0], p0[1], p0[0]], [p1[0], p1[1], p1[0]])
+            for p0, p1 in pairs)
+    up = torch.nn.functional.pad(u, (1, 1, 1, 1))
+    out = None
+    for di in range(3):
+        for dj in range(3):
+            t = float(w[di, dj]) * up[di:di + ny, dj:dj + nx]
+            out = t if out is None else out + t
+    rows = torch.stack([u[0], u[-1]])                # (2, nx)
+    cols = torch.stack([u[:, 0], u[:, -1]], dim=1)   # (ny, 2)
+    row_line = torch.zeros_like(rows)
+    col_line = torch.zeros_like(cols)
+    corner = 0.0
+    for p0, p1 in pairs:
+        c0, c1 = p0[2] - p0[1], p1[2] - p1[1]     # bdiag - diag
+        row_line = row_line + c0 * _line_stencil(rows, p1[0], p1[1], 1)
+        col_line = col_line + c1 * _line_stencil(cols, p0[0], p0[1], 0)
+        corner += c0 * c1
+    out[0] += row_line[0]
+    out[-1] += row_line[1]
+    out[:, 0] += col_line[:, 0]
+    out[:, -1] += col_line[:, 1]
+    for r, c in ((0, 0), (0, -1), (-1, 0), (-1, -1)):
+        out[r, c] += corner * u[r, c]
+    return out
+
+
+def laplace_stencil_2d(u: torch.Tensor, h) -> torch.Tensor:
+    """K6: unconstrained Q1 stiffness apply ``(K0⊗M1 + M0⊗K1) u`` on an
+    (ny, nx) lattice tensor; ``h`` is the cell size per lattice axis."""
+    if u.device.type == "cpu":
+        return laplace_stencil_2d_plain(u, h)
+    _check_cuda("laplace_stencil_2d", u)
+    if u.dim() != 2:
+        raise ValueError("laplace_stencil_2d: expected an (ny, nx) tensor")
+    ny, nx = u.shape
+    out = torch.empty_like(u)
+    fac = np.array([v for f in _edge_factors_2d(h) for v in f],
+                   dtype=np.float32)
+    lib = _library()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        rc = lib.fdal_laplace_stencil_2d(u.data_ptr(), out.data_ptr(), ny, nx,
+                                         fac.ctypes.data, stream)
+    _check_rc(rc, "laplace_stencil_2d")
+    LAUNCHES["laplace_stencil_2d"] += 1
+    return out
+
+
 # --------------------------------------------------------------------- K2 --
 
 class AugmentedStencil2D:
@@ -207,25 +324,50 @@ class AugmentedStencil2D:
     ``(r0, c0, pr, pc)`` in symmetric form: centre, (0,1), (1,0), (1,1),
     (1,-1), where plane ``e`` at point p weighs ``x[p+e]``; the mirrored
     offset ``-e`` weighs ``x[p-e]`` with ``plane_e[p-e]``.  ``h`` is the cell
-    size per lattice axis and ``shape`` the lattice (ny, nx)."""
+    size per lattice axis and ``shape`` the lattice (ny, nx).
+
+    Without planes (``planes=None``, box ``(0, 0, 0, 0)``) the operator is
+    the constrained stiffness alone, the level operator of the reference's
+    tight K inverse (``pallas_kernels.py:477, 580-583``); ``device`` and
+    ``dtype`` then say where its tensors live (with planes they are the
+    planes')."""
 
     OFFSETS = ((0, 1), (1, 0), (1, 1), (1, -1))
 
-    def __init__(self, h, shape, planes: torch.Tensor, box):
+    def __init__(self, h, shape, planes: torch.Tensor | None = None,
+                 box=(0, 0, 0, 0), *, device=None, dtype=None):
         self.h = (float(h[0]), float(h[1]))
         self.shape = (int(shape[0]), int(shape[1]))
-        self.planes = planes.contiguous()
         self.box = tuple(int(v) for v in box)
         r0, c0, pr, pc = self.box
         ny, nx = self.shape
-        if not (0 <= r0 and r0 + pr <= ny and 0 <= c0 and c0 + pc <= nx
-                and pr > 0 and pc > 0):
-            raise ValueError(f"patch box {self.box} outside lattice {shape}")
-        if tuple(self.planes.shape) != (5, pr, pc):
-            raise ValueError(f"planes {tuple(self.planes.shape)} do not "
-                             f"match box {self.box}")
+        if planes is None:
+            if self.box != (0, 0, 0, 0):
+                raise ValueError(f"patch box {self.box} given without planes")
+            if device is None or dtype is None:
+                raise ValueError("a stencil without planes needs its device "
+                                 "and dtype")
+            self.planes = None
+            self.device, self.dtype = torch.device(device), dtype
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+        else:
+            self.planes = planes.contiguous()
+            self.device, self.dtype = self.planes.device, self.planes.dtype
+            if not (0 <= r0 and r0 + pr <= ny and 0 <= c0 and c0 + pc <= nx
+                    and pr > 0 and pc > 0):
+                raise ValueError(f"patch box {self.box} outside lattice "
+                                 f"{shape}")
+            if tuple(self.planes.shape) != (5, pr, pc):
+                raise ValueError(f"planes {tuple(self.planes.shape)} do not "
+                                 f"match box {self.box}")
         K0, M0, K1, M1 = stencil_factors_2d(self.h)
         self.kc = float(K0[1] * M1[1] + M0[1] * K1[1])
+
+    @property
+    def patched(self) -> bool:
+        return self.planes is not None
 
     @functools.cached_property
     def w9(self) -> torch.Tensor:
@@ -246,22 +388,26 @@ class AugmentedStencil2D:
 
     @functools.cached_property
     def dinv(self) -> torch.Tensor:
-        """Chebyshev D⁻¹ = 1/(Kc + w_c) on interior points, 1 elsewhere."""
+        """Chebyshev D⁻¹ = 1/(Kc + w_c) on interior points (w_c = 0 without
+        patch), 1 elsewhere."""
         ny, nx = self.shape
         r0, c0, pr, pc = self.box
-        wc = self.planes.new_zeros((ny, nx))
-        wc[r0:r0 + pr, c0:c0 + pc] = self.planes[0]
-        m = _interior_mask(ny, nx, self.planes.device)
+        wc = torch.zeros((ny, nx), dtype=self.dtype, device=self.device)
+        if self.patched:
+            wc[r0:r0 + pr, c0:c0 + pc] = self.planes[0]
+        m = _interior_mask(ny, nx, self.device)
         return torch.where(m, 1.0 / (self.kc + wc), 1.0)
 
     def op_plain(self, x: torch.Tensor) -> torch.Tensor:
         """Unfused augmented apply: K1-plain plus the masked 9-point patch
         (the composition of ``patch_al_lattice``), evaluated on the box grown
         by one point and clipped to the lattice."""
+        out = masked_laplace_2d_plain(x, self.h)
+        if not self.patched:
+            return out
         ny, nx = self.shape
         r0, c0, pr, pc = self.box
         m = _interior_mask(ny, nx, x.device)
-        out = masked_laplace_2d_plain(x, self.h)
         zp = torch.nn.functional.pad(torch.where(m, x, 0.0), (2, 2, 2, 2))
         # grown box rows r0-1 .. r0+pr read z rows r0-2 .. r0+pr+1
         up = zp[r0:r0 + pr + 4, c0:c0 + pc + 4]
@@ -320,9 +466,10 @@ def fused_augmented_2d(mode: str, st: AugmentedStencil2D, b, x0=None, *,
                                         degree=degree, eig_ratio=eig_ratio)
     ny, nx = st.shape
     _check_cuda("fused_augmented_2d: b", b, (ny, nx))
-    _check_cuda("fused_augmented_2d: planes", st.planes)
-    if st.planes.device != b.device:
-        raise ValueError("fused_augmented_2d: planes on another device")
+    if st.patched:
+        _check_cuda("fused_augmented_2d: planes", st.planes)
+    if st.device != b.device:
+        raise ValueError("fused_augmented_2d: stencil on another device")
     if x0 is not None:
         _check_cuda("fused_augmented_2d: x0", x0, (ny, nx))
     if mode != "op" and not 2 <= degree <= _MAX_DEGREE:
@@ -341,9 +488,10 @@ def fused_augmented_2d(mode: str, st: AugmentedStencil2D, b, x0=None, *,
         stream = torch.cuda.current_stream(b.device).cuda_stream
         rc = lib.fdal_fused_augmented_2d(
             _MODE_ID[mode], int(degree), b.data_ptr(),
-            None if x0 is None else x0.data_ptr(), st.planes.data_ptr(),
+            None if x0 is None else x0.data_ptr(),
+            st.planes.data_ptr() if st.patched else None,
             out.data_ptr(), None if rout is None else rout.data_ptr(),
             ny, nx, fac.ctypes.data, r0, c0, pr, pc, coef.ctypes.data, stream)
     _check_rc(rc, f"fused_augmented_2d({mode})")
-    LAUNCHES[f"fused_augmented_2d:{mode}"] += 1
+    LAUNCHES[launch_key(mode, st.patched)] += 1
     return (out, rout) if mode == "pre" else out

@@ -2,11 +2,13 @@
 
 Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.operators``:
 ``constrain`` and ``dirichlet_rhs``, plus a minimal :class:`CellMatrix`
-(``mv``, ``diag``) that holds the immersed mass matrix.
+(``mv``, ``diag``, ``to_coo``) that holds the immersed mass and stiffness
+matrices.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .linop import LinOp
@@ -27,9 +29,16 @@ class CellMatrix:
         self.shape = tuple(shape)
 
     def mv(self, x):
-        ye = torch.einsum("cab,cb->ca", self.local, x[self.col_dofs])
-        out = torch.zeros(self.shape[0], dtype=x.dtype, device=x.device)
-        return out.index_add_(0, self.row_dofs.reshape(-1), ye.reshape(-1))
+        """``A @ x``; a trailing axis broadcasts: x may be (n,) or (n, k)."""
+        xe = x[self.col_dofs]                   # (nc, nloc_c[, k])
+        if xe.dim() == 3:
+            ye = torch.einsum("cab,cbk->cak", self.local, xe)
+        else:
+            ye = torch.einsum("cab,cb->ca", self.local, xe)
+        out = torch.zeros((self.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        return out.index_add_(0, self.row_dofs.reshape(-1),
+                              ye.reshape((-1,) + tuple(x.shape[1:])))
 
     def diag(self):
         """Assembled main diagonal (row and column spaces coincide)."""
@@ -37,6 +46,15 @@ class CellMatrix:
         out = torch.zeros(self.shape[0], dtype=self.local.dtype,
                           device=self.local.device)
         return out.index_add_(0, self.row_dofs.reshape(-1), d_loc.reshape(-1))
+
+    def to_coo(self):
+        """(rows, cols, vals) as NumPy arrays, duplicates NOT summed."""
+        row_dofs = self.row_dofs.cpu().numpy()
+        col_dofs = self.col_dofs.cpu().numpy()
+        nr, ncl = row_dofs.shape[1], col_dofs.shape[1]
+        rows = np.repeat(row_dofs, ncl, axis=1).reshape(-1)
+        cols = np.tile(col_dofs, (1, nr)).reshape(-1)
+        return rows, cols, self.local.cpu().numpy().reshape(-1)
 
 
 def constrain(op, free_mask: torch.Tensor) -> LinOp:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.grid import GridSpace
+from ..ops.kernels import laplace_stencil_2d
 
 __all__ = ["LatticeOps", "to_flat", "flat_to_lattice", "lattice_prolong",
            "lattice_restrict"]
@@ -64,7 +65,11 @@ class LatticeOps:
         return self._axis_apply_n(u, axis, -1.0 / h, 2.0 / h, 1.0 / h)
 
     def laplace(self, u):
-        """Unconstrained Q1 stiffness apply on a lattice tensor."""
+        """Unconstrained Q1 stiffness apply on a lattice tensor.  A 2D CUDA
+        tensor goes through kernel K6 (``ops.kernels.laplace_stencil_2d``,
+        the same function); otherwise the separable form below runs."""
+        if u.dim() == 2 and u.device.type == "cuda":
+            return laplace_stencil_2d(u, self.h)
         dim = len(self.shape)
         out = None
         for d in range(dim):

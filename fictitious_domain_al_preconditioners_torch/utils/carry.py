@@ -2,8 +2,9 @@
 
 This system has no weights: what a parity run carries across is the setup
 state of one problem (right-hand sides, Dirichlet data, the coupling table,
-the immersed mass diagonal and the GMG Lanczos start vectors), handed over as
-NumPy arrays so both solvers run on identical inputs.
+the immersed mass diagonal or the whole immersed mass and stiffness matrices,
+and the GMG Lanczos start vectors), handed over as NumPy arrays so both
+solvers run on identical inputs.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.coupling import Coupling
+from ..ops.operators import CellMatrix
 
 __all__ = ["CarriedState", "DiagonalMatrix", "state_from_jax"]
 
@@ -36,7 +38,8 @@ class CarriedState:
     bc_values: torch.Tensor
     free: torch.Tensor
     coupling: Coupling
-    mass: DiagonalMatrix
+    mass: DiagonalMatrix | CellMatrix
+    stiffness: CellMatrix | None
     lanczos_starts: list | None
 
 
@@ -52,7 +55,11 @@ def state_from_jax(arrays: dict, device, dtype) -> CarriedState:
     coupling table ``bg_dofs``, ``bg_phi``, ``imm_dofs``, ``imm_psi``,
     ``jxw``, the immersed mass diagonal ``m_diag`` and optionally
     ``lanczos_starts``, a list of per-level Lanczos start vectors (fine level
-    first)."""
+    first; the augmented operator's GMG and ``K⁻¹``'s have the same levels
+    and the reference draws the same vector for both).  With
+    ``imm_cell_dofs``, ``m_local`` and ``a_local`` (per-cell local matrices)
+    the whole immersed mass and stiffness matrices are carried, as the
+    rational mode needs them."""
     missing = [k for k in _KEYS if k not in arrays]
     if missing:
         raise KeyError(f"state_from_jax: missing arrays {missing}")
@@ -67,9 +74,18 @@ def state_from_jax(arrays: dict, device, dtype) -> CarriedState:
                         (rhs_g.shape[0], rhs_f.shape[0]), device=device,
                         dtype=dtype)
     starts = arrays.get("lanczos_starts")
+    mass, stiffness = DiagonalMatrix(ten("m_diag")), None
+    if "m_local" in arrays:
+        dofs, n = arrays["imm_cell_dofs"], rhs_g.shape[0]
+
+        def cell_matrix(key):
+            return CellMatrix(dofs, dofs, np.asarray(arrays[key]), (n, n),
+                              device=device, dtype=dtype)
+
+        mass, stiffness = cell_matrix("m_local"), cell_matrix("a_local")
     return CarriedState(
         rhs_f=rhs_f, rhs_g=rhs_g, bc_values=ten("bc_values"),
         free=ten("free", torch.bool), coupling=coupling,
-        mass=DiagonalMatrix(ten("m_diag")),
+        mass=mass, stiffness=stiffness,
         lanczos_starts=None if starts is None
         else [np.asarray(v, dtype=np.float64) for v in starts])

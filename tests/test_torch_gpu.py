@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
-version, the wrappers' checks, and a small flagship solve against the CPU.
+version, the wrappers' checks, and small solves of every mode against the
+CPU.
 Marked ``gpu``; without a card every test skips.  On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py -q
@@ -64,6 +65,33 @@ def test_kernels_match_plain(cuda, box):
         assert K.LAUNCHES[key] == before[key] + 1
 
 
+@pytest.mark.parametrize("shape", [(97, 161), (1025, 1025)])
+def test_k6_and_no_patch_k2_match_plain(cuda, shape):
+    h = (1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1))
+    st = K.AugmentedStencil2D(h, shape, device=cuda, dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    b = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    x0 = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                         device=cuda)
+    before = dict(K.LAUNCHES)
+    assert _rel(K.laplace_stencil_2d(b, h),
+                K.laplace_stencil_2d_plain(b, h)) <= 1e-6
+    tol = {"op": 1e-6, "smooth": 2e-5, "pre": 2e-5, "post": 5e-5}
+    for mode in K.MODES:
+        xin = x0 if mode == "post" else None
+        got = K.fused_augmented_2d(mode, st, b, xin, lam_max=1.5)
+        ref = K.fused_augmented_2d_plain(mode, st, b, xin, lam_max=1.5)
+        pairs = zip(got, ref) if mode == "pre" else [(got, ref)]
+        for g, r in pairs:
+            assert _rel(g, r) <= tol[mode]
+    assert K.LAUNCHES["laplace_stencil_2d"] == \
+        before["laplace_stencil_2d"] + 1
+    for mode in K.MODES:
+        key = K.launch_key(mode, patch=False)
+        assert K.LAUNCHES[key] == before[key] + 1
+
+
 def test_wrappers_check_their_inputs(cuda):
     st = _stencil(cuda)
     with pytest.raises(TypeError):
@@ -90,7 +118,32 @@ def test_small_flagship_matches_cpu(cuda):
         return c
 
     ug, _, ig = ImmersedLaplaceProblem(cfg(), device=cuda).setup().solve()
-    uc, _, ic = ImmersedLaplaceProblem(cfg(), dtype=torch.float32).setup() \
-        .solve()
+    uc, _, ic = ImmersedLaplaceProblem(cfg(), device="cpu",
+                                        dtype=torch.float32).setup().solve()
     assert ig.converged and abs(ig.iterations - ic.iterations) <= 1
     assert float((ug.cpu() - uc).abs().max()) <= 1e-3 * float(uc.abs().max())
+
+
+@pytest.mark.parametrize("solver", ["CG", "ELMAN_triang", "rational"])
+def test_small_modes_match_cpu(cuda, solver):
+    """The f = 0, g = 1 circle at refinement 5 with the flagship's float32
+    stopping rule: the card (kernels) against the CPU (plain versions)."""
+    def cfg():
+        c = ImmersedLaplaceConfig(
+            initial_refinement=5, initial_embedded_refinement=5,
+            embedded_configuration=("R*cos(2*pi*x)+Cx; R*sin(2*pi*x)+Cy",
+                                    "R=.2, Cx=.4, Cy=.4"),
+            solver=solver)
+        c.schur.tolerance, c.schur.reduction = 3e-5, 1e-6
+        return c
+
+    K.reset_launch_counts()
+    ug, _, ig = ImmersedLaplaceProblem(cfg(), device=cuda).setup().solve()
+    launches = dict(K.LAUNCHES)
+    uc, _, ic = ImmersedLaplaceProblem(cfg(), device="cpu",
+                                       dtype=torch.float32).setup().solve()
+    assert ig.converged and abs(ig.iterations - ic.iterations) <= 1
+    assert float((ug.cpu() - uc).abs().max()) <= 1e-3 * float(uc.abs().max())
+    for key in ("masked_laplace_2d", "laplace_stencil_2d",
+                K.launch_key("pre", False), K.launch_key("post", False)):
+        assert launches[key] > 0, key

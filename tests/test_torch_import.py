@@ -16,6 +16,8 @@ MODULES = [
     PKG, f"{PKG}.core", f"{PKG}.ops", f"{PKG}.ops.kernels", f"{PKG}.precond",
     f"{PKG}.parallel", f"{PKG}.models", f"{PKG}.utils",
     f"{PKG}.models.immersed_laplace", f"{PKG}.utils.carry",
+    f"{PKG}.ops.krylov", f"{PKG}.ops.operators", f"{PKG}.ops.assembly",
+    f"{PKG}.parallel.lattice", f"{PKG}.precond.rational",
 ]
 
 
@@ -66,8 +68,9 @@ def test_package_sources_import_no_jax():
 
 @pytest.mark.parametrize("path_env", ["", "/nonexistent"])
 def test_kernels_import_and_cpu_use_need_no_nvcc(path_env):
-    """Importing ops.kernels and running its wrappers on CPU tensors neither
-    builds nor loads the CUDA library (no nvcc on PATH)."""
+    """Importing ops.kernels and running its wrappers (K1, K6, K2 with and
+    without patch) on CPU tensors neither builds nor loads the CUDA library
+    (no nvcc on PATH)."""
     code = f"""
 import os, numpy as np, torch
 from {PKG}.ops import kernels as K
@@ -75,8 +78,12 @@ u = torch.as_tensor(np.random.default_rng(0).standard_normal((9, 11)))
 K.masked_laplace_2d(u, (0.125, 0.1))
 planes = torch.zeros((5, 3, 4), dtype=u.dtype); planes[0] = 1.0
 st = K.AugmentedStencil2D((0.125, 0.1), (9, 11), planes, (3, 3, 3, 4))
-for mode in K.MODES:
-    K.fused_augmented_2d(mode, st, u, u if mode == 'post' else None)
+K.laplace_stencil_2d(u, (0.125, 0.1))
+bare = K.AugmentedStencil2D((0.125, 0.1), (9, 11), device='cpu',
+                            dtype=u.dtype)
+for s in (st, bare):
+    for mode in K.MODES:
+        K.fused_augmented_2d(mode, s, u, u if mode == 'post' else None)
 info = K._library.cache_info()
 assert info.hits == 0 and info.misses == 0, info
 assert sum(K.LAUNCHES.values()) == 0, K.LAUNCHES

@@ -32,7 +32,7 @@ def flagship_patch(ref):
     f = ParsedFunction(*CONF)
     curve = parametrized_curve(lambda p: np.asarray(f(p)), ref)
     space = GridSpace.q(UniformGrid.hyper_cube(2, 0.0, 1.0, ref), 1)
-    C = build_coupling(space, curve.space(1), 3)
+    C = build_coupling(space, curve.space(1), 3, device="cpu")
     return space, C, 10.0 / curve.h_max
 
 
@@ -151,7 +151,7 @@ def test_dinv_identity(ref):
     sp = space
     checked = 0
     while sp.grid.ncells[0] >= 4:
-        C = build_coupling(sp, imm, 3)
+        C = build_coupling(sp, imm, 3, device="cpu")
         pw = C.patch_w9(sp, gamma)
         if pw is not None:
             box, w9 = pw

@@ -129,7 +129,7 @@ def flagship(mod, ref):
 def test_gmg_vcycle_matches_reference():
     jp = JProblem(flagship(JConfig, 5)).setup()
     jp._augmented_run()
-    tp = TProblem(flagship(TConfig, 5)).setup()
+    tp = TProblem(flagship(TConfig, 5), device="cpu").setup()
     tp.load_state(state_from_jax(carried_arrays(jp), "cpu", torch.float64))
     tp._augmented_run()
     jg, tg = jp._last_gmg, tp._last_gmg

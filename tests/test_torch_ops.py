@@ -75,7 +75,7 @@ def test_coupling_applies(ref):
     s = _setup(ref)
     (jc, js), (tc, ts) = s["j"], s["t"]
     jC = j_build_coupling(js, jc.space(1), 3)
-    tC = t_build_coupling(ts, tc.space(1), 3)
+    tC = t_build_coupling(ts, tc.space(1), 3, device="cpu")
     rng = np.random.default_rng(ref)
     u = rng.standard_normal(ts.n_dofs)
     lam = rng.standard_normal(tC.shape[0])
@@ -94,7 +94,7 @@ def test_coupling_applies(ref):
     while jsc.grid.ncells[0] > 4:
         jsc, tsc = jsc.coarse_space(), tsc.coarse_space()
     jCc = j_build_coupling(jsc, jc.space(1), 3)
-    tCc = t_build_coupling(tsc, tc.space(1), 3)
+    tCc = t_build_coupling(tsc, tc.space(1), 3, device="cpu")
     assert tCc.patch_al_lattice(tsc, gamma) is None
     jal, jdiag = jCc.compact_al(gamma)
     tal, tdiag = tCc.compact_al(gamma)

@@ -93,7 +93,7 @@ def test_coupling_table_and_patch(ref):
     jc, js = _spaces(jcore, ref)
     tc, ts = _spaces(tcore, ref)
     jC = j_build_coupling(js, jc.space(1), 3)
-    tC = t_build_coupling(ts, tc.space(1), 3)
+    tC = t_build_coupling(ts, tc.space(1), 3, device="cpu")
     np.testing.assert_array_equal(np.asarray(jC.bg_dofs),
                                   tC.host["bg_dofs"])
     np.testing.assert_array_equal(np.asarray(jC.imm_dofs),
@@ -105,7 +105,8 @@ def test_coupling_table_and_patch(ref):
     sp_j, sp_t = js, ts
     while sp_j.grid.ncells[0] >= 4:   # every GMG level of the flagship
         jw = j_build_coupling(sp_j, jc.space(1), 3).patch_w9(sp_j, gamma)
-        tw = t_build_coupling(sp_t, tc.space(1), 3).patch_w9(sp_t, gamma)
+        tw = t_build_coupling(sp_t, tc.space(1), 3, device="cpu") \
+            .patch_w9(sp_t, gamma)
         assert (jw is None) == (tw is None)
         if jw is not None:
             assert jw[0] == tw[0]
@@ -119,16 +120,16 @@ def test_load_vectors_and_mass(ref):
     tc, ts = _spaces(tcore, ref)
     f = EXPRS[0]
     jr = np.asarray(jasm.rhs_vector(js, JParsed(*f), order=2))
-    tr = tasm.rhs_vector(ts, TParsed(*f), order=2).numpy()
+    tr = tasm.rhs_vector(ts, TParsed(*f), order=2, device="cpu").numpy()
     np.testing.assert_allclose(tr, jr, rtol=1e-14, atol=1e-14 * abs(jr).max())
     g = ("sin(2*pi*x)*sin(2*pi*y)", "")
     ji, ti = jc.space(1), tc.space(1)
     np.testing.assert_allclose(
-        tasm.imm_rhs(ti, TParsed(*g), order=2).numpy(),
+        tasm.imm_rhs(ti, TParsed(*g), order=2, device="cpu").numpy(),
         np.asarray(jasm.imm_rhs(ji, JParsed(*g), order=2)),
         rtol=1e-14, atol=1e-16)
-    tM, jM = tasm.imm_mass_matrix(ti, order=2), jasm.imm_mass_matrix(ji,
-                                                                     order=2)
+    tM = tasm.imm_mass_matrix(ti, order=2, device="cpu")
+    jM = jasm.imm_mass_matrix(ji, order=2)
     np.testing.assert_allclose(tM.diag().numpy(), np.asarray(jM.diag()),
                                rtol=1e-14)
     lam = np.random.default_rng(ref).standard_normal(ti.n_dofs)
@@ -136,7 +137,7 @@ def test_load_vectors_and_mass(ref):
                                np.asarray(jM.mv(jnp.asarray(lam))),
                                rtol=1e-13, atol=1e-15)
     np.testing.assert_allclose(
-        tasm.interpolate(ts, TParsed(*g)).numpy(),
+        tasm.interpolate(ts, TParsed(*g), device="cpu").numpy(),
         np.asarray(jasm.interpolate(js, JParsed(*g))), rtol=1e-14,
         atol=1e-15)
     u = np.random.default_rng(ref).standard_normal(ts.n_dofs)
