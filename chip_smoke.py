@@ -63,7 +63,7 @@ TOL = {"masked_laplace_2d": 1e-6, "laplace_stencil_2d": 1e-6, "op": 1e-6,
 MODE_SOLVERS = ("rational", "CG", "ELMAN_triang")
 ELMAN_REFINEMENT = 9
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the
-# tensor cores (the on-chip-measurement guide's table)
+# tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # operations of one 9-point tensor-product stencil apply per point: 3
