@@ -8,9 +8,10 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. device: require CUDA, print the card's name and power limit, build the
    kernels from ``fictitious_domain_al_preconditioners_torch/csrc``;
-2. kernels against their plain PyTorch versions on the card (float32): K1,
-   K6, and K2 in all four modes with patch planes (from flagship couplings)
-   and without, at n = 65, n = 1025 and (530, 777);
+2. kernels against their plain PyTorch versions on the card: K1 (float32
+   and its bf16-storage form), K6, and K2 in all four modes with patch
+   planes (from flagship couplings) and without, at n = 65, n = 1025 and
+   (530, 777);
 3. the flagship solve (``bench.py``'s configuration, ``solver="augmented"``)
    at the refinement: a warm-up solve, then a timed solve, through
    ``ImmersedLaplaceProblem(cfg).setup()`` and ``.solve()``; the launch
@@ -24,12 +25,21 @@ Phases (any failure exits non-zero before the last line is printed):
    path; afterwards the kernels are compared with their plain versions at
    the shapes those paths gave them, and K6 and the no-patch K2 are timed at
    the fine level (K6 also against ``torch.nn.functional.conv2d``);
+6. the mixed-precision flagship: the flagship with the bf16 V-cycle
+   (``use_bf16_multigrid``) at the refinement, a warm-up and a timed solve;
+   it must converge within 2 outer iterations of phase 3's count, with K1's
+   bf16 form launched; K1 bf16 is compared with its plain version at every
+   level shape of that path and timed at the fine level; then
+   ``solve_refined(tol_abs=1e-10)`` at refinement 11 (at most the
+   refinement), once with the float32 V-cycle (``bench.py``'s ``refined``
+   row) and once with the bf16 V-cycle, each to a true float64 residual of
+   at most 1e-10;
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
    versions) in float32 with the same Lanczos start vectors, for the
-   flagship and the three modes.
+   flagship, the three modes and the flagship with the bf16 V-cycle.
 
-Launch counts are set to 0 just before each path (phases 3 and 5) and read
-just after it.  The line before the last is a JSON object with one entry per
+Launch counts are set to 0 just before each path (phases 3, 5 and 6) and
+read just after it.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -47,21 +57,28 @@ import traceback
 import numpy as np
 
 PKG = "fictitious_domain_al_preconditioners_torch"
-SOURCE = {"masked_laplace_2d": f"{PKG}/csrc/fdal_kernels.cu",
+SOURCE = {"masked_laplace_2d": f"{PKG}/csrc/fdal_stencil.cu",
+          "masked_laplace_2d:bf16": f"{PKG}/csrc/fdal_stencil.cu",
           "fused_augmented_2d": f"{PKG}/csrc/fdal_kernels.cu",
           "laplace_stencil_2d": f"{PKG}/csrc/fdal_stencil.cu"}
 _TPU = "fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py"
 REPLACES = {"masked_laplace_2d": f"{_TPU}:193",
+            "masked_laplace_2d:bf16": f"{_TPU}:193",
             "fused_augmented_2d": f"{_TPU}:394",
             "laplace_stencil_2d": f"{_TPU}:31"}
-# max |kernel - plain| / max |plain| (float32): one application vs the
-# Chebyshev recurrence (the bounds of tests/test_fused_cheb.py)
+# max |kernel - plain| / max |plain|: one application vs the Chebyshev
+# recurrence (the bounds of tests/test_fused_cheb.py) in float32; K1's bf16
+# form, where a float32 sum order can flip one bf16 rounding (2^-8)
 TOL = {"masked_laplace_2d": 1e-6, "laplace_stencil_2d": 1e-6, "op": 1e-6,
-       "smooth": 2e-5, "pre": 2e-5, "post": 5e-5}
+       "smooth": 2e-5, "pre": 2e-5, "post": 5e-5,
+       "masked_laplace_2d:bf16": 1e-2}
 # the solver modes of phase 5 and the refinement of ELMAN_triang, the
 # negative control whose counts grow with refinement (BASELINE.md:31)
 MODE_SOLVERS = ("rational", "CG", "ELMAN_triang")
 ELMAN_REFINEMENT = 9
+# bench.py's refined row (REF_SMALL) and the reference configs' tolerance
+REFINED_REFINEMENT = 11
+REFINED_TOL = 1e-10
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -81,8 +98,9 @@ def check(cond, what):
         raise SmokeFailure(what)
 
 
-def flagship_config(refinement):
-    """``bench.py``'s flagship configuration (bench.py:48-62)."""
+def flagship_config(refinement, bf16=False):
+    """``bench.py``'s flagship configuration (bench.py:48-62); ``bf16`` runs
+    its V-cycle in bfloat16 (``use_bf16_multigrid``)."""
     from fictitious_domain_al_preconditioners_torch.models.immersed_laplace \
         import ImmersedLaplaceConfig
 
@@ -96,6 +114,7 @@ def flagship_config(refinement):
         solver="augmented",
         use_operator_form=True,
         use_diagonal_inverse=True,
+        use_bf16_multigrid=bf16,
     )
     cfg.schur.tolerance = 3e-5
     cfg.schur.reduction = 1e-6
@@ -181,7 +200,8 @@ def record(errs, kernel, mode, tag, got, ref):
 
 
 def compare_stencils(h, shape, device, seed, tag, errs):
-    """K1 and K6 against their plain versions on one lattice."""
+    """K1 (float32 and bf16) and K6 against their plain versions on one
+    lattice."""
     import torch
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
@@ -189,8 +209,22 @@ def compare_stencils(h, shape, device, seed, tag, errs):
                         dtype=torch.float32, device=device)
     record(errs, "masked_laplace_2d", "-", tag, K.masked_laplace_2d(u, h),
            K.masked_laplace_2d_plain(u, h))
+    compare_k1_bf16(h, u, tag, errs)
     record(errs, "laplace_stencil_2d", "-", tag, K.laplace_stencil_2d(u, h),
            K.laplace_stencil_2d_plain(u, h))
+
+
+def compare_k1_bf16(h, u, tag, errs):
+    """K1's bf16-storage form against its plain version on ``u`` rounded to
+    bf16."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    ub = u.to(torch.bfloat16)
+    got = K.masked_laplace_2d(ub, h)
+    check(got.dtype == torch.bfloat16, f"K1 bf16 {tag}: returned {got.dtype}")
+    record(errs, "masked_laplace_2d:bf16", "-", tag, got,
+           K.masked_laplace_2d_plain(ub, h))
 
 
 def compare_fused(st, device, lam, seed, tag, errs):
@@ -444,6 +478,105 @@ def time_stencils(h, shape, device, times):
                                        shape=list(shape))
 
 
+def time_k1_bf16(h, shape, device, times):
+    """K1's bf16 form at one lattice: kernel, plain and bound (2 bytes read
+    and 2 written per point; no single PyTorch call computes the masked
+    stencil, so no library time)."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    u = torch.as_tensor(np.random.default_rng(9).standard_normal(shape),
+                        dtype=torch.float32, device=device).to(torch.bfloat16)
+    n = shape[0] * shape[1]
+    b = bound(4 * n, STENCIL_FLOPS * n)
+    ms, pms = cuda_time_pair(lambda: K.masked_laplace_2d(u, h),
+                             lambda: K.masked_laplace_2d_plain(u, h))
+    times["masked_laplace_2d:bf16"] = dict(
+        ms=ms, plain_ms=pms, library_ms=None, bound_ms=b[0], bound_by=b[1],
+        shape=list(shape))
+
+
+def phase_bf16_flagship(refinement, device, f32_iterations):
+    """The flagship with the bf16 V-cycle: converged within 2 outer
+    iterations of the float32 V-cycle's count, K1 bf16 on its path and
+    agreeing with its plain version at every level shape."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops.kernels import \
+        launch_key
+
+    prob, out = drive(lambda: ImmersedLaplaceProblem(
+        flagship_config(refinement, bf16=True), device=device), device)
+    out["gmg_dtype"] = str(prob._last_gmg.dtype)
+    out["gmg_levels"] = len(prob._last_gmg.levels)
+    print("phase 6: bf16 flagship " + json.dumps(out), flush=True)
+    check(prob._last_gmg.dtype == torch.bfloat16,
+          "phase 6: the V-cycle is not bf16")
+    check(out["outer_iterations"] <= f32_iterations + 2,
+          f"phase 6: {out['outer_iterations']} outer iterations against "
+          f"{f32_iterations} with the float32 V-cycle")
+    require_launches(out, ["masked_laplace_2d:bf16", "laplace_stencil_2d",
+                           launch_key("op")], "phase 6")
+    errs = []
+    for i, level in enumerate(prob._last_gmg.levels):
+        lat = tuple(reversed(level.space.n_points_1d))
+        h = tuple(1.0 / (n - 1) for n in lat)
+        u = torch.as_tensor(
+            np.random.default_rng(500 + i).standard_normal(lat),
+            dtype=torch.float32, device=device)
+        compare_k1_bf16(h, u, f"bf16 flagship level {i} {lat}", errs)
+    print(f"phase 6: K1 bf16 agrees with plain at all {len(errs)} level "
+          "shapes", flush=True)
+    return prob, out, errs
+
+
+def phase_refined(refinement, device, bf16):
+    """``solve_refined(tol_abs=1e-10)`` of the flagship: twice (the first
+    builds the host system and the correction solver), launch counts over
+    the second; the true float64 residual must reach the tolerance."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    tag = f"refined{'_bf16' if bf16 else ''}@{refinement}"
+    torch.cuda.reset_peak_memory_stats(device)
+    prob = ImmersedLaplaceProblem(flagship_config(refinement, bf16=bf16),
+                                  device=device).setup()
+    prob.solve_refined(tol_abs=REFINED_TOL)                  # warm-up
+    warm = dict(prob.results)
+    K.reset_launch_counts()
+    u, lam, history = prob.solve_refined(tol_abs=REFINED_TOL)
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    res = prob.results
+    out = dict(
+        path=tag, refinement=refinement, gmg_dtype=str(prob._last_gmg.dtype),
+        dofs_background=prob.space.n_dofs,
+        dofs_immersed=prob.imm_space.n_dofs,
+        refine_steps=res["refine_steps"],
+        outer_iterations=res["outer_iterations"],
+        converged=res["converged"], refined_residual=res["refined_residual"],
+        history=history, solve_seconds=res["solve_seconds"],
+        device_seconds=res["correction_seconds"],
+        host_residual_seconds=res["host_residual_seconds"],
+        host_syncs=res["host_syncs"],
+        warmup_seconds=warm["solve_seconds"],
+        build_seconds=warm["refine_build_seconds"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+        launches=launches)
+    print("phase 6: " + json.dumps(out), flush=True)
+    check(res["converged"] and history[-1] <= REFINED_TOL,
+          f"phase 6 {tag}: true residual {history[-1]:.3e} > {REFINED_TOL}")
+    check(u.shape == (prob.space.n_dofs,) and bool(np.isfinite(u).all())
+          and bool(np.isfinite(lam).all()),
+          f"phase 6 {tag}: non-finite or misshapen iterate")
+    require_launches(out, ["fused_augmented_2d:op", "masked_laplace_2d:bf16"
+                           if bf16 else "fused_augmented_2d:pre"],
+                     f"phase 6 {tag}")
+    return out
+
+
 def phase_crosscheck(device, refinement=7):
     import torch
     from fictitious_domain_al_preconditioners_torch.models import \
@@ -452,10 +585,11 @@ def phase_crosscheck(device, refinement=7):
         l2_error
 
     outs = []
-    for solver in ("augmented",) + MODE_SOLVERS:
+    for solver in ("augmented",) + MODE_SOLVERS + ("augmented_bf16",):
         runs = {}
         for dev in (device, torch.device("cpu")):
-            cfg = (flagship_config(refinement) if solver == "augmented"
+            cfg = (flagship_config(refinement, bf16=solver.endswith("bf16"))
+                   if solver.startswith("augmented")
                    else mode_config(solver, refinement))
             prob = ImmersedLaplaceProblem(cfg, device=dev,
                                           dtype=torch.float32).setup()
@@ -469,7 +603,7 @@ def phase_crosscheck(device, refinement=7):
         out = dict(solver=solver, refinement=refinement, iterations_gpu=itg,
                    iterations_cpu=itc, converged=(cg_, cc),
                    max_abs_diff=diff, max_abs_cpu=scale)
-        if solver == "augmented":
+        if solver.startswith("augmented"):
             out["l2_error_gpu"] = l2_error(pg.space, ug, exact_solution)
         print("phase 4: " + json.dumps(out), flush=True)
         check(cg_ and cc, f"phase 4 {solver}: a solve did not converge")
@@ -477,7 +611,7 @@ def phase_crosscheck(device, refinement=7):
               f"vs {itc}")
         check(diff <= 1e-3 * scale, f"phase 4 {solver}: |u_gpu - u_cpu| = "
               f"{diff:.3e}")
-        if solver == "augmented":
+        if solver.startswith("augmented"):
             check(out["l2_error_gpu"] < 6e-3,
                   f"phase 4: L2 error {out['l2_error_gpu']:.3e}")
         outs.append(out)
@@ -485,9 +619,9 @@ def phase_crosscheck(device, refinement=7):
 
 
 def kernel_report(path_launches, errs, times):
-    """The kernels' JSON line: one entry per kernel, K2's modes inside.
-    ``launches`` sums the paths of phases 3 and 5 (``launches_by_path``
-    lists them)."""
+    """The kernels' JSON line: one entry per kernel (K1's bf16 form its own),
+    K2's modes inside.  ``launches`` sums the paths of phases 3, 5 and 6
+    (``launches_by_path`` lists them)."""
     from fictitious_domain_al_preconditioners_torch.ops.kernels import (
         MODES, launch_key)
 
@@ -528,6 +662,8 @@ def kernel_report(path_launches, errs, times):
     return {"kernels": [
         entry("masked_laplace_2d", "masked_laplace_2d",
               times["masked_laplace_2d"]),
+        entry("masked_laplace_2d:bf16", "masked_laplace_2d:bf16",
+              times["masked_laplace_2d:bf16"]),
         k2,
         entry("laplace_stencil_2d", "laplace_stencil_2d",
               times["laplace_stencil_2d"]),
@@ -537,8 +673,10 @@ def kernel_report(path_launches, errs, times):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--refinement", type=int, default=12,
-                    help="refinement of the flagship, rational and CG solves "
-                         f"(ELMAN_triang runs at min({ELMAN_REFINEMENT}, "
+                    help="refinement of the flagship (float32 and bf16 "
+                         "V-cycle), rational and CG solves (ELMAN_triang "
+                         f"runs at min({ELMAN_REFINEMENT}, this), "
+                         f"solve_refined at min({REFINED_REFINEMENT}, "
                          "this))")
     args = ap.parse_args(argv)
 
@@ -589,6 +727,20 @@ def main(argv=None) -> int:
                            prob._kinv_gmg.levels[0].lam_max, 4, device,
                            times)
             del prob
+            torch.cuda.empty_cache()
+
+        prob, out, bf16_errs = phase_bf16_flagship(
+            args.refinement, device, flag["outer_iterations"])
+        path_launches["augmented_bf16"] = out["launches"]
+        errs += bf16_errs
+        lat = tuple(reversed(prob.space.n_points_1d))
+        time_k1_bf16(tuple(1.0 / (n - 1) for n in lat), lat, device, times)
+        del prob
+        torch.cuda.empty_cache()
+        ref = min(REFINED_REFINEMENT, args.refinement)
+        for bf16 in (False, True):
+            out = phase_refined(ref, device, bf16)
+            path_launches[out["path"]] = out["launches"]
             torch.cuda.empty_cache()
         for k, t in times.items():
             print(f"time {k} at {tuple(t['shape'])}: kernel {t['ms']:.4f} "

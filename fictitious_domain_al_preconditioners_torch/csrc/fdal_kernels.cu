@@ -1,20 +1,12 @@
-// Hand-written Hopper (sm_90a) kernels of the flagship AL solve, with a plain
-// C interface loaded through ctypes (see ops/kernels.py, which builds this
-// file with nvcc on first use and holds the plain PyTorch versions).
-//
-// K1  fdal_masked_laplace_2d
-//     Replaces fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py
-//     :193 _masked_conv9_pallas (entry masked_laplace_2d, :319).
-//     out = m*(K0(x)M1 + M0(x)K1)(m*u) + (1-m)*u on an (ny, nx) lattice, m the
-//     all-sides-Dirichlet interior mask.
-//     Bound: bytes.  One read and one write of the lattice per apply (8 B per
-//     point in f32) against 30 flops per point.  Design: one thread per output
-//     point on 32x8 tiles, the 1-point halo read straight from global memory
-//     (the L1 cache serves the 9-fold reuse), so device memory sees each value
-//     about once; the mask comes from the row and column index.
+// Hand-written Hopper (sm_90a) kernel of the flagship AL solve's fused
+// augmented operator and Chebyshev smoother, with a plain C interface loaded
+// through ctypes (see ops/kernels.py, which builds this file with nvcc on first
+// use and holds the plain PyTorch version).  K1, the masked stiffness stencil,
+// lives in fdal_stencil.cu beside K6, which shares its design.
 //
 // K2  fdal_fused_augmented_2d (modes op / smooth / pre / post)
-//     Replaces pallas_kernels.py:394 fused_chebyshev_2d.
+//     Replaces fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py
+//     :394 fused_chebyshev_2d.
 //     The masked augmented operator A x = m*(K + patch)(m*x) + (1-m)*x, with the
 //     Γ-band AL patch held as 5 symmetric planes on its box (centre, (0,1),
 //     (1,0), (1,1), (1,-1)); the mirrored offsets are shifted reads
@@ -67,36 +59,6 @@ struct Cheb {
 
 __device__ __forceinline__ bool interior(int r, int c, int ny, int nx) {
   return r >= 1 && r <= ny - 2 && c >= 1 && c <= nx - 2;
-}
-
-// ---------------------------------------------------------------- K1 ------
-
-__global__ void __launch_bounds__(256)
-masked_laplace_kernel(const float* __restrict__ u, float* __restrict__ out,
-                      int ny, int nx, Stencil st) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= ny || c >= nx) return;
-  const long long i = (long long)r * nx + c;
-  if (!interior(r, c, ny, nx)) {
-    out[i] = u[i];
-    return;
-  }
-  // masked input z = m*u: neighbours on the boundary read as 0
-  auto z = [&](int rr, int cc) -> float {
-    return interior(rr, cc, ny, nx) ? __ldg(u + (long long)rr * nx + cc) : 0.f;
-  };
-  float sk[3], sm[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int cc = c + j - 1;
-    const float mid = z(r, cc);
-    const float vsum = z(r - 1, cc) + z(r + 1, cc);
-    sk[j] = st.k0o * vsum + st.k0c * mid;
-    sm[j] = st.m0o * vsum + st.m0c * mid;
-  }
-  out[i] = st.m1c * sk[1] + st.m1o * (sk[0] + sk[2]) +
-           st.k1c * sm[1] + st.k1o * (sm[0] + sm[2]);
 }
 
 // ---------------------------------------------------------------- K2 ------
@@ -342,16 +304,6 @@ Stencil make_stencil(const float* f) {
 }  // namespace
 
 extern "C" {
-
-// fac (host): k0o, k0c, m0o, m0c, k1o, k1c, m1o, m1c, kc.
-int fdal_masked_laplace_2d(const float* u, float* out, int ny, int nx,
-                           const float* fac, void* stream) {
-  dim3 block(32, 8);
-  dim3 grid((nx + 31) / 32, (ny + 7) / 8);
-  masked_laplace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      u, out, ny, nx, make_stencil(fac));
-  return (int)cudaGetLastError();
-}
 
 // mode: 0 op, 1 smooth, 2 pre, 3 post.  planes: (5, pr, pc) device array or
 // null with pr = pc = 0.  coef (host): inv_theta, a_1..a_{deg-1},

@@ -24,14 +24,23 @@ The last three share ``K⁻¹``: a tight GMG-preconditioned CG on the
 constrained stiffness.  Every inner vector is an (ny, nx) lattice tensor; the
 flat dof vector is a view of the same buffer.
 
+With ``use_bf16_multigrid`` the augmented solver's V-cycle runs in
+bfloat16: every level operator is K1 in its bf16-storage form plus the
+masked Γ-band AL term in bf16, smoothed by the unfused Chebyshev, while the
+inner CG and the outer FGMRES stay in the working dtype.
+:meth:`ImmersedLaplaceProblem.solve_refined` drives the augmented system to
+a true float64 residual (``ops.host_ref``) by iterative refinement over
+correction solves in the working dtype (``utils.refine``).
+
 On CUDA the kernels carry the lattice work: K2 (``fused_augmented_2d``)
 applies the augmented operator (``op``) and smooths (``pre``/``post``) on
 every level whose Γ-band is interior, and smooths ``K⁻¹``'s levels in its
 no-patch form; K1 (``masked_laplace_2d``) is the constrained stiffness of
-``K⁻¹`` and of a coarse level whose band touches ∂Ω; K6
-(``laplace_stencil_2d``, through ``LatticeOps.laplace``) is the
-unconstrained stiffness that lifts the Dirichlet data.  On the CPU the same
-wrappers run their plain PyTorch versions.
+``K⁻¹``, of a coarse level whose band touches ∂Ω, and, in bfloat16, of every
+level of the bf16 V-cycle; K6 (``laplace_stencil_2d``, through
+``LatticeOps.laplace``) is the unconstrained stiffness that lifts the
+Dirichlet data.  On the CPU the same wrappers run their plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -53,12 +62,14 @@ from ..ops.kernels import (AugmentedStencil2D, fused_augmented_2d,
 from ..ops.krylov import cg, fgmres, gmres, minres
 from ..ops.linop import LinOp
 from ..ops.operators import dirichlet_rhs
+from ..ops.host_ref import HostAugmentedSystem
 from ..parallel.lattice import LatticeOps
 from ..precond.al import al_preconditioner
 from ..precond.gmg import FusedSmoother, build_gmg
 from ..precond.rational import rational_preconditioner
 from ..precond.weights import inv_diag
 from ..utils.expressions import ParsedFunction
+from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
 
 __all__ = ["SolverControlConfig", "ImmersedLaplaceConfig",
            "ImmersedLaplaceProblem"]
@@ -127,6 +138,7 @@ class ImmersedLaplaceProblem:
         self.stats = {"host_syncs": 0}
         self.lanczos_start = None
         self._solvers = {}
+        self._refine_cache = None
 
     def _check_supported(self):
         cfg = self.cfg
@@ -144,8 +156,6 @@ class ImmersedLaplaceProblem:
             missing.append("element degrees other than 1")
         if set(cfg.dirichlet_ids) != {0, 1, 2, 3}:
             missing.append("partial Dirichlet boundaries")
-        if cfg.use_bf16_multigrid:
-            missing.append("the bf16 multigrid")
         if missing:
             raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
@@ -197,6 +207,7 @@ class ImmersedLaplaceProblem:
                                 dtype=dt)
         self.layout = BlockLayout((self.space.n_dofs, self.imm_space.n_dofs))
         self._solvers = {}
+        self._refine_cache = None
         return self
 
     def load_state(self, state):
@@ -212,6 +223,7 @@ class ImmersedLaplaceProblem:
             starts = state.lanczos_starts
             self.lanczos_start = lambda i, n: starts[i]
         self._solvers = {}
+        self._refine_cache = None
         return self
 
     # -- solve ----------------------------------------------------------------
@@ -247,15 +259,26 @@ class ImmersedLaplaceProblem:
             dofs_immersed=self.imm_space.n_dofs)
         return u, lam, info
 
-    def _level_operator(self, sp, coupling, gamma):
+    def _level_operator(self, sp, coupling, gamma, dtype=None):
         """Masked augmented operator of one lattice level: ``(op, diag,
         smoother_builder)`` for :func:`..precond.gmg.build_gmg`, and the
-        level's :class:`AugmentedStencil2D` (None on a compact-AL level)."""
+        level's :class:`AugmentedStencil2D` (None on a compact-AL level and
+        in bfloat16).
+
+        In the working dtype a level whose Γ-band is interior is K2 (``op``,
+        and ``pre``/``post`` as its smoother).  In bfloat16 (``dtype``, the
+        bf16 V-cycle) it is K1's bf16 form plus the masked 9-point patch in
+        bf16, with the unfused Chebyshev smoother: the reference has no bf16
+        form of the fused kernel (``pallas_kernels.py:451-452``).  A level
+        whose band touches ∂Ω is K1 plus the masked compact AL block in
+        either dtype."""
         dev, dt = self.device, self.dtype
         lat = LatticeOps.for_space(sp)
         ny, nx = lat.shape
         k_diag = lat.laplace_diag()
-        pw = coupling.patch_w9(sp, gamma)
+        free = ~sp.boundary_dof_mask(list(self.cfg.dirichlet_ids))
+        bf16 = dtype == torch.bfloat16
+        pw = None if bf16 else coupling.patch_w9(sp, gamma)
         if pw is not None:
             box, w9 = pw
             r0, c0, pr, pc = box
@@ -278,9 +301,18 @@ class ImmersedLaplaceProblem:
 
             return (op, k_diag + al_diag.reshape(-1), smoother_builder), st
 
+        al = (coupling.patch_al_lattice(sp, gamma, free=free, dtype=dtype)
+              if bf16 else None)
+        if al is not None:
+            al_mv2, al_diag = al
+
+            def op(x2):
+                return masked_laplace_2d(x2, lat.h) + al_mv2(x2)
+
+            return (op, k_diag + al_diag, None), None
+
         # Γ-band touches ∂Ω on this (coarse) level: compact AL block
-        al, al_diag = coupling.compact_al(gamma)
-        free = ~sp.boundary_dof_mask(list(self.cfg.dirichlet_ids))
+        al, al_diag = coupling.compact_al(gamma, dtype=dtype)
         m = torch.as_tensor(free.reshape(ny, nx), device=dev)
 
         def op(x2):
@@ -289,9 +321,15 @@ class ImmersedLaplaceProblem:
 
         return (op, k_diag + al_diag, None), None
 
-    def _augmented_run(self):
+    def _augmented_run(self, raw_rhs: bool = False,
+                       max_steps: int | None = None):
         """The flagship solve: returns ``run(rhs_f, rhs_g, bc_values) ->
-        (u, lam, info)``."""
+        (u, lam, info)``.  With ``raw_rhs`` it returns ``run_raw(b0, b1) ->
+        (u, lam, info)``, one solve of the augmented system for an assembled
+        block right-hand side (no Dirichlet lift, no AL right-hand side): the
+        correction solve of :meth:`solve_refined`.  ``max_steps`` caps the
+        outer steps (default ``cfg.schur.max_steps``, read when the solver is
+        built)."""
         cfg = self.cfg
         dev, dt = self.device, self.dtype
         gamma = cfg.gamma / self.curve.h_max
@@ -302,23 +340,39 @@ class ImmersedLaplaceProblem:
         inv_w = inv_diag(self.M)
         shape = LatticeOps.for_space(self.space).shape
         n = self.space.n_dofs
+        if max_steps is None:
+            max_steps = cfg.schur.max_steps
+        gmg_dt = torch.bfloat16 if cfg.use_bf16_multigrid else dt
+
+        def particle_coupling(sp):
+            return build_coupling(
+                sp, self.imm_space, order=2 * cfg.embedding_space_degree + 1,
+                device=dev, dtype=dt)
+
+        # the fine augmented operator of the inner CG, in the working dtype
+        fine_coupling = particle_coupling(self.space)
+        fine_level, fine_stencil = self._level_operator(
+            self.space, fine_coupling, gamma)
+        aug_lat = fine_level[0]
 
         self.level_stencils = []   # per GMG level, fine first
 
         def op_factory(sp):
-            coupling = build_coupling(
-                sp, self.imm_space, order=2 * cfg.embedding_space_degree + 1,
-                device=dev, dtype=dt)
-            level, st = self._level_operator(sp, coupling, gamma)
+            if sp is self.space and gmg_dt == dt:
+                level, st = fine_level, fine_stencil
+            else:
+                coupling = (fine_coupling if sp is self.space
+                            else particle_coupling(sp))
+                level, st = self._level_operator(sp, coupling, gamma,
+                                                 dtype=gmg_dt)
             self.level_stencils.append(st)
             return level
 
         gmg = build_gmg(self.space, op_factory, free_mask=free,
                         smoother_degree=cfg.gmg_smoother_degree,
-                        lanczos_start=self.lanczos_start, dtype=dt,
+                        lanczos_start=self.lanczos_start, dtype=gmg_dt,
                         stats=self.stats)
         self._last_gmg = gmg
-        aug_lat = gmg.levels[0].op   # the fine level's augmented operator
 
         def aug_mv(x):
             return aug_lat(x.reshape(shape)).reshape(-1)
@@ -338,20 +392,96 @@ class ImmersedLaplaceProblem:
         # engaged at the ~4-30 outer iterations of this method)
         restart = min(cfg.fgmres_restart,
                       max(12, int(6e9 / (8 * max(layout.total, 1)))))
+
+        def solve_core(b):
+            return fgmres(AA, b, prec, tol=cfg.schur.tolerance,
+                          reduction=cfg.schur.reduction, max_steps=max_steps,
+                          restart=restart, stats=self.stats)
+
+        if raw_rhs:
+            def run_raw(b0, b1):
+                x, info = solve_core(layout.concat((b0, b1)))
+                u, lam = layout.split(x)
+                return u, lam, info
+
+            return run_raw
+
         k_mv = self._k_mv()
 
         def run(rhs_f, rhs_g, bc_values):
             b0 = dirichlet_rhs(k_mv, rhs_f, free, bc_values)
             b0 = b0 + torch.where(free, gamma * Ct_lin(inv_w(rhs_g)), 0.0)
-            x, info = fgmres(AA, layout.concat((b0, rhs_g)), prec,
-                             tol=cfg.schur.tolerance,
-                             reduction=cfg.schur.reduction,
-                             max_steps=cfg.schur.max_steps, restart=restart,
-                             stats=self.stats)
+            x, info = solve_core(layout.concat((b0, rhs_g)))
             u, lam = layout.split(x)
             return torch.where(free, u, bc_values), lam, info
 
         return run
+
+    def build_correction_solver(self):
+        """``(b0, b1) -> (du, dlam, info)``: one AL-preconditioned FGMRES
+        solve of the augmented system with a raw right-hand side, its outer
+        steps capped at ``utils.refine.CORRECTION_MAX_OUTER`` (the inner
+        engine of :meth:`solve_refined`)."""
+        return self._augmented_run(
+            raw_rhs=True,
+            max_steps=min(self.cfg.schur.max_steps, CORRECTION_MAX_OUTER))
+
+    def solve_refined(self, tol_abs: float = 1e-10, max_refine: int = 12):
+        """Mixed-precision iterative refinement to the reference's solve
+        quality: correction solves in the working dtype (float32 on the
+        card) produce corrections; the true residual of the augmented system
+        is evaluated in float64 on the host (:mod:`..ops.host_ref`), and the
+        loop runs until it reaches ``tol_abs``, the reference configs'
+        1e-10, under the guard of
+        :func:`..utils.refine.guarded_refinement` (its 64x growth cap).
+
+        Returns ``(u, lam, history)``: float64 NumPy iterates and the
+        accepted true residual norms.  ``results`` records the total outer
+        iterations, the final residual, the accepted steps, convergence,
+        the seconds of the whole loop, of the device correction solves and
+        of the host residuals, and the host syncs.  The host system and the
+        correction solver are built once per :meth:`setup`."""
+        if self._refine_cache is None:
+            t0 = time.perf_counter()
+            self._refine_cache = (HostAugmentedSystem(self),
+                                  self.build_correction_solver())
+            self.results["refine_build_seconds"] = time.perf_counter() - t0
+        host, corr = self._refine_cache
+        dev, dt = self.device, self.dtype
+        seconds = {"host": 0.0, "device": 0.0}
+
+        def residual(*xs):
+            t0 = time.perf_counter()
+            rs = host.residual(*xs)
+            seconds["host"] += time.perf_counter() - t0
+            return rs
+
+        def correct(rs):
+            t0 = time.perf_counter()
+            du, dlam, info = corr(*(torch.as_tensor(r, dtype=dt, device=dev)
+                                    for r in rs))
+            parts = [du.double().cpu().numpy(), dlam.double().cpu().numpy()]
+            self.stats["host_syncs"] += 1      # the correction's copy back
+            seconds["device"] += time.perf_counter() - t0
+            return parts, int(info.iterations)
+
+        self.stats["host_syncs"] = 0
+        t0 = time.perf_counter()
+        (u, lam), history, total_iters, converged = guarded_refinement(
+            residual, correct, (self.space.n_dofs, self.imm_space.n_dofs),
+            tol_abs, max_refine)
+        elapsed = time.perf_counter() - t0
+        self.u = torch.as_tensor(u, dtype=dt, device=dev)
+        self.lam = torch.as_tensor(lam, dtype=dt, device=dev)
+        self.results.update(
+            outer_iterations=total_iters, refined_residual=history[-1],
+            refine_steps=len(history) - 1, converged=converged,
+            solve_seconds=elapsed, correction_seconds=seconds["device"],
+            host_residual_seconds=seconds["host"],
+            host_syncs=self.stats["host_syncs"],
+            dofs_background=self.space.n_dofs,
+            dofs_immersed=self.imm_space.n_dofs)
+        return u, lam, history
 
     def _k_mv(self):
         """The unconstrained fine stiffness on flat vectors (kernel K6 on

@@ -7,6 +7,7 @@ from .assembly import (rhs_vector, imm_mass_matrix, imm_rhs, interpolate,
 from .coupling import Coupling, build_coupling
 from .krylov import SolveInfo, cg, fgmres, lanczos_max_eig
 from .blocks import BlockLayout, block_operator
+from .host_ref import HostAugmentedSystem
 from . import kernels
 
 __all__ = [
@@ -14,5 +15,5 @@ __all__ = [
     "dirichlet_rhs", "rhs_vector", "imm_mass_matrix", "imm_rhs",
     "interpolate", "l2_error", "Coupling", "build_coupling", "SolveInfo",
     "cg", "fgmres", "lanczos_max_eig", "BlockLayout", "block_operator",
-    "kernels",
+    "HostAugmentedSystem", "kernels",
 ]

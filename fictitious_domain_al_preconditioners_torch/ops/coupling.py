@@ -79,23 +79,28 @@ class Coupling:
     def as_linop(self) -> LinOp:
         return LinOp(self.mv, self.shape, self.rmv, name="C")
 
-    def compact_al(self, gamma: float):
+    def compact_al(self, gamma: float, dtype=None):
         """Compact dense form of the particle AL matrix γ·Σ_q JxW φφᵀ over
         the set of background dofs the band touches.  Returns
         ``(LinOp, diag)`` with ``diag`` the flat assembled diagonal (float64
-        NumPy)."""
+        NumPy).  The block is held in ``dtype`` (default: the coupling's),
+        the dtype of the level that applies it."""
         dofs = self.host["bg_dofs"]
         uniq, inv = np.unique(dofs.reshape(-1), return_inverse=True)
         inv = inv.reshape(dofs.shape)
         A = accumulate_al(inv, self.host["bg_phi"], self.host["jxw"],
                           len(uniq))
-        Aj = torch.as_tensor(gamma * A, dtype=self.dtype, device=self.device)
+        Aj = torch.as_tensor(gamma * A, dtype=self.dtype,
+                             device=self.device).to(dtype or self.dtype)
         uniqj = torch.as_tensor(uniq, dtype=torch.int64, device=self.device)
         n = self.shape[1]
 
         def mv(u):
+            # the block in the input's dtype, as the reference casts it
+            # (coupling.py:159): a bfloat16 level stays bfloat16; ``to`` is
+            # a no-op on a level built in the input's dtype
             out = torch.zeros_like(u)
-            out[uniqj] = Aj @ u[uniqj]
+            out[uniqj] = Aj.to(u.dtype) @ u[uniqj]
             return out
 
         diag = np.zeros(n)
@@ -134,25 +139,31 @@ class Coupling:
                           locmat[:, i, j])
         return (r0, c0, pr, pc), gamma * w9
 
-    def patch_al_lattice(self, space, gamma: float, free=None):
+    def patch_al_lattice(self, space, gamma: float, free=None, dtype=None):
         """Lattice-resident particle AL apply ``mv2(x2d) -> (ny, nx)`` from
         the 9-point patch, and the flat assembled diagonal (float64 NumPy).
         ``free`` bakes
         Dirichlet input masking into the weights.  None when the band is not
-        interior to the lattice."""
+        interior to the lattice.  The weights take the input's dtype before
+        the products, as in the reference (``coupling.py:339-350``), so a
+        bfloat16 level stays bfloat16; they are cast once, here, to ``dtype``
+        (default: the coupling's), the dtype of the level that applies
+        them."""
         pw = self.patch_w9(space, gamma, free=free)
         if pw is None:
             return None
         (r0, c0, pr, pc), w9 = pw
         nx, ny = space.n_points_1d
-        w9t = torch.as_tensor(w9, dtype=self.dtype, device=self.device)
+        w9t = torch.as_tensor(w9, dtype=self.dtype,
+                              device=self.device).to(dtype or self.dtype)
 
         def mv2(x2d):
             up = x2d[r0 - 1:r0 + pr + 1, c0 - 1:c0 + pc + 1]
+            w = w9t.to(x2d.dtype)   # a no-op in the dtype it was built in
             acc = None
             for a in range(3):
                 for b in range(3):
-                    term = w9t[a, b] * up[a:a + pr, b:b + pc]
+                    term = w[a, b] * up[a:a + pr, b:b + pc]
                     acc = term if acc is None else acc + term
             out = torch.zeros((ny, nx), dtype=x2d.dtype, device=x2d.device)
             out[r0:r0 + pr, c0:c0 + pc] = acc

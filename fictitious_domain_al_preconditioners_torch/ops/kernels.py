@@ -5,7 +5,8 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.pallas_kernels``:
 
 - **K1** :func:`masked_laplace_2d` replaces ``_masked_conv9_pallas``
   (``pallas_kernels.py:193``): the Dirichlet-masked Q1 stiffness apply
-  ``m*K(m*u) + (1-m)*u`` on an (ny, nx) lattice.
+  ``m*K(m*u) + (1-m)*u`` on an (ny, nx) lattice, in float32 and in the
+  reference's bfloat16-storage form (float32 arithmetic, one rounding).
 - **K2** :func:`fused_augmented_2d` replaces ``fused_chebyshev_2d``
   (``pallas_kernels.py:394``): the masked augmented operator (stiffness plus
   the Γ-band AL patch, or the stiffness alone when the stencil has no patch
@@ -14,16 +15,16 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.pallas_kernels``:
   (``pallas_kernels.py:31``) with the edge corrections of
   ``SeparableStencil2D``: the unconstrained Q1 stiffness apply.
 
-K1 and K2 are CUDA C++ for ``sm_90a`` in ``csrc/fdal_kernels.cu``, K6 in
+K2 is CUDA C++ for ``sm_90a`` in ``csrc/fdal_kernels.cu``, K1 and K6 in
 ``csrc/fdal_stencil.cu``, all behind a plain C interface; :func:`build`
 compiles the sources with ``nvcc`` (one process each, run together) into one
 library under ``build/torch_kernels/`` at first use, called through ctypes.
 Nothing is built or imported from CUDA when this module is imported.
 
 Dispatch rule of every wrapper: a CPU tensor goes to the plain PyTorch
-version; a CUDA tensor launches the kernel (float32, contiguous) or raises.
-Each launch adds one to :data:`LAUNCHES` (K2 per mode, and per form: with or
-without patch planes).
+version; a CUDA tensor launches the kernel (float32, or bfloat16 for K1;
+contiguous) or raises.  Each launch adds one to :data:`LAUNCHES` (K1 per
+dtype form, K2 per mode and per form: with or without patch planes).
 """
 
 from __future__ import annotations
@@ -54,8 +55,10 @@ def launch_key(mode: str, patch: bool = True) -> str:
     return f"fused_augmented_2d:{mode}" + ("" if patch else ":no_patch")
 
 
-#: kernel launches made by the wrappers, keyed by kernel (K2 by mode and form)
-LAUNCHES = {"masked_laplace_2d": 0, "laplace_stencil_2d": 0,
+#: kernel launches made by the wrappers, keyed by kernel (K1 by dtype form,
+#: K2 by mode and form)
+LAUNCHES = {"masked_laplace_2d": 0, "masked_laplace_2d:bf16": 0,
+            "laplace_stencil_2d": 0,
             **{launch_key(m, p): 0 for p in (True, False) for m in MODES}}
 
 
@@ -128,6 +131,8 @@ def _library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fdal_masked_laplace_2d.argtypes = [vp, vp, ci, ci, vp, vp]
     lib.fdal_masked_laplace_2d.restype = ci
+    lib.fdal_masked_laplace_2d_bf16.argtypes = [vp, vp, ci, ci, vp, vp]
+    lib.fdal_masked_laplace_2d_bf16.restype = ci
     lib.fdal_laplace_stencil_2d.argtypes = [vp, vp, ci, ci, vp, vp]
     lib.fdal_laplace_stencil_2d.restype = ci
     lib.fdal_fused_augmented_2d.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci,
@@ -182,11 +187,11 @@ def _interior_mask(ny: int, nx: int, device: torch.device) -> torch.Tensor:
             & ((cols >= 1) & (cols <= nx - 2))[None, :])
 
 
-def _check_cuda(name, t, shape=None):
+def _check_cuda(name, t, shape=None, dtypes=(torch.float32,)):
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: the kernel takes {dtypes}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the kernel needs a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -202,7 +207,12 @@ def _check_rc(rc: int, what: str):
 
 def masked_laplace_2d_plain(u: torch.Tensor, h) -> torch.Tensor:
     """Plain PyTorch K1: the 9-point masked form of ``_masked_conv9_xla``,
-    ``m*conv9(m*u) + (1-m)*u`` with ``m`` the interior mask."""
+    ``m*conv9(m*u) + (1-m)*u`` with ``m`` the interior mask.  A bfloat16
+    input is widened to float32, and the result rounded to bfloat16 once:
+    the TPU kernel's bf16 semantics (``pallas_kernels.py:219-259``), not
+    the bf16 arithmetic of ``_masked_conv9_xla``."""
+    if u.dtype == torch.bfloat16:
+        return masked_laplace_2d_plain(u.float(), h).to(torch.bfloat16)
     ny, nx = u.shape
     K0, M0, K1, M1 = stencil_factors_2d(h)
     w = np.outer(K0, M1) + np.outer(M0, K1)
@@ -218,22 +228,28 @@ def masked_laplace_2d_plain(u: torch.Tensor, h) -> torch.Tensor:
 
 def masked_laplace_2d(u: torch.Tensor, h) -> torch.Tensor:
     """K1: constrained Q1 stiffness apply on an (ny, nx) lattice tensor;
-    ``h`` is the cell size per lattice axis."""
+    ``h`` is the cell size per lattice axis.  On CUDA a float32 tensor runs
+    the float32 kernel and a bfloat16 tensor the bf16-storage kernel (float32
+    arithmetic, one rounding); any other dtype raises."""
     if u.device.type == "cpu":
         return masked_laplace_2d_plain(u, h)
-    _check_cuda("masked_laplace_2d", u)
+    _check_cuda("masked_laplace_2d", u,
+                dtypes=(torch.float32, torch.bfloat16))
     if u.dim() != 2:
         raise ValueError("masked_laplace_2d: expected an (ny, nx) tensor")
+    bf16 = u.dtype == torch.bfloat16
     ny, nx = u.shape
     out = torch.empty_like(u)
     fac = _stencil_args(h)
     lib = _library()
+    fn = (lib.fdal_masked_laplace_2d_bf16 if bf16
+          else lib.fdal_masked_laplace_2d)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.fdal_masked_laplace_2d(u.data_ptr(), out.data_ptr(), ny, nx,
-                                        fac.ctypes.data, stream)
-    _check_rc(rc, "masked_laplace_2d")
-    LAUNCHES["masked_laplace_2d"] += 1
+        rc = fn(u.data_ptr(), out.data_ptr(), ny, nx, fac.ctypes.data, stream)
+    key = "masked_laplace_2d:bf16" if bf16 else "masked_laplace_2d"
+    _check_rc(rc, key)
+    LAUNCHES[key] += 1
     return out
 
 

@@ -31,10 +31,11 @@ class CellMatrix:
     def mv(self, x):
         """``A @ x``; a trailing axis broadcasts: x may be (n,) or (n, k)."""
         xe = x[self.col_dofs]                   # (nc, nloc_c[, k])
+        local = self.local.to(x.dtype)          # a bf16 input stays bf16
         if xe.dim() == 3:
-            ye = torch.einsum("cab,cbk->cak", self.local, xe)
+            ye = torch.einsum("cab,cbk->cak", local, xe)
         else:
-            ye = torch.einsum("cab,cb->ca", self.local, xe)
+            ye = torch.einsum("cab,cb->ca", local, xe)
         out = torch.zeros((self.shape[0],) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=x.device)
         return out.index_add_(0, self.row_dofs.reshape(-1),

@@ -9,6 +9,12 @@ interleaves; smoothers are Chebyshev with Lanczos bounds; the coarse solve is
 a dense inverse built in float64 on the host.  Every level vector is an
 (ny, nx) lattice tensor.  The V-cycle is symmetric, so it is a valid CG
 preconditioner.
+
+The cycle runs in its own precision (``build_gmg(dtype=...)``), which may be
+lower than the caller's: with bfloat16 the level vectors, masks, diagonals
+and transfers are bfloat16, the Lanczos bounds are estimated in float32 and
+the coarse inverse is held and applied in float32 (``gmg.py:202-265,
+364-456`` of the reference); ``apply`` casts at its boundary.
 """
 
 from __future__ import annotations
@@ -69,14 +75,19 @@ class _Level:
 
 
 class GMG:
-    """V-cycle preconditioner on lattice tensors: ``apply(b) -> x``."""
+    """V-cycle preconditioner on lattice tensors: ``apply(b) -> x``.
+    ``dtype`` is the cycle precision; ``apply`` takes ``b`` in any floating
+    dtype and returns ``x`` in ``b``'s."""
 
-    def __init__(self, levels, coarse_inv):
+    def __init__(self, levels, coarse_inv, dtype):
         self.levels = levels
         self.coarse_inv = coarse_inv
+        self.dtype = dtype
 
     def _coarse_solve(self, b):
-        return (self.coarse_inv @ b.reshape(-1)).reshape(b.shape)
+        # the dense inverse at its own (at least float32) precision
+        x = self.coarse_inv @ b.reshape(-1).to(self.coarse_inv.dtype)
+        return x.to(self.dtype).reshape(b.shape)
 
     def _vcycle(self, li: int, b):
         level = self.levels[li]
@@ -90,9 +101,9 @@ class GMG:
             x = sm(b)
             r = b - level.op(x)
         coarse = self.levels[li + 1]
-        rc = coarse.mask * coarse.prolong.rmv(r)
+        rc = (coarse.mask * coarse.prolong.rmv(r)).to(self.dtype)
         xc = self._vcycle(li + 1, rc)
-        x = x + level.mask * coarse.prolong.mv(xc)
+        x = x + (level.mask * coarse.prolong.mv(xc)).to(self.dtype)
         post = getattr(sm, "post", None)
         if post is not None:
             x = post(b, x)
@@ -101,7 +112,7 @@ class GMG:
         return x
 
     def apply(self, b):
-        return self._vcycle(0, b)
+        return self._vcycle(0, b.to(self.dtype)).to(b.dtype)
 
 
 # hierarchy and smoother constants of the reference (precond/gmg.py:272-276)
@@ -123,7 +134,9 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
     over ``op``.  ``free_mask`` is the fine-level Dirichlet mask (bool tensor,
     flat); coarse masks are derived from the same constrained faces.
     ``lanczos_start(level_index, n) -> ndarray`` optionally supplies each
-    level's Lanczos start vector.  ``dtype`` is the working precision."""
+    level's Lanczos start vector.  ``dtype`` is the cycle precision: the
+    level ops take and return it; with bfloat16 the Lanczos runs in float32
+    and the coarse inverse is float32."""
     def coarsenable(sp):
         g = sp.grid
         return not (any(n % 2 != 0 for n in g.ncells)
@@ -139,6 +152,8 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
                        if not fine_mask[fine_space.boundary_dof_mask([bid])]
                        .any()]
 
+    # Lanczos and the coarse inverse need more precision than bf16 keeps
+    work_dt = torch.float32 if dtype == torch.bfloat16 else dtype
     levels = []
     for i, sp in enumerate(spaces):
         lat = tuple(reversed(sp.n_points_1d))
@@ -156,11 +171,11 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
         diag_inv = torch.where(mask, 1.0 / diag, 1.0).to(dtype)
 
         def lanc_mv(v, op=op, di=diag_inv, lat=lat):
-            return (di * op(v.reshape(lat))).reshape(-1)
+            return (di * op(v.reshape(lat).to(dtype))).reshape(-1).to(work_dt)
 
         v0 = lanczos_start(i, sp.n_dofs) if lanczos_start is not None else None
         lam = lanczos_max_eig(lanc_mv, sp.n_dofs, steps=LANCZOS_STEPS, v0=v0,
-                              dtype=dtype, device=device, stats=stats)
+                              dtype=work_dt, device=device, stats=stats)
         if smoother_builder is not None:
             smoother = smoother_builder(lam, degree=smoother_degree,
                                         eig_ratio=EIG_RATIO)
@@ -174,7 +189,8 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
                                         lat, (finer.n_dofs, sp.n_dofs))
         levels.append(_Level(sp, op, diag_inv, maskf, smoother, prolong, lam))
 
-    # coarse dense inverse: columns op(e_k), inverted on the host in float64
+    # coarse dense inverse: columns op(e_k) in the cycle precision, inverted
+    # on the host in float64, held in the working precision
     coarse = levels[-1]
     lat = tuple(reversed(coarse.space.n_points_1d))
     nco = coarse.space.n_dofs
@@ -182,4 +198,5 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
     dense = torch.stack([coarse.op(eye[k].reshape(lat)).reshape(-1)
                          for k in range(nco)], dim=1)
     inv = np.linalg.inv(dense.cpu().double().numpy())
-    return GMG(levels, torch.as_tensor(inv, dtype=dtype, device=device))
+    return GMG(levels, torch.as_tensor(inv, dtype=work_dt, device=device),
+               dtype)

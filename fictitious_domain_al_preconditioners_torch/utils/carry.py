@@ -56,7 +56,11 @@ def state_from_jax(arrays: dict, device, dtype) -> CarriedState:
     ``jxw``, the immersed mass diagonal ``m_diag`` and optionally
     ``lanczos_starts``, a list of per-level Lanczos start vectors (fine level
     first; the augmented operator's GMG and ``K⁻¹``'s have the same levels
-    and the reference draws the same vector for both).  With
+    and the reference draws the same vector for both).  Each vector keeps
+    its own dtype: the reference draws them in the Lanczos precision, float64
+    for a float64 hierarchy and float32 for a bfloat16 one
+    (``gmg.py:376-393``), and the port's Lanczos in that precision then
+    starts from the same values.  With
     ``imm_cell_dofs``, ``m_local`` and ``a_local`` (per-cell local matrices)
     the whole immersed mass and stiffness matrices are carried, as the
     rational mode needs them."""
@@ -88,4 +92,4 @@ def state_from_jax(arrays: dict, device, dtype) -> CarriedState:
         free=ten("free", torch.bool), coupling=coupling,
         mass=mass, stiffness=stiffness,
         lanczos_starts=None if starts is None
-        else [np.asarray(v, dtype=np.float64) for v in starts])
+        else [np.array(v) for v in starts])

@@ -4,13 +4,16 @@ time goes.
 
     python3 profile_solve.py                         # augmented, rational, CG
     python3 profile_solve.py --solver rational --refinement 12
+    python3 profile_solve.py --solver augmented_bf16 # bf16 V-cycle flagship
 
-For each solver mode: set up ``chip_smoke.py``'s configuration of it, run two
+For each solver mode: set up ``chip_smoke.py``'s configuration of it
+(``augmented_bf16`` is the flagship with ``use_bf16_multigrid``), run two
 unprofiled solves (the first builds the solver), then one solve under
 ``torch.profiler`` (CPU and CUDA activities).  Prints one JSON line per mode:
 the unprofiled and profiled wall times, the device time summed over the
-device activities (kernels, copies, fills), the busy share (device time over
-profiled wall), the host syncs, and the activities with the most device time.
+device activities (kernels, copies, fills) and their count, the busy share
+(device time over profiled wall), the host syncs, and the activities with
+the most device time.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ def profile_mode(solver, refinement, device, top):
     from fictitious_domain_al_preconditioners_torch.models import \
         ImmersedLaplaceProblem
 
-    cfg = (flagship_config(refinement) if solver == "augmented"
+    cfg = (flagship_config(refinement, bf16=solver == "augmented_bf16")
+           if solver.startswith("augmented")
            else mode_config(solver, refinement))
     prob = ImmersedLaplaceProblem(cfg, device=device).setup()
     prob.solve()
@@ -58,6 +62,7 @@ def profile_mode(solver, refinement, device, top):
         host_syncs=prob.results["host_syncs"],
         unprofiled_solve_ms=unprofiled * 1e3, profiled_wall_ms=wall * 1e3,
         device_ms=device_ms, busy_share=device_ms / (wall * 1e3),
+        device_activities=sum(n for _, n in by_name.values()),
         top=[dict(name=name[:120], ms=ms, calls=n, share=ms / device_ms)
              for name, (ms, n) in ranked])
 
@@ -66,7 +71,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--solver", nargs="+",
                     default=["augmented", "rational", "CG"],
-                    choices=["augmented", "rational", "CG", "ELMAN_triang"])
+                    choices=["augmented", "augmented_bf16", "rational", "CG",
+                             "ELMAN_triang"])
     ap.add_argument("--refinement", type=int, default=12)
     ap.add_argument("--top", type=int, default=12,
                     help="device activities listed per mode")

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
-version, the wrappers' checks, and small solves of every mode against the
-CPU.
+version (K1 in float32 and bf16), the wrappers' checks, and small solves of
+every mode, and of the flagship with the bf16 V-cycle, against the CPU.
 Marked ``gpu``; without a card every test skips.  On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py -q
@@ -92,10 +92,31 @@ def test_k6_and_no_patch_k2_match_plain(cuda, shape):
         assert K.LAUNCHES[key] == before[key] + 1
 
 
+@pytest.mark.parametrize("shape", [(65, 65), (1025, 1025), (530, 777)])
+def test_k1_bf16_matches_plain(cuda, shape):
+    """K1's bf16-storage form against its plain version (float32 arithmetic,
+    one rounding): a float32 sum order can flip one bf16 rounding, one ulp
+    (2^-8) of the value, so the bound is 1e-2 of max |plain|."""
+    h = (1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1))
+    u = torch.as_tensor(np.random.default_rng(3).standard_normal(shape),
+                        dtype=torch.float32, device=cuda).to(torch.bfloat16)
+    before = dict(K.LAUNCHES)
+    got = K.masked_laplace_2d(u, h)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    assert _rel(got.float(), K.masked_laplace_2d_plain(u, h).float()) <= 1e-2
+    assert K.LAUNCHES["masked_laplace_2d:bf16"] == \
+        before["masked_laplace_2d:bf16"] + 1
+    assert K.LAUNCHES["masked_laplace_2d"] == before["masked_laplace_2d"]
+
+
 def test_wrappers_check_their_inputs(cuda):
     st = _stencil(cuda)
     with pytest.raises(TypeError):
         K.masked_laplace_2d(torch.zeros(st.shape, dtype=torch.float64,
+                                        device=cuda), st.h)
+    with pytest.raises(TypeError):
+        K.masked_laplace_2d(torch.zeros(st.shape, dtype=torch.float16,
                                         device=cuda), st.h)
     with pytest.raises(ValueError):
         K.fused_augmented_2d("op", st, torch.zeros((5, 5), device=cuda))
@@ -122,6 +143,33 @@ def test_small_flagship_matches_cpu(cuda):
                                         dtype=torch.float32).setup().solve()
     assert ig.converged and abs(ig.iterations - ic.iterations) <= 1
     assert float((ug.cpu() - uc).abs().max()) <= 1e-3 * float(uc.abs().max())
+
+
+def test_bf16_flagship_matches_cpu(cuda):
+    """The flagship with the bf16 V-cycle at refinement 7, float32 outer:
+    the card (K1 bf16 on every level) against the CPU (plain versions)."""
+    def cfg():
+        c = ImmersedLaplaceConfig(
+            initial_refinement=7, initial_embedded_refinement=7,
+            embedded_configuration=("R*cos(2*pi*x)+Cx; R*sin(2*pi*x)+Cy",
+                                    "R=.2, Cx=.4, Cy=.4"),
+            embedding_rhs=("8*pi^2*sin(2*pi*x)*sin(2*pi*y)", ""),
+            embedded_value=("sin(2*pi*x)*sin(2*pi*y)", ""),
+            solver="augmented", use_operator_form=True,
+            use_diagonal_inverse=True, use_bf16_multigrid=True)
+        c.schur.tolerance, c.schur.reduction = 3e-5, 1e-6
+        return c
+
+    K.reset_launch_counts()
+    ug, _, ig = ImmersedLaplaceProblem(cfg(), device=cuda).setup().solve()
+    launches = dict(K.LAUNCHES)
+    uc, _, ic = ImmersedLaplaceProblem(cfg(), device="cpu",
+                                        dtype=torch.float32).setup().solve()
+    assert ig.converged and abs(ig.iterations - ic.iterations) <= 1
+    assert float((ug.cpu() - uc).abs().max()) <= 1e-3 * float(uc.abs().max())
+    assert launches["masked_laplace_2d:bf16"] > 0
+    assert launches[K.launch_key("op")] > 0
+    assert launches[K.launch_key("pre")] == 0
 
 
 @pytest.mark.parametrize("solver", ["CG", "ELMAN_triang", "rational"])

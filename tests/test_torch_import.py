@@ -18,6 +18,7 @@ MODULES = [
     f"{PKG}.models.immersed_laplace", f"{PKG}.utils.carry",
     f"{PKG}.ops.krylov", f"{PKG}.ops.operators", f"{PKG}.ops.assembly",
     f"{PKG}.parallel.lattice", f"{PKG}.precond.rational",
+    f"{PKG}.precond.gmg", f"{PKG}.ops.host_ref", f"{PKG}.utils.refine",
 ]
 
 
@@ -68,14 +69,16 @@ def test_package_sources_import_no_jax():
 
 @pytest.mark.parametrize("path_env", ["", "/nonexistent"])
 def test_kernels_import_and_cpu_use_need_no_nvcc(path_env):
-    """Importing ops.kernels and running its wrappers (K1, K6, K2 with and
-    without patch) on CPU tensors neither builds nor loads the CUDA library
-    (no nvcc on PATH)."""
+    """Importing ops.kernels and running its wrappers (K1 in float64 and
+    bf16, K6, K2 with and without patch) on CPU tensors neither builds nor
+    loads the CUDA library (no nvcc on PATH)."""
     code = f"""
 import os, numpy as np, torch
 from {PKG}.ops import kernels as K
 u = torch.as_tensor(np.random.default_rng(0).standard_normal((9, 11)))
 K.masked_laplace_2d(u, (0.125, 0.1))
+assert K.masked_laplace_2d(u.to(torch.bfloat16), (0.125, 0.1)).dtype \
+    == torch.bfloat16
 planes = torch.zeros((5, 3, 4), dtype=u.dtype); planes[0] = 1.0
 st = K.AugmentedStencil2D((0.125, 0.1), (9, 11), planes, (3, 3, 3, 4))
 K.laplace_stencil_2d(u, (0.125, 0.1))
