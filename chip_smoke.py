@@ -8,18 +8,25 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. device: require CUDA, print the card's name and power limit, build the
    kernels from ``fictitious_domain_al_preconditioners_torch/csrc`` and
-   print what each K2 instantiation of the main paths takes of the card
-   (registers a thread, shared memory, spilled bytes, blocks an SM);
+   print what both forms of K1 and each K2 instantiation of the main paths
+   take of the card (registers a thread, shared memory, spilled bytes,
+   blocks an SM);
 2. kernels against their plain PyTorch versions on the card: K1 (float32
    and its bf16-storage form), K6, and K2 in all four modes with patch
    planes (from flagship couplings) and without, at n = 65, n = 1025 and
-   (530, 777);
+   (530, 777); K1's two forms also at the edge shapes of its tile (lattices
+   one and two points either side of a multiple of it, shorter than a
+   thread's run, narrower than a warp, without interior), where the
+   boundary must equal the input bit for bit;
 3. the flagship solve (``bench.py``'s configuration, ``solver="augmented"``)
    at the refinement: a warm-up solve, then a timed solve, through
    ``ImmersedLaplaceProblem(cfg).setup()`` and ``.solve()``; the launch
    counters must show K1, K6 and K2 ``op``/``pre``/``post`` on that path;
    afterwards every kernel is compared with its plain version again at the
-   shapes that path gave it, and timed at the fine level;
+   shapes that path gave it, and timed at the fine level (K1 in the same
+   turns as a device copy of the lattice and the no-patch K2 ``op``, which
+   computes the same function), and K1's two forms are timed at every level
+   shape of the hierarchy;
 5. the ``rational`` and ``CG`` modes at the refinement and ``ELMAN_triang``
    at refinement 9 (at most the refinement), on the f = 0, g = 1 circle with
    the flagship's stopping rule, each a warm-up and a timed solve; the
@@ -59,8 +66,8 @@ import traceback
 import numpy as np
 
 PKG = "fictitious_domain_al_preconditioners_torch"
-SOURCE = {"masked_laplace_2d": f"{PKG}/csrc/fdal_stencil.cu",
-          "masked_laplace_2d:bf16": f"{PKG}/csrc/fdal_stencil.cu",
+SOURCE = {"masked_laplace_2d": f"{PKG}/csrc/fdal_masked.cu",
+          "masked_laplace_2d:bf16": f"{PKG}/csrc/fdal_masked.cu",
           "fused_augmented_2d": f"{PKG}/csrc/fdal_sweep.cuh",
           "laplace_stencil_2d": f"{PKG}/csrc/fdal_stencil.cu"}
 # the file that instantiates each K2 mode (the kernel is fdal_sweep.cuh)
@@ -169,6 +176,40 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def cuda_time_turns(fns, reps=20):
+    """Median ms of each function of ``fns``, every one timed forward and
+    then backward through the list (``reps // 2`` CUDA-event timed calls a
+    turn), so that a drift of the card's clocks falls on all alike."""
+    turns = [[] for _ in fns]
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        turns[i].append(cuda_time_ms(fns[i], reps // 2))
+    return [statistics.median(t) for t in turns]
+
+
+def graph_time_ms(fn, launches=20, reps=7):
+    """Device ms of one call of ``fn`` inside a CUDA graph of ``launches``
+    calls (median of ``reps`` replays): the host's launch cost, which
+    outweighs a kernel on a small lattice, stays out of it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_time_ms(graph.replay, reps, warmup=2) / launches
+
+
+def graph_time_turns(fns):
+    """:func:`graph_time_ms` of each function of ``fns``, forward and then
+    backward through the list; the mean of each one's two times."""
+    turns = [[] for _ in fns]
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        turns[i].append(graph_time_ms(fns[i]))
+    return [statistics.mean(t) for t in turns]
+
+
 def flagship_planes(refinement, device):
     """Patch planes (5, pr, pc) and box of the flagship coupling at
     ``refinement`` (its fine level)."""
@@ -234,6 +275,60 @@ def compare_k1_bf16(h, u, tag, errs):
            K.masked_laplace_2d_plain(ub, h))
 
 
+def k1_edge_shapes():
+    """Lattices at the edges of K1's tile: the coarsest levels, lattices
+    shorter than a thread's run, narrower than a warp or without interior,
+    rows of 30 k +- 1 points, and an even and an odd row length on each side
+    of a multiple of the block's tile, for a small, a middle and a large
+    lattice (the launch's three plans; the bf16 form's tile on the large
+    one, which holds two of the float32 form's)."""
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    shapes = [(5, 5), (9, 9), (17, 17), (1, 7), (2, 40), (3, 3), (5, 200),
+              (300, 3), (40, 2), (3, 50000), (17, 29), (17, 31), (33, 59),
+              (33, 61)]
+    for ny0, nx0 in ((64, 240), (512, 600), (2240, 2160)):
+        tile = K.masked_laplace_tile(ny0, nx0, bf16=True)
+        ty, tx = tile["run_rows"], tile["tile_columns"]
+        ky, kx = max(ny0 // ty, 1), max(nx0 // tx, 1)
+        shapes += [(ky * ty + dy, kx * tx + dx)
+                   for dy, dx in ((-1, -2), (-1, -1), (0, 0), (1, 1), (1, 2))]
+    return shapes
+
+
+def compare_k1_edges(device, errs):
+    """K1's two forms against the plain version at :func:`k1_edge_shapes`;
+    the boundary rows and columns must equal the input bit for bit and the
+    input must be left as it was."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    shapes = k1_edge_shapes()
+    for i, shape in enumerate(shapes):
+        h = tuple(1.0 / max(n - 1, 1) for n in shape)
+        u32 = torch.as_tensor(
+            np.random.default_rng(600 + i).standard_normal(shape),
+            dtype=torch.float32, device=device)
+        for u, name, bits in ((u32, "masked_laplace_2d", torch.int32),
+                              (u32.to(torch.bfloat16),
+                               "masked_laplace_2d:bf16", torch.int16)):
+            tag = f"edge {shape}"
+            kept = u.clone()
+            got = K.masked_laplace_2d(u, h)
+            torch.cuda.synchronize(device)
+            check(got.dtype == u.dtype and got.shape == u.shape,
+                  f"{name} {tag}: returned {got.dtype} {tuple(got.shape)}")
+            check(torch.equal(u.view(bits), kept.view(bits)),
+                  f"{name} {tag}: the input was changed")
+            record(errs, name, "-", tag, got, K.masked_laplace_2d_plain(u, h))
+            for edge in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1]):
+                check(torch.equal(got[edge].contiguous().view(bits),
+                                  u[edge].contiguous().view(bits)),
+                      f"{name} {tag}: boundary differs from the input")
+    print(f"phase 2: K1 float32 and bf16 agree with plain at {len(shapes)} "
+          "edge shapes", flush=True)
+
+
 def compare_fused(st, device, lam, seed, tag, errs):
     """K2 in all four modes against its plain version on one stencil (with
     or without patch planes)."""
@@ -275,6 +370,7 @@ def phase_kernels(device):
         AugmentedStencil2D, sweep_output_tile)
 
     errs = []
+    compare_k1_edges(device, errs)
     cases = []
     for ref in (6, 10):                       # n = 65, 1025
         planes, box = flagship_planes(ref, device)
@@ -403,14 +499,6 @@ def phase_mode(solver, refinement, device):
     return prob, out, errs
 
 
-def cuda_time_pair(fn, plain, reps=20):
-    """(kernel ms, plain ms), each the median of ``reps`` CUDA-event timed
-    calls, taken in turns kernel, plain, plain, kernel."""
-    a1, p1 = cuda_time_ms(fn, reps // 2), cuda_time_ms(plain, reps // 2)
-    p2, a2 = cuda_time_ms(plain, reps // 2), cuda_time_ms(fn, reps // 2)
-    return statistics.median([a1, a2]), statistics.median([p1, p2])
-
-
 def bound(nbytes, flops):
     """(ms, "bytes" or "operations"): the least time the card could take,
     bytes over the memory rate against operations over the f32 rate."""
@@ -449,9 +537,9 @@ def time_fused(st, lam, degree, device, times):
     form = "" if st.patched else ":no_patch"
     for mode in K.MODES:
         xin = x0 if mode == "post" else None
-        ms, pms = cuda_time_pair(
-            lambda: K.fused_augmented_2d(mode, st, b, xin, **kw),
-            lambda: K.fused_augmented_2d_plain(mode, st, b, xin, **kw))
+        ms, pms = cuda_time_turns(
+            [lambda: K.fused_augmented_2d(mode, st, b, xin, **kw),
+             lambda: K.fused_augmented_2d_plain(mode, st, b, xin, **kw)])
         times[mode + form] = dict(ms=ms, plain_ms=pms, library_ms=None,
                                   shape=list(st.shape))
         times[mode + form]["bound_ms"], times[mode + form]["bound_by"] = \
@@ -459,9 +547,14 @@ def time_fused(st, lam, degree, device, times):
 
 
 def time_stencils(h, shape, device, times):
-    """K1 and K6 at one lattice: kernel, plain and bound; K6 also against
-    ``conv2d`` with its 3x3 weight and ``padding=1`` (the body of
-    ``_conv9_pallas``, without the edge corrections)."""
+    """K1 and K6 at one lattice: kernel, plain and bound; K1 in the same
+    turns as a device copy of the lattice (the same bytes: the ceiling of a
+    streaming kernel) and the no-patch K2 ``op``, which computes the same
+    function, each as a CUDA-event timed call (``ms``: it holds the host's
+    cost of one wrapper call, during which the card waits) and as device ms
+    a launch inside a CUDA graph (``graph_ms``); K6 also against ``conv2d`` with its 3x3 weight and
+    ``padding=1`` (the body of ``_conv9_pallas``, without the edge
+    corrections)."""
     import torch
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
@@ -469,16 +562,22 @@ def time_stencils(h, shape, device, times):
                         dtype=torch.float32, device=device)
     n = shape[0] * shape[1]
     b = bound(8 * n, STENCIL_FLOPS * n)
-    ms, pms = cuda_time_pair(lambda: K.masked_laplace_2d(u, h),
-                             lambda: K.masked_laplace_2d_plain(u, h))
-    times["masked_laplace_2d"] = dict(ms=ms, plain_ms=pms, library_ms=None,
-                                      bound_ms=b[0], bound_by=b[1],
-                                      shape=list(shape))
+    dst = torch.empty_like(u)
+    st = K.AugmentedStencil2D(h, shape, device=device, dtype=u.dtype)
+    fns = [lambda: K.masked_laplace_2d(u, h), lambda: dst.copy_(u),
+           lambda: K.fused_augmented_2d("op", st, u)]
+    ms, cms, oms, pms = cuda_time_turns(
+        fns + [lambda: K.masked_laplace_2d_plain(u, h)])
+    gms, gcms, goms = graph_time_turns(fns)
+    times["masked_laplace_2d"] = dict(
+        ms=ms, plain_ms=pms, library_ms=None, bound_ms=b[0], bound_by=b[1],
+        copy_ms=cms, k2_op_ms=oms, graph_ms=gms, copy_graph_ms=gcms,
+        k2_op_graph_ms=goms, shape=list(shape))
     K0, M0, K1, M1 = K.stencil_factors_2d(h)
     w = torch.as_tensor(np.outer(K0, M1) + np.outer(M0, K1),
                         dtype=torch.float32, device=device)[None, None]
-    ms, pms = cuda_time_pair(lambda: K.laplace_stencil_2d(u, h),
-                             lambda: K.laplace_stencil_2d_plain(u, h))
+    ms, pms = cuda_time_turns([lambda: K.laplace_stencil_2d(u, h),
+                               lambda: K.laplace_stencil_2d_plain(u, h)])
     lib = cuda_time_ms(lambda: torch.nn.functional.conv2d(
         u[None, None], w, padding=1))
     times["laplace_stencil_2d"] = dict(ms=ms, plain_ms=pms, library_ms=lib,
@@ -497,11 +596,46 @@ def time_k1_bf16(h, shape, device, times):
                         dtype=torch.float32, device=device).to(torch.bfloat16)
     n = shape[0] * shape[1]
     b = bound(4 * n, STENCIL_FLOPS * n)
-    ms, pms = cuda_time_pair(lambda: K.masked_laplace_2d(u, h),
-                             lambda: K.masked_laplace_2d_plain(u, h))
+    dst = torch.empty_like(u)
+    fns = [lambda: K.masked_laplace_2d(u, h), lambda: dst.copy_(u)]
+    ms, cms, pms = cuda_time_turns(
+        fns + [lambda: K.masked_laplace_2d_plain(u, h)])
+    gms, gcms = graph_time_turns(fns)
     times["masked_laplace_2d:bf16"] = dict(
         ms=ms, plain_ms=pms, library_ms=None, bound_ms=b[0], bound_by=b[1],
-        shape=list(shape))
+        copy_ms=cms, graph_ms=gms, copy_graph_ms=gcms, shape=list(shape))
+
+
+def time_k1_levels(shapes, device, times):
+    """K1's two forms and a device copy of the same lattice at every level
+    shape: device ms a launch inside a CUDA graph (:func:`graph_time_ms`),
+    so that the coarse levels, where a launch costs the host more than the
+    kernel runs, are on record too.  One line a shape; the rows go into the
+    kernels' entries as ``levels``."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    for name in ("masked_laplace_2d", "masked_laplace_2d:bf16"):
+        times[name]["levels"] = []
+    for shape in shapes:
+        h = tuple(1.0 / (n - 1) for n in shape)
+        u32 = torch.as_tensor(np.random.default_rng(8).standard_normal(shape),
+                              dtype=torch.float32, device=device)
+        row = {}
+        for name, u in (("masked_laplace_2d", u32),
+                        ("masked_laplace_2d:bf16", u32.to(torch.bfloat16))):
+            dst = torch.empty_like(u)
+            ms = graph_time_ms(lambda: K.masked_laplace_2d(u, h))
+            cms = graph_time_ms(lambda: dst.copy_(u))
+            n = shape[0] * shape[1]
+            bms = bound(2 * u.element_size() * n, STENCIL_FLOPS * n)[0]
+            row[name] = (ms, cms)
+            times[name]["levels"].append(dict(shape=list(shape), ms=ms,
+                                              copy_ms=cms, bound_ms=bms))
+        f, b = row["masked_laplace_2d"], row["masked_laplace_2d:bf16"]
+        print(f"time K1 level {shape}: float32 {f[0]:.5f} ms (copy "
+              f"{f[1]:.5f}), bf16 {b[0]:.5f} ms (copy {b[1]:.5f}), in a "
+              "CUDA graph", flush=True)
 
 
 def phase_bf16_flagship(refinement, device, f32_iterations):
@@ -626,6 +760,23 @@ def phase_crosscheck(device, refinement=7):
     return outs
 
 
+def k1_resources(shape):
+    """Resources of K1's two forms, keyed as in the kernels line: of the
+    instantiation a launch on ``shape`` takes, with every instantiation's
+    under ``chunks``."""
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    res = {}
+    for name, bf16 in (("masked_laplace_2d", False),
+                       ("masked_laplace_2d:bf16", True)):
+        tile = K.masked_laplace_tile(*shape, bf16=bf16)
+        res[name] = dict(
+            K.masked_laplace_resources(bf16, tile["chunk_rows"]), **tile,
+            chunks={c: K.masked_laplace_resources(bf16, c)
+                    for c in K.K1_CHUNKS})
+    return res
+
+
 def k2_resources(degree=4):
     """Resources of the K2 instantiations on the main paths (``op``, and
     ``pre``/``post`` at ``degree``, each with and without patch), keyed as
@@ -662,7 +813,11 @@ def kernel_report(path_launches, errs, times, resources):
                     launches_by_path=by_path, max_abs_err=worst(name),
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                    library_ms=t["library_ms"], shape=t["shape"])
+                    library_ms=t["library_ms"], shape=t["shape"],
+                    **{k: t[k] for k in (
+                        "copy_ms", "k2_op_ms", "graph_ms", "copy_graph_ms",
+                        "k2_op_graph_ms", "levels") if k in t},
+                    **resources.get(name, {}))
 
     modes = {}
     for patch in (True, False):
@@ -727,8 +882,16 @@ def main(argv=None) -> int:
         K._library()
         print(f"phase 1: kernels built and loaded in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-        resources = k2_resources()
+        n = 2 ** args.refinement + 1
+        resources = k1_resources((n, n))
         for key, r in resources.items():
+            print(f"phase 1: K1 {key} at {n}²: {json.dumps(r)}", flush=True)
+            for chunk, rc in r["chunks"].items():
+                check(rc["local_bytes"] == 0, f"K1 {key} chunk {chunk} "
+                      f"spills {rc['local_bytes']} bytes a thread")
+        k2 = k2_resources()
+        resources.update(k2)
+        for key, r in k2.items():
             print(f"phase 1: K2 {key} (degree 4): {json.dumps(r)}",
                   flush=True)
             check(r["local_bytes"] == 0, f"K2 {key} spills "
@@ -741,6 +904,8 @@ def main(argv=None) -> int:
         errs += phase_flagship_shapes(prob, device)
         fine = prob.level_stencils[0]
         time_stencils(fine.h, fine.shape, device, times)
+        level_shapes = [tuple(reversed(level.space.n_points_1d))
+                        for level in prob._last_gmg.levels]
         time_fused(fine, prob._last_gmg.levels[0].lam_max,
                    prob.cfg.gmg_smoother_degree, device, times)
         del prob
@@ -767,16 +932,23 @@ def main(argv=None) -> int:
         time_k1_bf16(tuple(1.0 / (n - 1) for n in lat), lat, device, times)
         del prob
         torch.cuda.empty_cache()
+        time_k1_levels(level_shapes, device, times)
         ref = min(REFINED_REFINEMENT, args.refinement)
         for bf16 in (False, True):
             out = phase_refined(ref, device, bf16)
             path_launches[out["path"]] = out["launches"]
             torch.cuda.empty_cache()
         for k, t in times.items():
+            also = "".join(
+                f", {name} {t[key]:.4f} ms" for key, name in
+                (("copy_ms", "copy"), ("k2_op_ms", "no-patch K2 op"),
+                 ("graph_ms", "in a CUDA graph: kernel"),
+                 ("copy_graph_ms", "copy"),
+                 ("k2_op_graph_ms", "no-patch K2 op")) if key in t)
             print(f"time {k} at {tuple(t['shape'])}: kernel {t['ms']:.4f} "
                   f"ms, plain {t['plain_ms']:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
-                  f"{t['library_ms']} ms", flush=True)
+                  f"{t['library_ms']} ms{also}", flush=True)
 
         phase_crosscheck(device)
         report = kernel_report(path_launches, errs, times, resources)

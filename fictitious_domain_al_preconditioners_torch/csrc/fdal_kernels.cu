@@ -2,7 +2,7 @@
 // augmented operator and Chebyshev smoother, with a plain C interface loaded
 // through ctypes (see ops/kernels.py, which builds the sources with nvcc on
 // first use and holds the plain PyTorch version).  K1, the masked stiffness
-// stencil, lives in fdal_stencil.cu beside K6.
+// stencil, lives in fdal_masked.cu and K6 in fdal_stencil.cu.
 //
 // K2  fdal_fused_augmented_2d (modes op / smooth / pre / post)
 //     Replaces fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py

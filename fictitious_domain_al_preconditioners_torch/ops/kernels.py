@@ -18,11 +18,12 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.pallas_kernels``:
 K2 is CUDA C++ for ``sm_90a``: the kernel in ``csrc/fdal_sweep.cuh``,
 instantiated for ``op``/``smooth`` (and its C entry points) in
 ``csrc/fdal_kernels.cu``, for ``pre`` in ``csrc/fdal_pre.cu`` and for
-``post`` in ``csrc/fdal_post.cu``; K1 and K6 are in ``csrc/fdal_stencil.cu``.
-All sit behind a plain C interface; :func:`build` compiles the sources with
-``nvcc`` (one process each, run together) into one library under
-``build/torch_kernels/`` at first use, called through ctypes.  Nothing is
-built or imported from CUDA when this module is imported.
+``post`` in ``csrc/fdal_post.cu``; K1 (both forms) is in
+``csrc/fdal_masked.cu`` and K6 in ``csrc/fdal_stencil.cu``.  All sit behind
+a plain C interface; :func:`build` compiles the sources with ``nvcc`` (one
+process each, run together) into one library under ``build/torch_kernels/``
+at first use, called through ctypes.  Nothing is built or imported from CUDA
+when this module is imported.
 
 Dispatch rule of every wrapper: a CPU tensor goes to the plain PyTorch
 version; a CUDA tensor launches the kernel (float32, or bfloat16 for K1;
@@ -42,11 +43,13 @@ import subprocess
 import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "build", "stencil_factors_2d",
+__all__ = ["LAUNCHES", "reset_launch_counts", "build", "source_tag",
+           "stencil_factors_2d",
            "masked_laplace_2d", "masked_laplace_2d_plain",
            "laplace_stencil_2d", "laplace_stencil_2d_plain",
            "AugmentedStencil2D", "fused_augmented_2d",
            "fused_augmented_2d_plain", "fused_augmented_resources",
+           "masked_laplace_resources", "masked_laplace_tile", "K1_CHUNKS",
            "launch_key", "MODES", "SWEEP_TILE", "sweep_output_tile"]
 
 MODES = ("op", "smooth", "pre", "post")
@@ -83,7 +86,7 @@ def reset_launch_counts():
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f)
                 for f in ("fdal_kernels.cu", "fdal_pre.cu", "fdal_post.cu",
-                          "fdal_stencil.cu"))
+                          "fdal_stencil.cu", "fdal_masked.cu"))
 HEADERS = (os.path.join(_PKG_DIR, "csrc", "fdal_sweep.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
@@ -95,16 +98,21 @@ def _nvcc() -> str:
     return path
 
 
+def source_tag() -> str:
+    """Hash of every source and header that :func:`build` compiles."""
+    digest = hashlib.sha1()
+    for src in SOURCES + HEADERS:
+        with open(src, "rb") as fh:
+            digest.update(fh.read())
+    return digest.hexdigest()[:12]
+
+
 def build() -> str:
     """Compile the CUDA sources for sm_90a, one ``nvcc`` process each, all
     started together, and link them into one shared library under
     ``build/torch_kernels/`` (named by the sources' hash, so an edited source
     rebuilds); return its path."""
-    digest = hashlib.sha1()
-    for src in SOURCES + HEADERS:
-        with open(src, "rb") as fh:
-            digest.update(fh.read())
-    tag = digest.hexdigest()[:12]
+    tag = source_tag()
     lib = os.path.join(BUILD_DIR, f"libfdal_kernels_{tag}.so")
     if os.path.exists(lib):
         return lib
@@ -148,6 +156,10 @@ def _library():
     lib.fdal_masked_laplace_2d.restype = ci
     lib.fdal_masked_laplace_2d_bf16.argtypes = [vp, vp, ci, ci, vp, vp]
     lib.fdal_masked_laplace_2d_bf16.restype = ci
+    lib.fdal_masked_laplace_resources.argtypes = [ci, ci, vp]
+    lib.fdal_masked_laplace_resources.restype = ci
+    lib.fdal_masked_laplace_plan.argtypes = [ci, ci, ci, vp]
+    lib.fdal_masked_laplace_plan.restype = ci
     lib.fdal_laplace_stencil_2d.argtypes = [vp, vp, ci, ci, vp, vp]
     lib.fdal_laplace_stencil_2d.restype = ci
     lib.fdal_fused_augmented_2d.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci,
@@ -268,6 +280,37 @@ def masked_laplace_2d(u: torch.Tensor, h) -> torch.Tensor:
     _check_rc(rc, key)
     LAUNCHES[key] += 1
     return out
+
+
+#: the chunks (rows a thread loads ahead and unrolls) K1 is instantiated
+#: for; a launch picks one from the lattice's size (csrc/fdal_masked.cu)
+K1_CHUNKS = (1, 4, 8)
+
+
+def masked_laplace_resources(bf16: bool = False, chunk: int = 8) -> dict:
+    """What one instantiation of K1 takes of the card (builds the library):
+    registers a thread, local (spilled) bytes a thread, static shared bytes
+    a block, resident blocks an SM, threads a block and the columns a block
+    writes.  ``chunk`` is one of :data:`K1_CHUNKS`."""
+    res = np.zeros(6, dtype=np.int32)
+    _check_rc(_library().fdal_masked_laplace_resources(
+        int(bf16), int(chunk), res.ctypes.data),
+        f"masked_laplace_resources({bf16}, {chunk})")
+    keys = ("registers", "local_bytes", "static_smem_bytes", "blocks_per_sm",
+            "threads", "tile_columns")
+    return dict(zip(keys, (int(v) for v in res)))
+
+
+def masked_laplace_tile(ny: int, nx: int, bf16: bool = False) -> dict:
+    """How K1 cuts an (ny, nx) lattice (builds the library): ``chunk_rows``
+    and ``run_rows`` of the launch's plan (a block writes ``run_rows`` rows)
+    and the ``tile_columns`` a block writes."""
+    plan = np.zeros(2, dtype=np.int32)
+    _check_rc(_library().fdal_masked_laplace_plan(
+        int(bf16), int(ny), int(nx), plan.ctypes.data), "masked_laplace_tile")
+    return dict(chunk_rows=int(plan[0]), run_rows=int(plan[1]),
+                tile_columns=masked_laplace_resources(
+                    bf16, int(plan[0]))["tile_columns"])
 
 
 # --------------------------------------------------------------------- K6 --

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Build variants of K2's sweep kernel and time them in turns on one card.
+"""Build variants of K2's sweep kernel, or of K1, and time them in turns
+on one card.
 
     python3 sweep_variants.py tiles    # tile shapes against the committed one
     python3 sweep_variants.py split    # memory-only and compute-only probes
+    python3 sweep_variants.py k1       # K1: layouts, run lengths and probes
+    python3 sweep_variants.py k1 --parent DIR   # ... and an earlier tree's K1
 
 Each variant is ``csrc/fdal_sweep.cuh`` with text substitutions, built with
 its three instantiating sources into a library of its own under
@@ -19,6 +22,20 @@ The ``split`` probes break the results on purpose: ``no_compute`` drops
 the operator applications (loads, the Chebyshev updates and stores stay),
 ``no_memory`` replaces the lattice loads by values made in registers and
 keeps the stores behind a test that never holds.
+
+``k1`` builds ``csrc/fdal_masked.cu`` once per entry of ``K1_VARIANTS``, each
+with its own ``-D`` flags (the probes the source names), into libraries
+under ``build/sweep_variants/``; with ``--parent DIR`` (the root of another
+checkout of this repository, of before K1 had its own file) it also builds
+that tree's ``csrc/fdal_stencil.cu``, whose K1 has the same C interface.  It
+prints every variant's registers, spills and resident blocks an SM, holds
+the variants that keep the arithmetic against the plain version in both
+forms at small edge shapes, and then times both forms of every variant, and
+a device copy of the same lattice, at every level shape of the flagship
+hierarchy (4097² down to 5²), all variants in turns forward then backward
+(so ``parent, as_is, ..., as_is, parent``), each as device ms a launch inside
+a CUDA graph of 20 launches.  The table also goes to the file named by
+``--out`` (``build/sweep_variants/k1_variants.json`` if not given).
 """
 
 from __future__ import annotations
@@ -76,6 +93,163 @@ PRESETS = {
 # variants whose arithmetic is the kernel's (held against the plain version)
 EXACT = {"as_is", "128x32", "128x64_1block", "64x48"}
 
+# K1: the -D flags of each variant of csrc/fdal_masked.cu (the source's
+# header comment says what each probe does)
+K1_VARIANTS = {
+    "as_is": [],
+    "separable": ["-DFDAL_K1_SEPARABLE"],
+    "smem_neighbours": ["-DFDAL_K1_SMEM"],
+    # one chunk and run length for every lattice: u<chunk>r<run>
+    **{f"u{u}r{r}": [f"-DFDAL_K1_UNROLL={u}", f"-DFDAL_K1_RUN={r}"]
+       for u, r in ((1, 1), (2, 2), (4, 4), (4, 8), (8, 8), (8, 16), (8, 32),
+                    (16, 16))},
+    # registers capped for 12 and 16 blocks an SM
+    "u8r8_b12": ["-DFDAL_K1_UNROLL=8", "-DFDAL_K1_MIN_BLOCKS=12"],
+    "u4r4_b16": ["-DFDAL_K1_UNROLL=4", "-DFDAL_K1_MIN_BLOCKS=16"],
+    "no_compute": ["-DFDAL_K1_NO_COMPUTE"],
+    "no_loads": ["-DFDAL_K1_NO_LOADS"],
+    "no_stores": ["-DFDAL_K1_NO_STORES"],
+    "no_memory": ["-DFDAL_K1_NO_LOADS", "-DFDAL_K1_NO_STORES"],
+}
+K1_PROBES = {"no_compute", "no_loads", "no_stores", "no_memory"}
+K1_LEVELS = [2 ** k + 1 for k in range(12, 1, -1)]       # 4097 ... 5
+K1_EDGE_SHAPES = [(5, 5), (9, 9), (17, 17), (3, 50), (5, 200), (65, 65),
+                  (97, 161), (63, 239), (65, 242), (511, 599), (530, 777),
+                  (1025, 1025), (2241, 2161)]
+
+
+def build_k1(parent):
+    """Compile every K1 variant (and the parent's K1, if given), all nvcc
+    processes started together; return {name: (ctypes lib, ptxas lines)}."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-shared"]
+    jobs = {}
+    todo = {name: (os.path.join(CSRC, "fdal_masked.cu"), defs)
+            for name, defs in K1_VARIANTS.items()}
+    if parent:
+        todo = {"parent": (os.path.join(parent, CSRC, "fdal_stencil.cu"), []),
+                **todo}
+    for name, (src, defs) in todo.items():
+        d = os.path.join(OUT, "k1_" + name)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        lib = os.path.join(d, "lib.so")
+        jobs[name] = (lib, subprocess.Popen(
+            [nvcc, *flags, *defs, "-o", lib, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{name}: nvcc failed\n{err[-3000:]}")
+        ptxas = [line.split("ptxas info    : ")[-1] for line in
+                 err.splitlines() if "registers" in line or "spill" in line]
+        libs[name] = (ctypes.CDLL(os.path.abspath(lib)), ptxas)
+    return libs
+
+
+def main_k1(args) -> int:
+    import torch
+
+    import chip_smoke as S
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    libs = build_k1(args.parent)
+    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name, (lib, ptxas) in libs.items():
+        for fn in (lib.fdal_masked_laplace_2d,
+                   lib.fdal_masked_laplace_2d_bf16):
+            fn.argtypes = [vp, vp, ci, ci, vp, vp]
+            fn.restype = ci
+        res = {}
+        if name != "parent":
+            lib.fdal_masked_laplace_resources.argtypes = [ci, ci, vp]
+            lib.fdal_masked_laplace_plan.argtypes = [ci, ci, ci, vp]
+            for form in (0, 1):
+                # the plan (chunk, run) at each size, and the resources of
+                # each chunk's instantiation
+                plans, chunks = {}, {}
+                for n in (65, 1025, 4097):
+                    plan = np.zeros(2, np.int32)
+                    lib.fdal_masked_laplace_plan(form, n, n, plan.ctypes.data)
+                    plans[str(n)] = [int(v) for v in plan]
+                    r = np.zeros(6, np.int32)
+                    if lib.fdal_masked_laplace_resources(form, int(plan[0]),
+                                                         r.ctypes.data):
+                        raise SystemExit(f"{name}: resources failed")
+                    chunks[str(plan[0])] = dict(
+                        registers=int(r[0]), local_bytes=int(r[1]),
+                        static_smem_bytes=int(r[2]), blocks_per_sm=int(r[3]))
+                res["bf16" if form else "float32"] = dict(plans=plans,
+                                                          chunks=chunks)
+        print(json.dumps(dict(variant=name, resources=res, ptxas=ptxas)),
+              flush=True)
+
+    def call(lib, u, out, fac):
+        fn = (lib.fdal_masked_laplace_2d_bf16 if u.dtype == torch.bfloat16
+              else lib.fdal_masked_laplace_2d)
+        rc = fn(u.data_ptr(), out.data_ptr(), u.shape[0], u.shape[1],
+                fac.ctypes.data, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch failed ({rc})")
+        return out
+
+    def field(shape, bf16, seed):
+        u = torch.as_tensor(np.random.default_rng(seed).standard_normal(shape),
+                            dtype=torch.float32, device=dev)
+        return u.to(torch.bfloat16) if bf16 else u
+
+    failed = False
+    for name, (lib, _) in libs.items():
+        if name in K1_PROBES:
+            continue
+        worst = {}
+        for shape in K1_EDGE_SHAPES:
+            h = (1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1))
+            fac = K._stencil_args(h)
+            for bf16 in (False, True):
+                u = field(shape, bf16, seed=sum(shape))
+                got = call(lib, u, torch.empty_like(u), fac)
+                torch.cuda.synchronize()
+                ref = K.masked_laplace_2d_plain(u, h)
+                key = "masked_laplace_2d" + (":bf16" if bf16 else "")
+                rel = float((got.double() - ref.double()).abs().max()
+                            / ref.double().abs().max()) / S.TOL[key]
+                worst[key] = max(worst.get(key, 0.0), rel)
+                if not rel <= 1:
+                    failed = True
+                    print(f"FAIL {name} {shape} {key}: {rel:.3e} of the "
+                          "tolerance", flush=True)
+        print(f"{name}: worst error / tolerance {json.dumps(worst)}",
+              flush=True)
+
+    names = list(libs)
+    table = []
+    for n in K1_LEVELS:
+        h = (1.0 / (n - 1),) * 2
+        fac = K._stencil_args(h)
+        for bf16 in (False, True):
+            u = field((n, n), bf16, seed=8)
+            out = torch.empty_like(u)
+            ms = {name: [] for name in names + ["copy"]}
+            for name in names + ["copy"] + names[::-1]:
+                fn = ((lambda: out.copy_(u)) if name == "copy" else
+                      (lambda: call(libs[name][0], u, out, fac)))
+                ms[name].append(S.graph_time_ms(fn))
+            row = {"form": "bf16" if bf16 else "float32", "shape": [n, n],
+                   "ms": {k: [round(x, 6) for x in v] for k, v in ms.items()}}
+            table.append(row)
+            print(json.dumps(row), flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(table, fh, indent=1)
+    return 1 if failed else 0
+
 
 def build(variants):
     """Write and compile every variant; return {name: (ctypes lib, spills)}."""
@@ -126,7 +300,12 @@ def build(variants):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("preset", choices=sorted(PRESETS))
+    ap.add_argument("preset", choices=sorted(PRESETS) + ["k1"])
+    ap.add_argument("--parent", default=None,
+                    help="k1: root of a checkout whose csrc/fdal_stencil.cu "
+                         "holds an earlier K1, timed beside the variants")
+    ap.add_argument("--out", default=os.path.join(OUT, "k1_variants.json"),
+                    help="k1: file the table of times is written to")
     args = ap.parse_args(argv)
 
     import torch
@@ -134,14 +313,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("sweep_variants: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke as S
-    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
-
-    dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card {smi}", flush=True)
+    if args.preset == "k1":
+        return main_k1(args)
+    import chip_smoke as S
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     libs = build(PRESETS[args.preset])
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",

@@ -31,7 +31,10 @@ from test_torch_immersed_laplace import carried_arrays, golden_config
 torch.set_num_threads(1)
 
 BF16 = torch.bfloat16
-SHAPES = [(65, 65), (129, 129), (33, 47)]
+# the V-cycle's level shapes down to the coarsest, and non-square lattices
+# with an odd and an even row length
+SHAPES = [(65, 65), (129, 129), (33, 47), (5, 5), (9, 9), (17, 33),
+          (64, 130)]
 
 
 def _field(shape, seed):

@@ -180,6 +180,88 @@ def test_rcp_rn_is_the_ieee_reciprocal(cuda, tmp_path):
     assert res.stdout.strip() == "0"
 
 
+# K1's lattices: the coarse levels and the shapes of the other card tests;
+# lattices shorter than one chunk of a thread's run, narrower than one warp,
+# or without interior; rows of 30 k +- 1 points (a warp writes 30 columns);
+# an even and an odd row length on each side of a multiple of the block's
+# tile in each of the launch's three plans: 1 x 120 on small lattices, 4 x
+# 120 on middle ones, and 8 x 120 (float32) or 16 x 120 (bf16) on large ones
+# (``test_k1_tile_is_what_the_edge_shapes_assume`` holds these numbers to the
+# library)
+K1_SHAPES = [(5, 5), (9, 9), (17, 17), (65, 65), (97, 161), (530, 777),
+             (1025, 1025),
+             (1, 7), (2, 40), (3, 3), (5, 200), (7, 1300), (300, 3), (40, 2),
+             (3, 50000), (50000, 3), (7, 700000),
+             (17, 29), (17, 31), (33, 59), (33, 61), (9, 32),
+             (63, 238), (63, 239), (64, 240), (65, 241), (65, 242),
+             (511, 598), (511, 599), (512, 600), (513, 601), (513, 602),
+             (2239, 2158), (2239, 2159), (2240, 2160), (2241, 2161),
+             (2241, 2162)]
+
+
+def test_k1_tile_is_what_the_edge_shapes_assume(cuda):
+    tile = K.masked_laplace_tile
+    assert tile(64, 240) == dict(chunk_rows=1, run_rows=1, tile_columns=120)
+    assert tile(512, 600, bf16=True) == dict(chunk_rows=4, run_rows=4,
+                                             tile_columns=120)
+    assert tile(3, 50000) == tile(50000, 3) == tile(512, 600)
+    assert tile(2240, 2160) == tile(7, 700000) == dict(
+        chunk_rows=8, run_rows=8, tile_columns=120)
+    assert tile(2239, 2158, bf16=True) == dict(chunk_rows=8, run_rows=16,
+                                               tile_columns=120)
+    for bf16 in (False, True):
+        for chunk in K.K1_CHUNKS:
+            res = K.masked_laplace_resources(bf16, chunk)
+            assert res["threads"] == 128 and res["local_bytes"] == 0
+            assert res["blocks_per_sm"] >= 8 and res["registers"] > 0
+            assert res["static_smem_bytes"] == 0
+    with pytest.raises(RuntimeError):
+        K.masked_laplace_resources(False, 3)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_k1_matches_plain_at_tile_edges(cuda, shape, bf16):
+    """K1 against its plain version: float32 to 1e-6 of max |plain| (another
+    float32 summation order), the bf16-storage form to one bf16 ulp of the
+    largest value (8e-3: a float32 sum order can flip one rounding); the
+    boundary rows and columns are the input bit for bit, and the input is
+    left as it was."""
+    h = (1.0 / max(shape[0] - 1, 1), 1.0 / max(shape[1] - 1, 1))
+    u = torch.as_tensor(np.random.default_rng(sum(shape)).standard_normal(
+        shape), dtype=torch.float32, device=cuda)
+    if bf16:
+        u = u.to(torch.bfloat16)
+    kept = u.clone()
+    key = "masked_laplace_2d:bf16" if bf16 else "masked_laplace_2d"
+    before = K.LAUNCHES[key]
+    got = K.masked_laplace_2d(u, h)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[key] == before + 1
+    assert got.dtype == u.dtype and tuple(got.shape) == shape
+    assert got.data_ptr() != u.data_ptr()
+    bits = torch.int16 if bf16 else torch.int32
+    assert torch.equal(u.view(bits), kept.view(bits))
+    ref = K.masked_laplace_2d_plain(u, h)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got.float(), ref.float()) <= (8e-3 if bf16 else 1e-6)
+    for edge in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1]):
+        assert torch.equal(got[edge].contiguous().view(bits),
+                           u[edge].contiguous().view(bits))
+
+
+def test_k1_is_the_no_patch_k2_op(cuda):
+    """The no-patch K2 ``op`` kernel computes K1's function (its yardstick in
+    ``chip_smoke.py``): the two kernels agree to float32 rounding."""
+    shape = (530, 777)
+    h = (1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1))
+    st = K.AugmentedStencil2D(h, shape, device=cuda, dtype=torch.float32)
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(shape),
+                        dtype=torch.float32, device=cuda)
+    assert _rel(K.masked_laplace_2d(u, h),
+                K.fused_augmented_2d("op", st, u)) <= 1e-6
+
+
 @pytest.mark.parametrize("shape", [(65, 65), (1025, 1025), (530, 777)])
 def test_k1_bf16_matches_plain(cuda, shape):
     """K1's bf16-storage form against its plain version (float32 arithmetic,

@@ -1,8 +1,13 @@
 """Plain PyTorch versions of the port's kernels against the JAX package's
-forms: K1 against ``_masked_conv9_xla``, K2 in all four modes against
+forms: K1 against ``_masked_conv9_xla`` (float32, and float64 parity, down
+to the smallest and to non-square lattices), K2 in all four modes against
 ``fused_chebyshev_2d(interpret=True)`` (float32, the tolerances of
 tests/test_fused_cheb.py); the CPU dispatch rule of the wrappers; and the
-D⁻¹ identity between the fused and the unfused smoother."""
+D⁻¹ identity between the fused and the unfused smoother; the identity
+between K1 and the no-patch K2 ``op``; and the list of CUDA sources that
+:func:`build` compiles and hashes."""
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -81,17 +86,51 @@ def rel_err(got, ref):
     return np.abs(got - ref).max() / np.abs(ref).max()
 
 
-@pytest.mark.parametrize("name", ["n65", "n97x161"])
+# lattices of K1's plain version: the two K2 cases, the coarsest levels and
+# non-square ones with an even and an odd row length
+K1_SHAPES = {"n65": (65, 65), "n97x161": (97, 161), "n5": (5, 5),
+             "n9": (9, 9), "n17x33": (17, 33), "n64x130": (64, 130)}
+# float32 (the card's type) and float64 parity (suffix _f64)
+K1_CASES = list(K1_SHAPES) + [f"{n}_f64" for n in K1_SHAPES]
+
+
+@pytest.mark.parametrize("name", K1_CASES)
 def test_k1_plain_matches_xla(name):
-    h, shape, _, _ = case(name)
-    u = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    f64 = name.endswith("_f64")
+    shape = K1_SHAPES[name.removesuffix("_f64")]
+    h = (1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1))
+    u = np.random.default_rng(1).standard_normal(shape).astype(
+        np.float64 if f64 else np.float32)
     K0, M0, K1, M1 = stencil_factors_2d(h)
     w = np.outer(K0, M1) + np.outer(M0, K1)
-    ref = _masked_conv9_xla(w, shape[0], shape[1], jnp.float32)(
+    ref = _masked_conv9_xla(w, shape[0], shape[1],
+                            jnp.float64 if f64 else jnp.float32)(
         jnp.asarray(u))
+    assert ref.dtype == u.dtype
     got = K.masked_laplace_2d(torch.as_tensor(u), h)
-    assert got.dtype == torch.float32
-    assert rel_err(got, ref) <= 1e-6
+    assert got.dtype == (torch.float64 if f64 else torch.float32)
+    assert rel_err(got, ref) <= (1e-12 if f64 else 1e-6)
+    # the boundary is the input, bit for bit
+    got = got.numpy()
+    for edge in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1]):
+        np.testing.assert_array_equal(got[edge], u[edge])
+
+
+@pytest.mark.parametrize("name", list(K1_SHAPES))
+def test_k1_plain_is_the_no_patch_k2_op(name):
+    """``masked_laplace_2d_plain`` in float32 is ``fused_augmented_2d_plain``
+    in mode ``op`` on a stencil without patch planes: the no-patch K2 ``op``
+    kernel computes K1's function, which makes it K1's yardstick on the
+    card."""
+    shape = K1_SHAPES[name]
+    h = (1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1))
+    u = torch.as_tensor(np.random.default_rng(6).standard_normal(shape),
+                        dtype=torch.float32)
+    st = K.AugmentedStencil2D(h, shape, device="cpu", dtype=torch.float32)
+    assert not st.patched
+    ref = K.fused_augmented_2d_plain("op", st, u)
+    assert rel_err(K.masked_laplace_2d_plain(u, h), ref) <= 1e-6
+    assert rel_err(K.fused_augmented_2d("op", st, u), ref) <= 1e-6
 
 
 @pytest.mark.parametrize("mode", K.MODES)
@@ -193,3 +232,28 @@ def test_wrappers_raise_off_cpu_without_cuda():
     st = K.AugmentedStencil2D((0.125, 0.125), (9, 9), planes, (3, 3, 3, 3))
     with pytest.raises(ValueError, match="CUDA"):
         K.fused_augmented_2d("op", st, u)
+
+
+def test_sources_exist_and_the_build_hash_covers_them(tmp_path, monkeypatch):
+    """Every CUDA source that :func:`build` compiles is in the package, K1's
+    own file among them, and an edit of any of them (or of the header)
+    changes the name of the library, so it is rebuilt."""
+    names = [os.path.basename(p) for p in K.SOURCES]
+    assert names == ["fdal_kernels.cu", "fdal_pre.cu", "fdal_post.cu",
+                     "fdal_stencil.cu", "fdal_masked.cu"]
+    assert all(os.path.isfile(p) for p in K.SOURCES + K.HEADERS)
+    masked = open(K.SOURCES[-1]).read()
+    assert "fdal_masked_laplace_2d_bf16" in masked
+    assert "fdal_masked_laplace_2d" not in open(K.SOURCES[3]).read()
+    tag = K.source_tag()
+    assert tag == K.source_tag() and len(tag) == 12
+    for i in range(len(K.SOURCES) + len(K.HEADERS)):
+        files = list(K.SOURCES + K.HEADERS)
+        edited = tmp_path / f"{i}_{os.path.basename(files[i])}"
+        edited.write_text(open(files[i]).read() + "\n// edited\n")
+        files[i] = str(edited)
+        monkeypatch.setattr(K, "SOURCES", tuple(files[:len(K.SOURCES)]))
+        monkeypatch.setattr(K, "HEADERS", tuple(files[len(K.SOURCES):]))
+        assert K.source_tag() != tag, files[i]
+        monkeypatch.undo()
+    assert K.source_tag() == tag
