@@ -8,16 +8,19 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. device: require CUDA, print the card's name and power limit, build the
    kernels from ``fictitious_domain_al_preconditioners_torch/csrc`` and
-   print what both forms of K1 and each K2 instantiation of the main paths
-   take of the card (registers a thread, shared memory, spilled bytes,
-   blocks an SM);
+   print what both forms of K1, K6, the patched K2 ``op`` (each in every
+   chunk) and each K2 instantiation of the main paths take of the card
+   (registers a thread, shared memory, spilled bytes, blocks an SM);
 2. kernels against their plain PyTorch versions on the card: K1 (float32
    and its bf16-storage form), K6, and K2 in all four modes with patch
    planes (from flagship couplings) and without, at n = 65, n = 1025 and
-   (530, 777); K1's two forms also at the edge shapes of its tile (lattices
-   one and two points either side of a multiple of it, shorter than a
-   thread's run, narrower than a warp, without interior), where the
-   boundary must equal the input bit for bit;
+   (530, 777); K1's two forms, K6 and the patched K2 ``op`` also at the edge
+   shapes of their tile (lattices one and two points either side of a
+   multiple of it, shorter than a thread's run, narrower than a warp,
+   without interior; for ``op``, patch boxes whose edges fall on a warp's
+   first and last kept column, on a run's first and last row, at the
+   lattice's border and one point off it, and boxes of one point), where the
+   boundary must equal the input bit for bit (K1, ``op``);
 3. the flagship solve (``bench.py``'s configuration, ``solver="augmented"``)
    at the refinement: a warm-up solve, then a timed solve, through
    ``ImmersedLaplaceProblem(cfg).setup()`` and ``.solve()``; the launch
@@ -25,8 +28,10 @@ Phases (any failure exits non-zero before the last line is printed):
    afterwards every kernel is compared with its plain version again at the
    shapes that path gave it, and timed at the fine level (K1 in the same
    turns as a device copy of the lattice and the no-patch K2 ``op``, which
-   computes the same function), and K1's two forms are timed at every level
-   shape of the hierarchy;
+   computes the same function; every K2 mode also as device ms in a CUDA
+   graph), and K1's two forms, K6 and the patched K2 ``op`` (with each
+   level's own patch box) are timed at every level shape of the hierarchy
+   in a CUDA graph beside a device copy and K1;
 5. the ``rational`` and ``CG`` modes at the refinement and ``ELMAN_triang``
    at refinement 9 (at most the refinement), on the f = 0, g = 1 circle with
    the flagship's stopping rule, each a warm-up and a timed solve; the
@@ -70,8 +75,10 @@ SOURCE = {"masked_laplace_2d": f"{PKG}/csrc/fdal_masked.cu",
           "masked_laplace_2d:bf16": f"{PKG}/csrc/fdal_masked.cu",
           "fused_augmented_2d": f"{PKG}/csrc/fdal_sweep.cuh",
           "laplace_stencil_2d": f"{PKG}/csrc/fdal_stencil.cu"}
-# the file that instantiates each K2 mode (the kernel is fdal_sweep.cuh)
-MODE_SOURCE = {"op": f"{PKG}/csrc/fdal_kernels.cu",
+# the file that instantiates each K2 mode (the kernel is fdal_sweep.cuh),
+# but for op with the patch, whose kernel is in a file of its own
+MODE_SOURCE = {"op": f"{PKG}/csrc/fdal_augmented.cu",
+               "op:no_patch": f"{PKG}/csrc/fdal_kernels.cu",
                "smooth": f"{PKG}/csrc/fdal_kernels.cu",
                "pre": f"{PKG}/csrc/fdal_pre.cu",
                "post": f"{PKG}/csrc/fdal_post.cu"}
@@ -329,6 +336,125 @@ def compare_k1_edges(device, errs):
           "edge shapes", flush=True)
 
 
+def window_edge_shapes():
+    """Lattices at the edges of the window kernels' tile (K6, the patched K2
+    ``op``): the coarsest levels, lattices shorter than a thread's run or
+    narrower than a warp, rows of 30 k +- 1 points, and an even and an odd
+    row length on each side of a multiple of the block's tile, for a small,
+    a middle and a large lattice (the launch's three plans)."""
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    shapes = [(3, 3), (5, 5), (9, 9), (17, 17), (2, 40), (40, 2), (3, 40),
+              (5, 200), (300, 3), (3, 50000), (17, 29), (17, 31), (33, 59),
+              (33, 61)]
+    for ny0, nx0 in ((64, 240), (512, 600), (2240, 2160)):
+        tile = K.window_plan(ny0, nx0)
+        ty, tx = tile["run_rows"], tile["tile_columns"]
+        ky, kx = ny0 // ty, nx0 // tx
+        shapes += [(ky * ty + dy, kx * tx + dx)
+                   for dy, dx in ((-1, -2), (-1, -1), (0, 0), (1, 1), (1, 2))]
+    return shapes
+
+
+def op_edge_cases():
+    """(lattice, patch box) pairs at the edges of the patched K2 ``op``'s
+    tile: for each of the launch's three plans a lattice one point short of
+    and one point over a multiple of the block's tile, with boxes whose
+    first and last row and column are a run's first and last row and a
+    warp's first and last kept column, the same boxes shifted onto the
+    neighbouring run and warp, the whole interior (the lattice border less
+    one), the whole lattice, and boxes of one point inside and in the last
+    interior corner; and the coarse levels 3², 5², 9², 17²."""
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    keep = K.WINDOW_KEEP
+    cases = []
+    for ny0, nx0 in ((64, 240), (512, 600), (2240, 2160)):
+        run = K.window_plan(ny0, nx0)["run_rows"]
+        for d in (-1, 1):
+            ny, nx = ny0 + d, nx0 + d
+            cases += [((ny, nx), box) for box in (
+                (2 * run, 2 * keep, 3 * run, 4 * keep),
+                (3 * run - 1, 3 * keep - 1, 2 * run + 2, 2 * keep + 2),
+                (1, 1, ny - 2, nx - 2), (0, 0, ny, nx),
+                (2 * run, 2 * keep, 1, 1), (ny - 2, nx - 2, 1, 1))]
+    for n in (3, 5, 9, 17):
+        cases += [((n, n), box) for box in (
+            (0, 0, n, n), (1, 1, n - 2, n - 2), (n // 2, n // 2, 1, 1))]
+    return list(dict.fromkeys(cases))
+
+
+def random_patch_stencil(shape, box, device, seed):
+    """An :class:`AugmentedStencil2D` on ``shape`` whose planes on ``box``
+    are uniform in [0.1, 1) (of the size of the stiffness weights)."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    planes = np.random.default_rng(seed).uniform(
+        0.1, 1.0, (5,) + tuple(box[2:])).astype(np.float32)
+    h = tuple(1.0 / max(n - 1, 1) for n in shape)
+    return K.AugmentedStencil2D(h, shape,
+                                torch.as_tensor(planes, device=device), box)
+
+
+def compare_k6_edges(device, errs):
+    """K6 against the plain version at :func:`window_edge_shapes`; the input
+    must be left as it was."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    shapes = window_edge_shapes()
+    for i, shape in enumerate(shapes):
+        h = tuple(1.0 / max(n - 1, 1) for n in shape)
+        u = torch.as_tensor(
+            np.random.default_rng(700 + i).standard_normal(shape),
+            dtype=torch.float32, device=device)
+        kept = u.clone()
+        got = K.laplace_stencil_2d(u, h)
+        torch.cuda.synchronize(device)
+        tag = f"edge {shape}"
+        check(got.dtype == u.dtype and got.shape == u.shape,
+              f"laplace_stencil_2d {tag}: returned {got.dtype} "
+              f"{tuple(got.shape)}")
+        check(torch.equal(u.view(torch.int32), kept.view(torch.int32)),
+              f"laplace_stencil_2d {tag}: the input was changed")
+        record(errs, "laplace_stencil_2d", "-", tag, got,
+               K.laplace_stencil_2d_plain(u, h))
+    print(f"phase 2: K6 agrees with plain at {len(shapes)} edge shapes",
+          flush=True)
+
+
+def compare_op_edges(device, errs):
+    """The patched K2 ``op`` against the plain version at
+    :func:`op_edge_cases`; the boundary rows and columns must equal the
+    input bit for bit and the input must be left as it was."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    cases = op_edge_cases()
+    for i, (shape, box) in enumerate(cases):
+        st = random_patch_stencil(shape, box, device, seed=800 + i)
+        b = torch.as_tensor(
+            np.random.default_rng(900 + i).standard_normal(shape),
+            dtype=torch.float32, device=device)
+        kept = b.clone()
+        got = K.fused_augmented_2d("op", st, b)
+        torch.cuda.synchronize(device)
+        tag = f"edge {shape} box {box}"
+        check(got.dtype == b.dtype and got.shape == b.shape,
+              f"op {tag}: returned {got.dtype} {tuple(got.shape)}")
+        check(torch.equal(b.view(torch.int32), kept.view(torch.int32)),
+              f"op {tag}: the input was changed")
+        record(errs, "fused_augmented_2d", "op", tag, got,
+               K.fused_augmented_2d_plain("op", st, b))
+        for edge in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1]):
+            check(torch.equal(got[edge].contiguous().view(torch.int32),
+                              b[edge].contiguous().view(torch.int32)),
+                  f"op {tag}: boundary differs from the input")
+    print(f"phase 2: the patched K2 op agrees with plain at {len(cases)} "
+          "edge cases", flush=True)
+
+
 def compare_fused(st, device, lam, seed, tag, errs):
     """K2 in all four modes against its plain version on one stencil (with
     or without patch planes)."""
@@ -371,6 +497,8 @@ def phase_kernels(device):
 
     errs = []
     compare_k1_edges(device, errs)
+    compare_k6_edges(device, errs)
+    compare_op_edges(device, errs)
     cases = []
     for ref in (6, 10):                       # n = 65, 1025
         planes, box = flagship_planes(ref, device)
@@ -524,7 +652,9 @@ def fused_bound(mode, st, degree):
 
 
 def time_fused(st, lam, degree, device, times):
-    """K2's modes at one stencil: kernel and plain times, and the bound."""
+    """K2's modes at one stencil: kernel and plain times between CUDA events
+    (``ms`` holds the host's cost of one wrapper call), the kernel's device
+    ms a launch in a CUDA graph (``graph_ms``), and the bound."""
     import torch
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
@@ -540,8 +670,10 @@ def time_fused(st, lam, degree, device, times):
         ms, pms = cuda_time_turns(
             [lambda: K.fused_augmented_2d(mode, st, b, xin, **kw),
              lambda: K.fused_augmented_2d_plain(mode, st, b, xin, **kw)])
+        gms = graph_time_ms(
+            lambda: K.fused_augmented_2d(mode, st, b, xin, **kw))
         times[mode + form] = dict(ms=ms, plain_ms=pms, library_ms=None,
-                                  shape=list(st.shape))
+                                  graph_ms=gms, shape=list(st.shape))
         times[mode + form]["bound_ms"], times[mode + form]["bound_by"] = \
             fused_bound(mode, st, degree)
 
@@ -552,9 +684,10 @@ def time_stencils(h, shape, device, times):
     streaming kernel) and the no-patch K2 ``op``, which computes the same
     function, each as a CUDA-event timed call (``ms``: it holds the host's
     cost of one wrapper call, during which the card waits) and as device ms
-    a launch inside a CUDA graph (``graph_ms``); K6 also against ``conv2d`` with its 3x3 weight and
-    ``padding=1`` (the body of ``_conv9_pallas``, without the edge
-    corrections)."""
+    a launch inside a CUDA graph (``graph_ms``); K6 likewise, in a CUDA
+    graph in the same turns as the copy and K1, and against ``conv2d`` with
+    its 3x3 weight and ``padding=1`` (the body of ``_conv9_pallas``, without
+    the edge corrections)."""
     import torch
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
@@ -580,9 +713,11 @@ def time_stencils(h, shape, device, times):
                                lambda: K.laplace_stencil_2d_plain(u, h)])
     lib = cuda_time_ms(lambda: torch.nn.functional.conv2d(
         u[None, None], w, padding=1))
-    times["laplace_stencil_2d"] = dict(ms=ms, plain_ms=pms, library_ms=lib,
-                                       bound_ms=b[0], bound_by=b[1],
-                                       shape=list(shape))
+    gms, gcms, gk1 = graph_time_turns(
+        [lambda: K.laplace_stencil_2d(u, h), fns[1], fns[0]])
+    times["laplace_stencil_2d"] = dict(
+        ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b[0], bound_by=b[1],
+        graph_ms=gms, copy_graph_ms=gcms, k1_graph_ms=gk1, shape=list(shape))
 
 
 def time_k1_bf16(h, shape, device, times):
@@ -636,6 +771,45 @@ def time_k1_levels(shapes, device, times):
         print(f"time K1 level {shape}: float32 {f[0]:.5f} ms (copy "
               f"{f[1]:.5f}), bf16 {b[0]:.5f} ms (copy {b[1]:.5f}), in a "
               "CUDA graph", flush=True)
+
+
+def time_window_levels(shapes, stencils, device, times):
+    """K6 and the patched K2 ``op`` at every level shape, in the same turns
+    as a device copy of the lattice and K1: device ms a launch inside a
+    CUDA graph (:func:`graph_time_turns`).  ``stencils`` holds each level's
+    :class:`AugmentedStencil2D` (its own patch box), or None on a level
+    without one, where ``op`` is not timed.  One line a shape; the rows go
+    into the kernels' entries as ``levels``, and the fine level's copy and
+    K1 times into the patched ``op``'s entry."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    times["laplace_stencil_2d"]["levels"] = []
+    times["op"]["levels"] = []
+    for shape, st in zip(shapes, stencils):
+        h = tuple(1.0 / (n - 1) for n in shape)
+        u = torch.as_tensor(np.random.default_rng(8).standard_normal(shape),
+                            dtype=torch.float32, device=device)
+        dst = torch.empty_like(u)
+        n = shape[0] * shape[1]
+        fns = [lambda: K.laplace_stencil_2d(u, h), lambda: dst.copy_(u),
+               lambda: K.masked_laplace_2d(u, h)]
+        if st is not None:
+            fns.append(lambda: K.fused_augmented_2d("op", st, u))
+        ms = graph_time_turns(fns)
+        times["laplace_stencil_2d"]["levels"].append(dict(
+            shape=list(shape), ms=ms[0], copy_ms=ms[1], k1_ms=ms[2],
+            bound_ms=bound(8 * n, STENCIL_FLOPS * n)[0]))
+        line = (f"time level {shape}: K6 {ms[0]:.5f} ms, copy {ms[1]:.5f}, "
+                f"K1 {ms[2]:.5f}")
+        if st is not None:
+            times["op"]["levels"].append(dict(
+                shape=list(shape), box=list(st.box), ms=ms[3], copy_ms=ms[1],
+                k1_ms=ms[2], bound_ms=fused_bound("op", st, 0)[0]))
+            line += f", patched op {ms[3]:.5f} (box {st.box})"
+            if list(shape) == times["op"]["shape"]:
+                times["op"].update(copy_graph_ms=ms[1], k1_graph_ms=ms[2])
+        print(line + ", in a CUDA graph", flush=True)
 
 
 def phase_bf16_flagship(refinement, device, f32_iterations):
@@ -777,10 +951,23 @@ def k1_resources(shape):
     return res
 
 
-def k2_resources(degree=4):
+def k6_resources(shape):
+    """Resources of K6, keyed as in the kernels line: of the instantiation a
+    launch on ``shape`` takes, with every instantiation's under ``chunks``."""
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    tile = K.laplace_stencil_tile(*shape)
+    return {"laplace_stencil_2d": dict(
+        K.laplace_stencil_resources(tile["chunk_rows"]), **tile,
+        chunks={c: K.laplace_stencil_resources(c) for c in K.K1_CHUNKS})}
+
+
+def k2_resources(shape, degree=4):
     """Resources of the K2 instantiations on the main paths (``op``, and
     ``pre``/``post`` at ``degree``, each with and without patch), keyed as
-    the modes of the kernels line."""
+    the modes of the kernels line; the patched ``op``'s are of the
+    instantiation a launch on ``shape`` takes, with its plan and every
+    instantiation's under ``chunks``."""
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
     res = {}
@@ -788,6 +975,11 @@ def k2_resources(degree=4):
         for mode in K.MODES:
             key = mode if patch else f"{mode}:no_patch"
             res[key] = K.fused_augmented_resources(mode, degree, patch)
+    tile = K.augmented_op_tile(*shape)
+    res["op"] = dict(
+        K.fused_augmented_resources("op", degree, True, tile["chunk_rows"]),
+        **tile, chunks={c: K.fused_augmented_resources("op", degree, True, c)
+                        for c in K.K1_CHUNKS})
     return res
 
 
@@ -816,7 +1008,8 @@ def kernel_report(path_launches, errs, times, resources):
                     library_ms=t["library_ms"], shape=t["shape"],
                     **{k: t[k] for k in (
                         "copy_ms", "k2_op_ms", "graph_ms", "copy_graph_ms",
-                        "k2_op_graph_ms", "levels") if k in t},
+                        "k2_op_graph_ms", "k1_graph_ms", "levels")
+                       if k in t},
                     **resources.get(name, {}))
 
     modes = {}
@@ -825,7 +1018,8 @@ def kernel_report(path_launches, errs, times, resources):
             key = m if patch else f"{m}:no_patch"
             total, by_path = launches(launch_key(m, patch))
             modes[key] = dict(times[key], **resources[key],
-                              source=MODE_SOURCE[m], launches=total,
+                              source=MODE_SOURCE.get(key, MODE_SOURCE[m]),
+                              launches=total,
                               launches_by_path=by_path,
                               max_abs_err=worst("fused_augmented_2d", key))
     # K2's own times are those of its patched op mode; its launches sum
@@ -889,13 +1083,20 @@ def main(argv=None) -> int:
             for chunk, rc in r["chunks"].items():
                 check(rc["local_bytes"] == 0, f"K1 {key} chunk {chunk} "
                       f"spills {rc['local_bytes']} bytes a thread")
-        k2 = k2_resources()
+        k2 = k2_resources((n, n))
         resources.update(k2)
+        resources.update(k6_resources((n, n)))
         for key, r in k2.items():
             print(f"phase 1: K2 {key} (degree 4): {json.dumps(r)}",
                   flush=True)
             check(r["local_bytes"] == 0, f"K2 {key} spills "
                   f"{r['local_bytes']} bytes a thread")
+        r = resources["laplace_stencil_2d"]
+        print(f"phase 1: K6 at {n}²: {json.dumps(r)}", flush=True)
+        for name, r in (("K6", r), ("K2 op", k2["op"])):
+            for chunk, rc in r["chunks"].items():
+                check(rc["local_bytes"] == 0, f"{name} chunk {chunk} spills "
+                      f"{rc['local_bytes']} bytes a thread")
 
         errs = phase_kernels(device)
         path_launches, times = {}, {}
@@ -908,6 +1109,7 @@ def main(argv=None) -> int:
                         for level in prob._last_gmg.levels]
         time_fused(fine, prob._last_gmg.levels[0].lam_max,
                    prob.cfg.gmg_smoother_degree, device, times)
+        time_window_levels(level_shapes, prob.level_stencils, device, times)
         del prob
         torch.cuda.empty_cache()
 
@@ -944,7 +1146,8 @@ def main(argv=None) -> int:
                 (("copy_ms", "copy"), ("k2_op_ms", "no-patch K2 op"),
                  ("graph_ms", "in a CUDA graph: kernel"),
                  ("copy_graph_ms", "copy"),
-                 ("k2_op_graph_ms", "no-patch K2 op")) if key in t)
+                 ("k2_op_graph_ms", "no-patch K2 op"),
+                 ("k1_graph_ms", "K1")) if key in t)
             print(f"time {k} at {tuple(t['shape'])}: kernel {t['ms']:.4f} "
                   f"ms, plain {t['plain_ms']:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "

@@ -1,7 +1,9 @@
 // Hand-written Hopper (sm_90a) kernel K1, the Dirichlet-masked Q1 stiffness
 // stencil, with a plain C interface loaded through ctypes (see ops/kernels.py,
 // which builds this file with nvcc in a process of its own beside the other
-// sources and holds the plain PyTorch version).
+// sources and holds the plain PyTorch version).  The register window, the
+// plan and the walk below the kernel are in fdal_window.cuh, which the
+// patched K2 op (fdal_augmented.cu) and K6 (fdal_stencil.cu) share.
 //
 // K1  fdal_masked_laplace_2d (float32), fdal_masked_laplace_2d_bf16
 //     Replaces fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py
@@ -45,7 +47,7 @@
 //   bf16, and spans one sector more than an aligned one would); the
 //   neighbouring warps of a block read the shared sectors from L1.
 // - Small levels.  The chunk U and the run length are chosen at launch from
-//   the number of lattice points (choose_plan), by what was fastest on the
+//   the number of lattice points (size_plan), by what was fastest on the
 //   card (sweep_variants.py k1): from 2^22 points on (2049^2) chunks of 8
 //   rows and runs of 32 bytes of column (8 rows in float32, 16 in bf16);
 //   from 2^17 points on (513^2, 1025^2) one chunk of 4 rows; below that one
@@ -68,8 +70,7 @@
 // values in registers; FDAL_K1_NO_STORES puts the stores behind a test that
 // never holds.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "fdal_window.cuh"
 
 #if defined(FDAL_K1_RUN) && !defined(FDAL_K1_UNROLL)
 #error "FDAL_K1_RUN needs FDAL_K1_UNROLL"
@@ -81,147 +82,6 @@
 #endif
 
 namespace {
-
-constexpr int WARPS = 4;  // warps a block, side by side in columns
-constexpr int NT = 32 * WARPS;
-constexpr int KEEP = 30;  // columns a warp writes (32 less the halo)
-constexpr int TILE_X = WARPS * KEEP;
-// lattice points from which the middle and the large plan are taken
-constexpr long long MIDDLE_POINTS = 1ll << 17;
-constexpr long long LARGE_POINTS = 1ll << 22;
-
-// U: rows of one chunk, loaded ahead and unrolled; run: rows of one lane's
-// run, a multiple of U.
-struct Plan {
-  int unroll, run;
-};
-
-// The 1D factors (off-diagonal, centre) and the four folded weights of
-// K0(x)M1 + M0(x)K1: centre (= Kc), vertical, horizontal, diagonal.
-struct Stencil {
-  float k0o, k0c, m0o, m0c, k1o, k1c, m1o, m1c;
-  float wc, wv, wh, wd;
-};
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ void zero(float& v) { v = 0.f; }
-__device__ __forceinline__ void zero(__nv_bfloat16& v) {
-  v = __float2bfloat16_rn(0.f);
-}
-
-// b of the left and of the right neighbour column, summed (k: the row of
-// the chunk, which names the shared-memory probe's slot).
-__device__ __forceinline__ float neighbours(float b, float* slots, int k,
-                                            int lane) {
-#if defined(FDAL_K1_NO_COMPUTE)
-  return 0.f;
-#elif defined(FDAL_K1_SMEM)
-  float* slot = slots + k * 34;
-  slot[lane + 1] = b;
-  __syncwarp();
-  const float sum = slot[lane] + slot[lane + 2];
-  __syncwarp();
-  return sum;
-#else
-  return __shfl_up_sync(0xffffffffu, b, 1) +
-         __shfl_down_sync(0xffffffffu, b, 1);
-#endif
-}
-
-// One lane's run: column c, output rows r0 .. r0 + nchunks*U - 1 (those
-// inside the lattice).  EDGE: some loaded point lies outside the lattice
-// interior, so loads, masks and stores are tested; else every test is a
-// compile-time constant.  keep: the lane writes its column.  All 32 lanes of
-// the warp run this together (the shuffles need them).
-template <typename T, int U, bool EDGE>
-__device__ __forceinline__ void walk(const T* __restrict__ u,
-                                     T* __restrict__ out, int ny, int nx,
-                                     const Stencil& st, int c, int r0,
-                                     int nchunks, bool keep, float* slots,
-                                     int lane) {
-  const bool col_in = !EDGE || (c >= 0 && c < nx);
-  const bool col_int = !EDGE || (c >= 1 && c <= nx - 2);
-  // (r0, c); dereferenced only at points inside the lattice
-  const long long base = (long long)r0 * nx + c;
-  const T* pin = u + base;
-  T* pout = out + base;
-  // the value at row r0 + k (k from -1)
-  auto load = [&](int k) -> T {
-    T v;
-#if defined(FDAL_K1_NO_LOADS)
-    narrow(&v, (float)((r0 + k + c) & 255));
-#else
-    if (!EDGE || (col_in && r0 + k >= 0 && r0 + k < ny)) {
-      v = __ldg(pin + k * nx);
-    } else {
-      zero(v);
-    }
-#endif
-    return v;
-  };
-  auto interior = [&](int r) -> bool {
-    return !EDGE || (col_int && r >= 1 && r <= ny - 2);
-  };
-
-  T vc = load(-1);
-  float zu = interior(r0 - 1) ? widen(vc) : 0.f;
-  vc = load(0);
-  float zc = interior(r0) ? widen(vc) : 0.f;
-  T nxt[U];
-#pragma unroll
-  for (int k = 0; k < U; ++k) nxt[k] = load(1 + k);
-
-  for (int ch = 0; ch < nchunks; ++ch) {
-    const int k0 = ch * U;  // this chunk's first row, from r0
-    T cur[U];
-#pragma unroll
-    for (int k = 0; k < U; ++k) cur[k] = nxt[k];
-    if (ch + 1 < nchunks) {
-#pragma unroll
-      for (int k = 0; k < U; ++k) nxt[k] = load(k0 + U + 1 + k);
-    }
-#pragma unroll
-    for (int k = 0; k < U; ++k) {
-      const int r = r0 + k0 + k;
-      const float zd = interior(r + 1) ? widen(cur[k]) : 0.f;
-      const float vs = zu + zd;
-#if defined(FDAL_K1_NO_COMPUTE)
-      const float a = zc + 0.f * vs, b = 0.f;
-#elif defined(FDAL_K1_SEPARABLE)
-      const float sk = st.k0o * vs + st.k0c * zc;
-      const float sm = st.m0o * vs + st.m0c * zc;
-      const float a = st.m1c * sk + st.k1c * sm;
-      const float b = st.m1o * sk + st.k1o * sm;
-#else
-      const float a = st.wc * zc + st.wv * vs;
-      const float b = st.wh * zc + st.wd * vs;
-#endif
-      const float acc = a + neighbours(b, slots, k, lane);
-#if defined(FDAL_K1_NO_STORES)
-      if (keep && acc == 12345.678f) {
-#else
-      if (keep && (!EDGE || r < ny)) {
-#endif
-        T* q = pout + (k0 + k) * nx;
-        if (interior(r)) {
-          narrow(q, acc);
-        } else {
-          *q = vc;  // a boundary point: the input, bit for bit
-        }
-      }
-      zu = zc;
-      zc = zd;
-      vc = cur[k];
-    }
-  }
-}
 
 template <typename T, int U>
 __global__ void FDAL_K1_BOUNDS
@@ -262,53 +122,17 @@ Plan choose_plan(int ny, int nx) {
   return Plan{FDAL_K1_UNROLL, FDAL_K1_UNROLL};
 #endif
 #else
-  const long long points = (long long)ny * nx;
-  if (points < MIDDLE_POINTS) return Plan{1, 1};
-  if (points < LARGE_POINTS) return Plan{4, 4};
-  return Plan{8, 32 / (int)sizeof(T)};
+  return size_plan((long long)ny * nx, (int)sizeof(T));
 #endif
-}
-
-// fac (host): k0o, k0c, m0o, m0c, k1o, k1c, m1o, m1c, kc.
-Stencil make_stencil(const float* f) {
-  const double k0o = f[0], k0c = f[1], m0o = f[2], m0c = f[3];
-  const double k1o = f[4], k1c = f[5], m1o = f[6], m1c = f[7];
-  return Stencil{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7],
-                 f[8],  // the centre is Kc as given
-                 (float)(k0o * m1c + m0o * k1c),
-                 (float)(k0c * m1o + m0c * k1o),
-                 (float)(k0o * m1o + m0o * k1o)};
 }
 
 template <typename T, int U>
 cudaError_t launch_plan(const T* u, T* out, int ny, int nx, int run,
                         const Stencil& st, cudaStream_t stream) {
   if (run < U || run % U != 0) return cudaErrorInvalidValue;
-  const int warps_x = (nx + KEEP - 1) / KEEP;
-  dim3 grid((warps_x + WARPS - 1) / WARPS, (ny + run - 1) / run);
-  masked_laplace_kernel<T, U><<<grid, NT, 0, stream>>>(u, out, ny, nx, run,
-                                                        st);
+  masked_laplace_kernel<T, U><<<window_grid(ny, nx, run), NT, 0, stream>>>(
+      u, out, ny, nx, run, st);
   return cudaGetLastError();
-}
-
-// What the instantiation takes of the card (see
-// fdal_masked_laplace_resources).
-template <typename T, int U>
-cudaError_t resources(int* res) {
-  auto kernel = masked_laplace_kernel<T, U>;
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT, 0);
-  if (err != cudaSuccess) return err;
-  res[0] = fa.numRegs;
-  res[1] = (int)fa.localSizeBytes;
-  res[2] = (int)fa.sharedSizeBytes;
-  res[3] = blocks;
-  res[4] = NT;
-  res[5] = TILE_X;
-  return cudaSuccess;
 }
 
 // The instantiation of chunk `unroll`: launch it (res == nullptr) or write
@@ -316,9 +140,9 @@ cudaError_t resources(int* res) {
 template <typename T>
 cudaError_t dispatch(int unroll, const T* u, T* out, int ny, int nx, int run,
                      const Stencil& st, cudaStream_t stream, int* res) {
-#define FDAL_K1_CASE(N)                                                  \
-  case N:                                                                \
-    return res ? resources<T, N>(res)                                    \
+#define FDAL_K1_CASE(N)                                             \
+  case N:                                                           \
+    return res ? window_resources(masked_laplace_kernel<T, N>, res) \
                : launch_plan<T, N>(u, out, ny, nx, run, st, stream)
   switch (unroll) {
 #if defined(FDAL_K1_UNROLL)

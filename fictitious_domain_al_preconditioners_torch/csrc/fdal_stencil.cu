@@ -13,50 +13,206 @@
 //     Toeplitz(off, centre, off) with its first and last diagonal entry
 //     replaced by the boundary value (the Neumann-truncated edges of the
 //     unconstrained stiffness).
-//     Bound: bytes.  One read and one write of the lattice per apply (8 B per
-//     point in f32) against 30 flops per point.  Design: one thread per
-//     output point on 32x8 tiles with the 1-point halo read through the L1
-//     cache.  Points outside the lattice are read as 0 by a select (no
-//     zero-padded copy, none of the TPU's 128-lane or 8-row padding); edge
-//     rows and columns take the boundary diagonal of their 1D factor, so the
-//     corrections cost no extra pass.
+//
+// Bound: bytes.  One read and one write of the lattice per apply (8 B per
+// point in f32) against 30 flops per point.
+//
+// Design.  K1's register window (fdal_window.cuh: a warp owns 32 columns and
+// keeps 30, each lane a 3-row window of its column, the neighbours' share by
+// two shuffles, the next chunk of rows loaded before the current one is
+// computed, no shared memory, no barrier).  The first kernel (one thread a
+// point on 32 x 8 tiles, nine loads a point, each behind a four-compare test
+// and a 64-bit index product) was held by instructions, as K1's was.
+// Differences from K1: there is no mask; a point outside the lattice reads as
+// 0 (no zero-padded copy, none of the TPU's 128-lane or 8-row padding); an
+// edge row takes the boundary centre of the row factors (k0b, m0b) and an
+// edge column that of the column factors (k1b, m1b), so the corrections cost
+// no extra pass.  With sk = k0o*vsum + k0d*mid and sm = m0o*vsum + m0d*mid
+// (mid the lane's value at the output row, vsum the sum of those above and
+// below; k0d, m0d the row's centres, uniform over a row) a lane's own share is
+// m1d*sk + k1d*sm (m1d, k1d its column's centres) and its gift to each
+// neighbour m1o*sk + k1o*sm.  A warp whose output rows and kept columns hold
+// no edge, and whose loaded points all lie in the lattice, runs the body
+// folded into K1's four constants with no index test; the border warps run
+// the body above.
+//
+// Probes for measurement (compile-time, see sweep_variants.py k6; none is
+// defined in the library the package builds): FDAL_K6_UNROLL fixes the chunk
+// for every lattice and FDAL_K6_RUN the run length with it;
+// FDAL_K6_NO_COMPUTE stores the loaded value; FDAL_K6_ALL_EDGE runs the
+// border body in every warp.
 
-#include <cuda_runtime.h>
+#include "fdal_window.cuh"
+
+#if defined(FDAL_K6_RUN) && !defined(FDAL_K6_UNROLL)
+#error "FDAL_K6_RUN needs FDAL_K6_UNROLL"
+#endif
 
 namespace {
 
-// (off-diagonal, centre, boundary centre) of each 1D factor.
+// (off-diagonal, centre, boundary centre) of each 1D factor, and the four
+// folded weights of the interior (centre, vertical, horizontal, diagonal).
 struct EdgeStencil {
   float k0o, k0c, k0b, m0o, m0c, m0b, k1o, k1c, k1b, m1o, m1c, m1b;
+  float wc, wv, wh, wd;
 };
 
-__global__ void __launch_bounds__(256)
-laplace_stencil_kernel(const float* __restrict__ u, float* __restrict__ out,
-                       int ny, int nx, EdgeStencil st) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= ny || c >= nx) return;
-  auto at = [&](int rr, int cc) -> float {
-    return (rr >= 0 && rr < ny && cc >= 0 && cc < nx)
-               ? __ldg(u + (long long)rr * nx + cc) : 0.f;
+// One lane's run: column c, output rows r0 .. r0 + nchunks*U - 1 (those
+// inside the lattice).  EDGE: an output point lies on the lattice's edge or
+// a loaded point outside the lattice, so loads and stores are tested and
+// the centres chosen by row and column; else every test is a compile-time
+// constant.  keep: the lane writes its column.  All 32 lanes of the warp run
+// this together.
+template <int U, bool EDGE>
+__device__ __forceinline__ void stencil_walk(const float* __restrict__ u,
+                                             float* __restrict__ out, int ny,
+                                             int nx, const EdgeStencil& st,
+                                             int c, int r0, int nchunks,
+                                             bool keep) {
+  const bool col_in = !EDGE || (c >= 0 && c < nx);
+  const bool col_edge = EDGE && (c == 0 || c == nx - 1);
+  const float k1d = col_edge ? st.k1b : st.k1c;
+  const float m1d = col_edge ? st.m1b : st.m1c;
+  // (r0, c); dereferenced only at points inside the lattice
+  const long long base = (long long)r0 * nx + c;
+  const float* pin = u + base;
+  float* pout = out + base;
+  // the value at row r0 + k (k from -1), 0 outside the lattice
+  auto load = [&](int k) -> float {
+    if (!EDGE || (col_in && r0 + k >= 0 && r0 + k < ny)) {
+      return __ldg(pin + k * nx);
+    }
+    return 0.f;
   };
-  const bool redge = r == 0 || r == ny - 1;
-  const bool cedge = c == 0 || c == nx - 1;
-  const float k0d = redge ? st.k0b : st.k0c;
-  const float m0d = redge ? st.m0b : st.m0c;
-  const float k1d = cedge ? st.k1b : st.k1c;
-  const float m1d = cedge ? st.m1b : st.m1c;
-  float sk[3], sm[3];
+
+  float zu = load(-1);
+  float zc = load(0);
+  float nxt[U];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int cc = c + j - 1;
-    const float mid = at(r, cc);
-    const float vsum = at(r - 1, cc) + at(r + 1, cc);
-    sk[j] = st.k0o * vsum + k0d * mid;
-    sm[j] = st.m0o * vsum + m0d * mid;
+  for (int k = 0; k < U; ++k) nxt[k] = load(1 + k);
+
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int k0 = ch * U;  // this chunk's first row, from r0
+    float cur[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) cur[k] = nxt[k];
+    if (ch + 1 < nchunks) {
+#pragma unroll
+      for (int k = 0; k < U; ++k) nxt[k] = load(k0 + U + 1 + k);
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int r = r0 + k0 + k;
+      const float zd = cur[k];
+      const float vs = zu + zd;
+      float a, b;
+#if defined(FDAL_K6_NO_COMPUTE)
+      a = zc + 0.f * vs;
+      b = 0.f;
+      const float acc = a;
+#else
+      if constexpr (EDGE) {
+        const bool row_edge = r == 0 || r == ny - 1;
+        const float sk = st.k0o * vs + (row_edge ? st.k0b : st.k0c) * zc;
+        const float sm = st.m0o * vs + (row_edge ? st.m0b : st.m0c) * zc;
+        a = m1d * sk + k1d * sm;
+        b = st.m1o * sk + st.k1o * sm;
+      } else {
+        a = st.wc * zc + st.wv * vs;
+        b = st.wh * zc + st.wd * vs;
+      }
+      const float acc = a + (from_left(b) + from_right(b));
+#endif
+      if (keep && (!EDGE || r < ny)) pout[(k0 + k) * nx] = acc;
+      zu = zc;
+      zc = zd;
+    }
   }
-  out[(long long)r * nx + c] = m1d * sk[1] + st.m1o * (sk[0] + sk[2]) +
-                               k1d * sm[1] + st.k1o * (sm[0] + sm[2]);
+}
+
+template <int U>
+__global__ void __launch_bounds__(NT)
+laplace_stencil_kernel(const float* __restrict__ u, float* __restrict__ out,
+                       int ny, int nx, int run, const EdgeStencil st) {
+  const int lane = threadIdx.x & 31;
+  // the warp's first kept column; it loads cw - 1 .. cw + KEEP
+  const int cw = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * KEEP;
+  if (cw >= nx) return;  // the whole warp
+  const int r0 = blockIdx.y * run;
+  const int c = cw - 1 + lane;
+  const bool inner = lane >= 1 && lane <= KEEP;
+  // does the warp write an edge point or load a point outside the lattice?
+  // (uniform)
+#if defined(FDAL_K6_ALL_EDGE)
+  const bool edge = true;
+#else
+  const bool edge = r0 < 1 || r0 + run > ny - 1 || cw < 1 ||
+                    cw + KEEP > nx - 1;
+#endif
+  if (edge) {
+    const int rows = min(run, ny - r0);
+    stencil_walk<U, true>(u, out, ny, nx, st, c, r0, (rows + U - 1) / U,
+                          inner && c < nx);
+  } else {
+    stencil_walk<U, false>(u, out, ny, nx, st, c, r0, run / U, inner);
+  }
+}
+
+// The chunk and the run length for an (ny, nx) lattice.
+Plan choose_plan(int ny, int nx) {
+#if defined(FDAL_K6_UNROLL)
+#if defined(FDAL_K6_RUN)
+  return Plan{FDAL_K6_UNROLL, FDAL_K6_RUN};
+#else
+  return Plan{FDAL_K6_UNROLL, FDAL_K6_UNROLL};
+#endif
+#else
+  return size_plan((long long)ny * nx, (int)sizeof(float));
+#endif
+}
+
+// fac (host): k0o, k0c, k0b, m0o, m0c, m0b, k1o, k1c, k1b, m1o, m1c, m1b.
+EdgeStencil make_edge_stencil(const float* f) {
+  const double k0o = f[0], k0c = f[1], m0o = f[3], m0c = f[4];
+  const double k1o = f[6], k1c = f[7], m1o = f[9], m1c = f[10];
+  return EdgeStencil{f[0], f[1], f[2], f[3], f[4],  f[5],
+                     f[6], f[7], f[8], f[9], f[10], f[11],
+                     (float)(k0c * m1c + m0c * k1c),
+                     (float)(k0o * m1c + m0o * k1c),
+                     (float)(k0c * m1o + m0c * k1o),
+                     (float)(k0o * m1o + m0o * k1o)};
+}
+
+template <int U>
+cudaError_t launch_plan(const float* u, float* out, int ny, int nx, int run,
+                        const EdgeStencil& st, cudaStream_t stream) {
+  if (run < U || run % U != 0) return cudaErrorInvalidValue;
+  laplace_stencil_kernel<U><<<window_grid(ny, nx, run), NT, 0, stream>>>(
+      u, out, ny, nx, run, st);
+  return cudaGetLastError();
+}
+
+// The instantiation of chunk `unroll`: launch it (res == nullptr) or write
+// its resources to res.
+cudaError_t dispatch(int unroll, const float* u, float* out, int ny, int nx,
+                     int run, const EdgeStencil& st, cudaStream_t stream,
+                     int* res) {
+#define FDAL_K6_CASE(N)                                             \
+  case N:                                                           \
+    return res ? window_resources(laplace_stencil_kernel<N>, res)   \
+               : launch_plan<N>(u, out, ny, nx, run, st, stream)
+  switch (unroll) {
+#if defined(FDAL_K6_UNROLL)
+    FDAL_K6_CASE(FDAL_K6_UNROLL);
+#else
+    FDAL_K6_CASE(1);
+    FDAL_K6_CASE(4);
+    FDAL_K6_CASE(8);
+#endif
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FDAL_K6_CASE
 }
 
 }  // namespace
@@ -64,15 +220,33 @@ laplace_stencil_kernel(const float* __restrict__ u, float* __restrict__ out,
 extern "C" {
 
 // fac (host): k0o, k0c, k0b, m0o, m0c, m0b, k1o, k1c, k1b, m1o, m1c, m1b.
+// u and out are distinct (ny, nx) row-major device arrays.
 int fdal_laplace_stencil_2d(const float* u, float* out, int ny, int nx,
                             const float* fac, void* stream) {
-  const EdgeStencil st{fac[0], fac[1], fac[2],  fac[3], fac[4],  fac[5],
-                       fac[6], fac[7], fac[8], fac[9], fac[10], fac[11]};
-  dim3 block(32, 8);
-  dim3 grid((nx + 31) / 32, (ny + 7) / 8);
-  laplace_stencil_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      u, out, ny, nx, st);
-  return (int)cudaGetLastError();
+  if (ny < 0 || nx < 0) return (int)cudaErrorInvalidValue;
+  if (ny == 0 || nx == 0) return 0;
+  const Plan plan = choose_plan(ny, nx);
+  return (int)dispatch(plan.unroll, u, out, ny, nx, plan.run,
+                       make_edge_stencil(fac), (cudaStream_t)stream, nullptr);
+}
+
+// What the instantiation of chunk `unroll` (one of fdal_laplace_stencil_plan's)
+// takes of the card, written to res[6]: registers a thread, local (spilled)
+// bytes a thread, static shared bytes a block, resident blocks an SM,
+// threads a block and columns a block writes.
+int fdal_laplace_stencil_resources(int unroll, int* res) {
+  return (int)dispatch(unroll, nullptr, nullptr, 0, 0, 0, EdgeStencil{},
+                       nullptr, res);
+}
+
+// The plan of a launch on an (ny, nx) lattice, written to plan[2]: the chunk
+// (rows loaded ahead and unrolled) and the rows of one lane's run, which is
+// the height of a block's tile (its width is res[5] above).
+int fdal_laplace_stencil_plan(int ny, int nx, int* plan) {
+  const Plan p = choose_plan(ny, nx);
+  plan[0] = p.unroll;
+  plan[1] = p.run;
+  return 0;
 }
 
 }  // extern "C"

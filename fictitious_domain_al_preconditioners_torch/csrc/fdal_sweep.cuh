@@ -1,7 +1,9 @@
 // K2, the fused augmented operator and Chebyshev sweeps, shared by the three
-// sources that instantiate it: fdal_kernels.cu (modes op and smooth, and the
-// C entry points), fdal_pre.cu (mode pre) and fdal_post.cu (mode post), each
-// compiled by its own nvcc process.
+// sources that instantiate it: fdal_kernels.cu (mode smooth, mode op of the
+// form without patch, and the C entry points), fdal_pre.cu (mode pre) and
+// fdal_post.cu (mode post), each compiled by its own nvcc process.  The mode
+// op with the patch is not instantiated from here: one application of the
+// patched operator has a kernel of its own, fdal_augmented.cu.
 //
 // Replaces fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py
 // :394 fused_chebyshev_2d.  The masked augmented operator

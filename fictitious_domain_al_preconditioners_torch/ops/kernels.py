@@ -15,11 +15,13 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.pallas_kernels``:
   (``pallas_kernels.py:31``) with the edge corrections of
   ``SeparableStencil2D``: the unconstrained Q1 stiffness apply.
 
-K2 is CUDA C++ for ``sm_90a``: the kernel in ``csrc/fdal_sweep.cuh``,
-instantiated for ``op``/``smooth`` (and its C entry points) in
-``csrc/fdal_kernels.cu``, for ``pre`` in ``csrc/fdal_pre.cu`` and for
-``post`` in ``csrc/fdal_post.cu``; K1 (both forms) is in
-``csrc/fdal_masked.cu`` and K6 in ``csrc/fdal_stencil.cu``.  All sit behind
+K2 is CUDA C++ for ``sm_90a``: the sweep kernel in ``csrc/fdal_sweep.cuh``,
+instantiated for ``smooth`` and the no-patch ``op`` (and its C entry points)
+in ``csrc/fdal_kernels.cu``, for ``pre`` in ``csrc/fdal_pre.cu`` and for
+``post`` in ``csrc/fdal_post.cu``.  The single-application kernels share the
+register window of ``csrc/fdal_window.cuh``: K1 (both forms) in
+``csrc/fdal_masked.cu``, K2's ``op`` with the patch in
+``csrc/fdal_augmented.cu`` and K6 in ``csrc/fdal_stencil.cu``.  All sit behind
 a plain C interface; :func:`build` compiles the sources with ``nvcc`` (one
 process each, run together) into one library under ``build/torch_kernels/``
 at first use, called through ctypes.  Nothing is built or imported from CUDA
@@ -50,20 +52,57 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "build", "source_tag",
            "AugmentedStencil2D", "fused_augmented_2d",
            "fused_augmented_2d_plain", "fused_augmented_resources",
            "masked_laplace_resources", "masked_laplace_tile", "K1_CHUNKS",
+           "laplace_stencil_resources", "laplace_stencil_tile",
+           "augmented_op_resources", "augmented_op_tile",
+           "WINDOW_KEEP", "WINDOW_WARPS", "PATCH_CHUNK", "window_plan",
            "launch_key", "MODES", "SWEEP_TILE", "sweep_output_tile"]
 
 MODES = ("op", "smooth", "pre", "post")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 _MAX_DEGREE = 6  # csrc/fdal_sweep.cuh MAX_DEG
-#: K2's extended tile, rows x columns (csrc/fdal_sweep.cuh EY, EX)
+#: the extended tile of K2's sweep kernel, rows x columns
+#: (csrc/fdal_sweep.cuh EY, EX): ``smooth``, ``pre``, ``post`` in both forms
+#: and ``op`` without patch; ``op`` with the patch is cut by
+#: :func:`window_plan` (csrc/fdal_augmented.cu)
 SWEEP_TILE = (32, 96)
 
 
 def sweep_output_tile(mode: str, degree: int = 4) -> tuple[int, int]:
-    """The points of K2's extended tile that a block writes in ``mode``:
-    the tile less a halo of one point per operator application."""
+    """The points of the sweep kernel's extended tile that a block writes in
+    ``mode``: the tile less a halo of one point per operator application
+    (``op``: the form without patch; the patched ``op`` is not this kernel,
+    see :func:`augmented_op_tile`)."""
     halo = 1 if mode == "op" else degree - (mode == "smooth")
     return SWEEP_TILE[0] - 2 * halo, SWEEP_TILE[1] - 2 * halo
+
+
+#: the register window of K1, the patched K2 ``op`` and K6
+#: (csrc/fdal_window.cuh KEEP, WARPS): a warp writes 30 of the 32 columns it
+#: loads, a block is 4 warps side by side
+WINDOW_KEEP = 30
+WINDOW_WARPS = 4
+_MIDDLE_POINTS = 1 << 17  # csrc/fdal_window.cuh MIDDLE_POINTS
+_LARGE_POINTS = 1 << 22   # csrc/fdal_window.cuh LARGE_POINTS
+#: most rows of a chunk of the patched ``op``'s warps that meet the box
+#: (csrc/fdal_augmented.cu PATCH_CHUNK)
+PATCH_CHUNK = 4
+
+
+def window_plan(ny: int, nx: int, itemsize: int = 4) -> dict:
+    """How the window kernels cut an (ny, nx) lattice of ``itemsize``-byte
+    values, mirrored from ``size_plan`` of csrc/fdal_window.cuh (no library
+    is built): ``chunk_rows`` a lane loads ahead, ``run_rows`` of its run (a
+    block writes ``run_rows`` rows) and the ``tile_columns`` a block
+    writes."""
+    points = ny * nx
+    if points < _MIDDLE_POINTS:
+        chunk = run = 1
+    elif points < _LARGE_POINTS:
+        chunk = run = 4
+    else:
+        chunk, run = 8, 32 // itemsize
+    return dict(chunk_rows=chunk, run_rows=run,
+                tile_columns=WINDOW_KEEP * WINDOW_WARPS)
 
 
 def launch_key(mode: str, patch: bool = True) -> str:
@@ -86,8 +125,10 @@ def reset_launch_counts():
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f)
                 for f in ("fdal_kernels.cu", "fdal_pre.cu", "fdal_post.cu",
-                          "fdal_stencil.cu", "fdal_masked.cu"))
-HEADERS = (os.path.join(_PKG_DIR, "csrc", "fdal_sweep.cuh"),)
+                          "fdal_stencil.cu", "fdal_masked.cu",
+                          "fdal_augmented.cu"))
+HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f)
+                for f in ("fdal_sweep.cuh", "fdal_window.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 
@@ -162,6 +203,17 @@ def _library():
     lib.fdal_masked_laplace_plan.restype = ci
     lib.fdal_laplace_stencil_2d.argtypes = [vp, vp, ci, ci, vp, vp]
     lib.fdal_laplace_stencil_2d.restype = ci
+    lib.fdal_laplace_stencil_resources.argtypes = [ci, vp]
+    lib.fdal_laplace_stencil_resources.restype = ci
+    lib.fdal_laplace_stencil_plan.argtypes = [ci, ci, vp]
+    lib.fdal_laplace_stencil_plan.restype = ci
+    lib.fdal_augmented_op_2d.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, ci,
+                                         ci, vp]
+    lib.fdal_augmented_op_2d.restype = ci
+    lib.fdal_augmented_op_resources.argtypes = [ci, vp]
+    lib.fdal_augmented_op_resources.restype = ci
+    lib.fdal_augmented_op_plan.argtypes = [ci, ci, vp]
+    lib.fdal_augmented_op_plan.restype = ci
     lib.fdal_fused_augmented_2d.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci,
                                             ci, vp, ci, ci, ci, ci, vp, vp]
     lib.fdal_fused_augmented_2d.restype = ci
@@ -282,9 +334,20 @@ def masked_laplace_2d(u: torch.Tensor, h) -> torch.Tensor:
     return out
 
 
-#: the chunks (rows a thread loads ahead and unrolls) K1 is instantiated
-#: for; a launch picks one from the lattice's size (csrc/fdal_masked.cu)
+#: the chunks (rows a thread loads ahead and unrolls) K1, the patched K2
+#: ``op`` and K6 are instantiated for; a launch picks one from the lattice's
+#: size (csrc/fdal_window.cuh)
 K1_CHUNKS = (1, 4, 8)
+_WINDOW_RESOURCES = ("registers", "local_bytes", "static_smem_bytes",
+                     "blocks_per_sm", "threads", "tile_columns")
+
+
+def _window_resources(what: str, query, *args) -> dict:
+    """The resources one instantiation of a window kernel reports through
+    its C query ``query(*args, res)`` (builds the library)."""
+    res = np.zeros(6, dtype=np.int32)
+    _check_rc(query(*args, res.ctypes.data), what)
+    return dict(zip(_WINDOW_RESOURCES, (int(v) for v in res)))
 
 
 def masked_laplace_resources(bf16: bool = False, chunk: int = 8) -> dict:
@@ -292,13 +355,9 @@ def masked_laplace_resources(bf16: bool = False, chunk: int = 8) -> dict:
     registers a thread, local (spilled) bytes a thread, static shared bytes
     a block, resident blocks an SM, threads a block and the columns a block
     writes.  ``chunk`` is one of :data:`K1_CHUNKS`."""
-    res = np.zeros(6, dtype=np.int32)
-    _check_rc(_library().fdal_masked_laplace_resources(
-        int(bf16), int(chunk), res.ctypes.data),
-        f"masked_laplace_resources({bf16}, {chunk})")
-    keys = ("registers", "local_bytes", "static_smem_bytes", "blocks_per_sm",
-            "threads", "tile_columns")
-    return dict(zip(keys, (int(v) for v in res)))
+    return _window_resources(
+        f"masked_laplace_resources({bf16}, {chunk})",
+        _library().fdal_masked_laplace_resources, int(bf16), int(chunk))
 
 
 def masked_laplace_tile(ny: int, nx: int, bf16: bool = False) -> dict:
@@ -366,6 +425,26 @@ def laplace_stencil_2d_plain(u: torch.Tensor, h) -> torch.Tensor:
     for r, c in ((0, 0), (0, -1), (-1, 0), (-1, -1)):
         out[r, c] += corner * u[r, c]
     return out
+
+
+def laplace_stencil_resources(chunk: int = 8) -> dict:
+    """What K6's instantiation of ``chunk`` (one of :data:`K1_CHUNKS`) takes
+    of the card (builds the library); the keys of
+    :func:`masked_laplace_resources`."""
+    return _window_resources(f"laplace_stencil_resources({chunk})",
+                             _library().fdal_laplace_stencil_resources,
+                             int(chunk))
+
+
+def laplace_stencil_tile(ny: int, nx: int) -> dict:
+    """How K6 cuts an (ny, nx) lattice, asked of the library (builds it):
+    the keys of :func:`window_plan`, which mirrors it."""
+    plan = np.zeros(2, dtype=np.int32)
+    _check_rc(_library().fdal_laplace_stencil_plan(
+        int(ny), int(nx), plan.ctypes.data), "laplace_stencil_tile")
+    return dict(chunk_rows=int(plan[0]), run_rows=int(plan[1]),
+                tile_columns=laplace_stencil_resources(
+                    int(plan[0]))["tile_columns"])
 
 
 def laplace_stencil_2d(u: torch.Tensor, h) -> torch.Tensor:
@@ -562,22 +641,61 @@ def fused_augmented_2d(mode: str, st: AugmentedStencil2D, b, x0=None, *,
     lib = _library()
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        rc = lib.fdal_fused_augmented_2d(
-            _MODE_ID[mode], int(degree), b.data_ptr(),
-            None if x0 is None else x0.data_ptr(),
-            st.planes.data_ptr() if st.patched else None,
-            out.data_ptr(), None if rout is None else rout.data_ptr(),
-            ny, nx, fac.ctypes.data, r0, c0, pr, pc, coef.ctypes.data, stream)
+        if mode == "op" and st.patched:
+            # one application with the patch: the window kernel
+            rc = lib.fdal_augmented_op_2d(
+                b.data_ptr(), st.planes.data_ptr(), out.data_ptr(), ny, nx,
+                fac.ctypes.data, r0, c0, pr, pc, stream)
+        else:
+            rc = lib.fdal_fused_augmented_2d(
+                _MODE_ID[mode], int(degree), b.data_ptr(),
+                None if x0 is None else x0.data_ptr(),
+                st.planes.data_ptr() if st.patched else None,
+                out.data_ptr(), None if rout is None else rout.data_ptr(),
+                ny, nx, fac.ctypes.data, r0, c0, pr, pc, coef.ctypes.data,
+                stream)
     _check_rc(rc, f"fused_augmented_2d({mode})")
     LAUNCHES[launch_key(mode, st.patched)] += 1
     return (out, rout) if mode == "pre" else out
 
 
+def augmented_op_resources(chunk: int = 8) -> dict:
+    """What the patched ``op``'s instantiation of ``chunk`` (one of
+    :data:`K1_CHUNKS`) takes of the card (builds the library); the keys of
+    :func:`masked_laplace_resources`."""
+    return _window_resources(f"augmented_op_resources({chunk})",
+                             _library().fdal_augmented_op_resources,
+                             int(chunk))
+
+
+def augmented_op_tile(ny: int, nx: int) -> dict:
+    """How the patched ``op`` cuts an (ny, nx) lattice, asked of the library
+    (builds it): the keys of :func:`window_plan`, which mirrors it, and
+    ``patch_chunk_rows``, the chunk of the warps that meet the box
+    (``min(chunk_rows, PATCH_CHUNK)``)."""
+    plan = np.zeros(3, dtype=np.int32)
+    _check_rc(_library().fdal_augmented_op_plan(
+        int(ny), int(nx), plan.ctypes.data), "augmented_op_tile")
+    return dict(chunk_rows=int(plan[0]), run_rows=int(plan[1]),
+                tile_columns=augmented_op_resources(
+                    int(plan[0]))["tile_columns"],
+                patch_chunk_rows=int(plan[2]))
+
+
 def fused_augmented_resources(mode: str, degree: int = 4,
-                              patch: bool = True) -> dict:
+                              patch: bool = True, chunk: int = 8) -> dict:
     """What one K2 instantiation takes of the card (builds the library):
     registers a thread, static and dynamic shared bytes a block, local
-    (spilled) bytes a thread, resident blocks an SM and threads a block."""
+    (spilled) bytes a thread, resident blocks an SM and threads a block.
+    ``op`` with the patch is the window kernel of csrc/fdal_augmented.cu in
+    its instantiation of ``chunk`` (no dynamic shared memory)."""
+    if mode == "op" and patch:
+        res = augmented_op_resources(chunk)
+        return dict(registers=res["registers"],
+                    static_smem_bytes=res["static_smem_bytes"],
+                    dynamic_smem_bytes=0, local_bytes=res["local_bytes"],
+                    blocks_per_sm=res["blocks_per_sm"],
+                    threads=res["threads"])
     res = np.zeros(6, dtype=np.int32)
     _check_rc(_library().fdal_fused_augmented_resources(
         _MODE_ID[mode], int(degree), int(patch), res.ctypes.data),

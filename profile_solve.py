@@ -5,15 +5,18 @@ time goes.
     python3 profile_solve.py                         # augmented, rational, CG
     python3 profile_solve.py --solver rational --refinement 12
     python3 profile_solve.py --solver augmented_bf16 # bf16 V-cycle flagship
+    python3 profile_solve.py --solver refined        # solve_refined at 11
 
 For each solver mode: set up ``chip_smoke.py``'s configuration of it
-(``augmented_bf16`` is the flagship with ``use_bf16_multigrid``), run two
-unprofiled solves (the first builds the solver), then one solve under
-``torch.profiler`` (CPU and CUDA activities).  Prints one JSON line per mode:
-the unprofiled and profiled wall times, the device time summed over the
-device activities (kernels, copies, fills) and their count, the busy share
-(device time over profiled wall), the host syncs, and the activities with
-the most device time.
+(``augmented_bf16`` is the flagship with ``use_bf16_multigrid``; ``refined``
+is the flagship's ``solve_refined(tol_abs=1e-10)`` at refinement 11, or
+``--refinement`` if that is less), run two unprofiled solves (the first
+builds the solver), then one solve under ``torch.profiler`` (CPU and CUDA
+activities).  Prints one JSON line per mode: the unprofiled and profiled wall
+times, the device time summed over the device activities (kernels, copies,
+fills) and their count, the busy share (device time over profiled wall), the
+host syncs, the device ms and calls of each of the port's own kernels
+(``port_kernels``), and the activities with the most device time.
 """
 
 from __future__ import annotations
@@ -21,30 +24,61 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import re
 import subprocess
 import sys
 import time
+
+_SWEEP = re.compile(r"sweep_kernel<(?:\(int\))?(\d), (?:\(int\))?\d, "
+                    r"(?:\(bool\))?(true|false|1|0)>")
+
+
+def port_kernel(name):
+    """The port's kernel that a device activity's name belongs to (K1 by
+    storage form, K2 by mode and form, K6), or None."""
+    if "augmented_op_kernel" in name:
+        return "K2 op"
+    if "laplace_stencil_kernel" in name:
+        return "K6"
+    if "masked_laplace_kernel" in name:
+        return "K1 bf16" if "bfloat16" in name else "K1 float32"
+    m = _SWEEP.search(name)
+    if m:
+        mode = ("op", "smooth", "pre", "post")[int(m.group(1))]
+        patch = m.group(2) in ("true", "1")
+        return f"K2 {mode}" + ("" if patch else ", no patch")
+    return None
 
 
 def profile_mode(solver, refinement, device, top):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import flagship_config, mode_config
+    from chip_smoke import (REFINED_REFINEMENT, REFINED_TOL, flagship_config,
+                            mode_config)
     from fictitious_domain_al_preconditioners_torch.models import \
         ImmersedLaplaceProblem
 
+    if solver == "refined":
+        refinement = min(refinement, REFINED_REFINEMENT)
     cfg = (flagship_config(refinement, bf16=solver == "augmented_bf16")
-           if solver.startswith("augmented")
+           if solver.startswith("augmented") or solver == "refined"
            else mode_config(solver, refinement))
     prob = ImmersedLaplaceProblem(cfg, device=device).setup()
-    prob.solve()
-    prob.solve()
+
+    def solve():
+        if solver == "refined":
+            prob.solve_refined(tol_abs=REFINED_TOL)
+        else:
+            prob.solve()
+
+    solve()
+    solve()
     unprofiled = prob.results["solve_seconds"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prob.solve()
+        solve()
         wall = time.perf_counter() - t0
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
@@ -54,6 +88,12 @@ def profile_mode(solver, refinement, device, top):
             rec[1] += 1
     device_ms = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    ours = collections.defaultdict(lambda: [0.0, 0])
+    for name, (ms, n) in by_name.items():
+        key = port_kernel(name)
+        if key:
+            ours[key][0] += ms
+            ours[key][1] += n
     return dict(
         solver=solver, refinement=refinement,
         dofs_background=prob.space.n_dofs,
@@ -63,6 +103,8 @@ def profile_mode(solver, refinement, device, top):
         unprofiled_solve_ms=unprofiled * 1e3, profiled_wall_ms=wall * 1e3,
         device_ms=device_ms, busy_share=device_ms / (wall * 1e3),
         device_activities=sum(n for _, n in by_name.values()),
+        port_kernels={k: dict(ms=ms, calls=n)
+                      for k, (ms, n) in sorted(ours.items())},
         top=[dict(name=name[:120], ms=ms, calls=n, share=ms / device_ms)
              for name, (ms, n) in ranked])
 
@@ -71,8 +113,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--solver", nargs="+",
                     default=["augmented", "rational", "CG"],
-                    choices=["augmented", "augmented_bf16", "rational", "CG",
-                             "ELMAN_triang"])
+                    choices=["augmented", "augmented_bf16", "refined",
+                             "rational", "CG", "ELMAN_triang"])
     ap.add_argument("--refinement", type=int, default=12)
     ap.add_argument("--top", type=int, default=12,
                     help="device activities listed per mode")

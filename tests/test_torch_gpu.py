@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
-version (K1 in float32 and bf16), the wrappers' checks, and small solves of
-every mode, and of the flagship with the bf16 V-cycle, against the CPU.
+version (K1 in float32 and bf16; K1, K6 and the patched K2 ``op`` at the edge
+shapes of the register window they share), the wrappers' checks, and small
+solves of every mode, and of the flagship with the bf16 V-cycle, against the
+CPU.
 Marked ``gpu``; without a card every test skips.  On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py -q
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as S
 from fictitious_domain_al_preconditioners_torch.models import (
     ImmersedLaplaceConfig, ImmersedLaplaceProblem)
 from fictitious_domain_al_preconditioners_torch.ops import kernels as K
@@ -278,6 +281,92 @@ def test_k1_bf16_matches_plain(cuda, shape):
     assert K.LAUNCHES["masked_laplace_2d:bf16"] == \
         before["masked_laplace_2d:bf16"] + 1
     assert K.LAUNCHES["masked_laplace_2d"] == before["masked_laplace_2d"]
+
+
+def test_window_plan_is_the_librarys(cuda):
+    """The Python mirror of the window's plan, which places the edge shapes,
+    against what K6 and the patched K2 ``op`` report; neither kernel spills
+    or takes shared memory in any chunk."""
+    for shape in ((64, 240), (362, 362), (363, 362), (512, 600), (3, 50000),
+                  (2048, 2047), (2048, 2048), (2240, 2160), (4097, 4097)):
+        plan = K.window_plan(*shape)
+        assert K.laplace_stencil_tile(*shape) == plan
+        assert K.augmented_op_tile(*shape) == dict(
+            plan, patch_chunk_rows=min(plan["chunk_rows"], K.PATCH_CHUNK))
+        assert K.masked_laplace_tile(*shape) == plan
+    for query in (K.laplace_stencil_resources, K.augmented_op_resources):
+        for chunk in K.K1_CHUNKS:
+            res = query(chunk)
+            assert res["threads"] == 128 and res["local_bytes"] == 0
+            assert res["static_smem_bytes"] == 0 and res["registers"] > 0
+            assert res["blocks_per_sm"] >= 6 and res["tile_columns"] == 120
+        with pytest.raises(RuntimeError):
+            query(3)
+    res = K.fused_augmented_resources("op", patch=True)
+    assert res["dynamic_smem_bytes"] == 0 and res["threads"] == 128
+    assert K.fused_augmented_resources("op", patch=False)["threads"] == 384
+
+
+@pytest.mark.parametrize("shape", S.window_edge_shapes())
+def test_k6_matches_plain_at_tile_edges(cuda, shape):
+    """K6 against its plain version to 1e-6 of max |plain| (another float32
+    summation order) where the lattice's edge rows and columns, with their
+    boundary centres, meet the edges of a warp's columns and of a lane's
+    run; the input is left as it was."""
+    h = (1.0 / max(shape[0] - 1, 1), 1.0 / max(shape[1] - 1, 1))
+    u = torch.as_tensor(np.random.default_rng(sum(shape)).standard_normal(
+        shape), dtype=torch.float32, device=cuda)
+    kept = u.clone()
+    before = K.LAUNCHES["laplace_stencil_2d"]
+    got = K.laplace_stencil_2d(u, h)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["laplace_stencil_2d"] == before + 1
+    assert got.dtype == u.dtype and tuple(got.shape) == shape
+    assert got.data_ptr() != u.data_ptr()
+    assert torch.equal(u.view(torch.int32), kept.view(torch.int32))
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, K.laplace_stencil_2d_plain(u, h)) <= 1e-6
+
+
+@pytest.mark.parametrize("shape,box", S.op_edge_cases())
+def test_patched_op_matches_plain_at_tile_edges(cuda, shape, box):
+    """The patched K2 ``op`` against its plain version to 1e-6 of max
+    |plain| where the patch box's edges meet a warp's first and last kept
+    column, a run's first and last row and the lattice's border; the
+    boundary rows and columns are the input bit for bit, and the input is
+    left as it was."""
+    st = S.random_patch_stencil(shape, box, cuda, seed=sum(box))
+    b = torch.as_tensor(np.random.default_rng(sum(shape)).standard_normal(
+        shape), dtype=torch.float32, device=cuda)
+    kept = b.clone()
+    key = K.launch_key("op")
+    before = dict(K.LAUNCHES)
+    got = K.fused_augmented_2d("op", st, b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[key] == before[key] + 1
+    assert K.LAUNCHES[K.launch_key("op", False)] == \
+        before[K.launch_key("op", False)]
+    assert got.dtype == b.dtype and tuple(got.shape) == shape
+    assert got.data_ptr() != b.data_ptr()
+    assert torch.equal(b.view(torch.int32), kept.view(torch.int32))
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, K.fused_augmented_2d_plain("op", st, b)) <= 1e-6
+    for edge in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1]):
+        assert torch.equal(got[edge].contiguous().view(torch.int32),
+                           b[edge].contiguous().view(torch.int32))
+
+
+def test_patched_op_without_planes_is_k1(cuda):
+    """With planes of zeros the patched ``op`` kernel computes K1's function:
+    the warps that meet the box run the patched walk, the others K1's."""
+    shape, box = (530, 777), (100, 200, 300, 400)
+    h = (1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1))
+    st = K.AugmentedStencil2D(h, shape, torch.zeros(
+        (5,) + box[2:], dtype=torch.float32, device=cuda), box)
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(shape),
+                        dtype=torch.float32, device=cuda)
+    assert _rel(K.fused_augmented_2d("op", st, u),
+                K.masked_laplace_2d(u, h)) <= 1e-6
 
 
 def test_wrappers_check_their_inputs(cuda):

@@ -1,7 +1,9 @@
-"""K2's tile geometry as the Python side mirrors it from
-``csrc/fdal_sweep.cuh``: the tests on the card and ``chip_smoke.py`` place
-lattices and patch boxes on its output-tile edges, so the mirror must match
-the header."""
+"""The tile geometry of K2's sweep kernel as the Python side mirrors it from
+``csrc/fdal_sweep.cuh`` (the modes ``smooth``, ``pre``, ``post`` and the
+no-patch ``op``; the patched ``op`` has a kernel of its own, whose mirror
+``tests/test_torch_apply.py`` holds): the tests on the card and
+``chip_smoke.py`` place lattices and patch boxes on its output-tile edges, so
+the mirror must match the header."""
 
 import os
 import re
@@ -42,6 +44,7 @@ def test_k2_sources_share_the_header_and_are_built():
     names = {os.path.basename(s) for s in K.SOURCES}
     assert {"fdal_kernels.cu", "fdal_pre.cu", "fdal_post.cu"} <= names
     for src in K.SOURCES:
-        if os.path.basename(src) not in ("fdal_stencil.cu", "fdal_masked.cu"):
+        if os.path.basename(src) not in ("fdal_stencil.cu", "fdal_masked.cu",
+                                         "fdal_augmented.cu"):
             assert '#include "fdal_sweep.cuh"' in open(src).read(), src
     assert all(os.path.exists(p) for p in K.SOURCES + K.HEADERS)
