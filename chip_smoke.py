@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's immersed_laplace solves on one CUDA card.
+"""Drive the PyTorch port's immersed_laplace and elliptic interface solves
+on one CUDA card.
 
     python3 chip_smoke.py                  # all phases, refinement 12
     python3 chip_smoke.py --refinement 9   # the same at a quick size
+    python3 chip_smoke.py --elliptic-cycle 4 --elliptic-only
 
 Phases (any failure exits non-zero before the last line is printed):
 
 1. device: require CUDA, print the card's name and power limit, build the
    kernels from ``fictitious_domain_al_preconditioners_torch/csrc`` and
-   print what both forms of K1, K6, the patched K2 ``op`` (each in every
-   chunk) and each K2 instantiation of the main paths take of the card
-   (registers a thread, shared memory, spilled bytes, blocks an SM);
+   print what both forms of K1, both forms of K6, the patched K2 ``op``
+   (each in every chunk) and each K2 instantiation of the main paths take
+   of the card (registers a thread, shared memory, spilled bytes, blocks an
+   SM);
 2. kernels against their plain PyTorch versions on the card: K1 (float32
-   and its bf16-storage form), K6, and K2 in all four modes with patch
-   planes (from flagship couplings) and without, at n = 65, n = 1025 and
-   (530, 777); K1's two forms, K6 and the patched K2 ``op`` also at the edge
-   shapes of their tile (lattices one and two points either side of a
-   multiple of it, shorter than a thread's run, narrower than a warp,
-   without interior; for ``op``, patch boxes whose edges fall on a warp's
-   first and last kept column, on a run's first and last row, at the
-   lattice's border and one point off it, and boxes of one point), where the
-   boundary must equal the input bit for bit (K1, ``op``);
+   and its bf16-storage form), K6 (float32 and float64), and K2 in all four
+   modes with patch planes (from flagship couplings) and without, at n =
+   65, n = 1025 and (530, 777); K1's two forms, K6's two forms and the
+   patched K2 ``op`` also at the edge shapes of their tile (lattices one and
+   two points either side of a multiple of it, shorter than a thread's run,
+   narrower than a warp, without interior; for ``op``, patch boxes whose
+   edges fall on a warp's first and last kept column, on a run's first and
+   last row, at the lattice's border and one point off it, and boxes of one
+   point), where the boundary must equal the input bit for bit (K1,
+   ``op``);
 3. the flagship solve (``bench.py``'s configuration, ``solver="augmented"``)
    at the refinement: a warm-up solve, then a timed solve, through
    ``ImmersedLaplaceProblem(cfg).setup()`` and ``.solve()``; the launch
@@ -48,12 +52,25 @@ Phases (any failure exits non-zero before the last line is printed):
    refinement), once with the float32 V-cycle (``bench.py``'s ``refined``
    row) and once with the bf16 V-cycle, each to a true float64 residual of
    at most 1e-10;
+7. the elliptic interface problem (``EllipticInterfaceProblem``) in the
+   results table's configuration (modified AL, β₂ = 1e3, γ = 10 / 1e-2,
+   fixed inner iterations, W = M² exact; ``scripts/make_results_table.py``)
+   at cycle 6 (``--elliptic-cycle``; 4,198,401 + 263,169 dofs): ``solve()``
+   and then ``solve_refined(tol_abs=1e-10)`` on the same operators; the
+   true float64 residual must reach 1e-10 and both forms of K6 must be
+   launched (float64 in the outer operator and the inner CGs, float32 in the
+   V-cycles); both are compared with their plain versions at every level
+   shape of both GMG hierarchies, and the float64 form is timed at the fine
+   background lattice;
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
    versions) in float32 with the same Lanczos start vectors, for the
-   flagship, the three modes and the flagship with the bf16 V-cycle.
+   flagship, the three modes and the flagship with the bf16 V-cycle; and
+   the elliptic problem at cycle 1 (float32 V-cycles, float64 operator and
+   Krylov solvers on both), whose outer counts must agree within 1 and whose
+   three solution blocks within 1e-3 of each block's max.
 
-Launch counts are set to 0 just before each path (phases 3, 5 and 6) and
-read just after it.  The line before the last is a JSON object with one entry per
+Launch counts are set to 0 just before each path (phases 3, 5, 6 and 7)
+and read just after it.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -74,7 +91,8 @@ PKG = "fictitious_domain_al_preconditioners_torch"
 SOURCE = {"masked_laplace_2d": f"{PKG}/csrc/fdal_masked.cu",
           "masked_laplace_2d:bf16": f"{PKG}/csrc/fdal_masked.cu",
           "fused_augmented_2d": f"{PKG}/csrc/fdal_sweep.cuh",
-          "laplace_stencil_2d": f"{PKG}/csrc/fdal_stencil.cu"}
+          "laplace_stencil_2d": f"{PKG}/csrc/fdal_stencil.cu",
+          "laplace_stencil_2d:f64": f"{PKG}/csrc/fdal_stencil.cu"}
 # the file that instantiates each K2 mode (the kernel is fdal_sweep.cuh),
 # but for op with the patch, whose kernel is in a file of its own
 MODE_SOURCE = {"op": f"{PKG}/csrc/fdal_augmented.cu",
@@ -86,13 +104,15 @@ _TPU = "fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py"
 REPLACES = {"masked_laplace_2d": f"{_TPU}:193",
             "masked_laplace_2d:bf16": f"{_TPU}:193",
             "fused_augmented_2d": f"{_TPU}:394",
-            "laplace_stencil_2d": f"{_TPU}:31"}
+            "laplace_stencil_2d": f"{_TPU}:31",
+            "laplace_stencil_2d:f64": f"{_TPU}:31"}
 # max |kernel - plain| / max |plain|: one application vs the Chebyshev
 # recurrence (the bounds of tests/test_fused_cheb.py) in float32; K1's bf16
-# form, where a float32 sum order can flip one bf16 rounding (2^-8)
+# form, where a float32 sum order can flip one bf16 rounding (2^-8); K6's
+# float64 form, another float64 summation order
 TOL = {"masked_laplace_2d": 1e-6, "laplace_stencil_2d": 1e-6, "op": 1e-6,
        "smooth": 2e-5, "pre": 2e-5, "post": 5e-5,
-       "masked_laplace_2d:bf16": 1e-2}
+       "masked_laplace_2d:bf16": 1e-2, "laplace_stencil_2d:f64": 1e-13}
 # the solver modes of phase 5 and the refinement of ELMAN_triang, the
 # negative control whose counts grow with refinement (BASELINE.md:31)
 MODE_SOLVERS = ("rational", "CG", "ELMAN_triang")
@@ -100,10 +120,15 @@ ELMAN_REFINEMENT = 9
 # bench.py's refined row (REF_SMALL) and the reference configs' tolerance
 REFINED_REFINEMENT = 11
 REFINED_TOL = 1e-10
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the
-# tensor cores
+# the elliptic interface phase: the results table's largest cycle (the
+# reference's 8-cycle scale) and the cycle of its card-against-CPU check
+ELLIPTIC_CYCLE = 6
+ELLIPTIC_CROSSCHECK_CYCLE = 1
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 and float64 rates
+# outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 # operations of one 9-point tensor-product stencil apply per point: 3
 # column sums (1 add) each feeding two 3-term factors (2 mul + 1 add each),
 # then 6 mul + 3 add in the row combination
@@ -157,6 +182,25 @@ def mode_config(solver, refinement):
     cfg.schur.tolerance = 3e-5
     cfg.schur.reduction = 1e-6
     cfg.schur.max_steps = 1000
+    return cfg
+
+
+def elliptic_config():
+    """The results table's elliptic interface configuration
+    (scripts/make_results_table.py:67-73): modified AL, β₂ = 1e3, γ = 10 on
+    the background and 1e-2 on the immersed box, fixed inner iterations,
+    W = M² exact, outer tolerance 3e-5 and reduction 1e-5, background
+    refinement 5 and immersed 3 at cycle 0."""
+    from fictitious_domain_al_preconditioners_torch.models import \
+        EllipticInterfaceConfig
+
+    cfg = EllipticInterfaceConfig(
+        initial_background_refinement=5, initial_immersed_refinement=3,
+        beta_2=1e3, use_modified_AL_preconditioner=True,
+        gamma_AL_background=10.0, gamma_AL_immersed=1e-2,
+        use_fixed_iterations=True)
+    cfg.outer.tolerance = 3e-5
+    cfg.outer.reduction = 1e-5
     return cfg
 
 
@@ -267,6 +311,7 @@ def compare_stencils(h, shape, device, seed, tag, errs):
     compare_k1_bf16(h, u, tag, errs)
     record(errs, "laplace_stencil_2d", "-", tag, K.laplace_stencil_2d(u, h),
            K.laplace_stencil_2d_plain(u, h))
+    compare_k6(u.double(), h, tag, errs)
 
 
 def compare_k1_bf16(h, u, tag, errs):
@@ -397,31 +442,38 @@ def random_patch_stencil(shape, box, device, seed):
                                 torch.as_tensor(planes, device=device), box)
 
 
-def compare_k6_edges(device, errs):
-    """K6 against the plain version at :func:`window_edge_shapes`; the input
-    must be left as it was."""
+def compare_k6(u, h, tag, errs):
+    """K6 in ``u``'s dtype form against its plain version on ``u``; the
+    input must be left as it was."""
     import torch
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    name = ("laplace_stencil_2d:f64" if u.dtype == torch.float64
+            else "laplace_stencil_2d")
+    kept = u.clone()
+    got = K.laplace_stencil_2d(u, h)
+    torch.cuda.synchronize(u.device)
+    check(got.dtype == u.dtype and got.shape == u.shape,
+          f"{name} {tag}: returned {got.dtype} {tuple(got.shape)}")
+    check(torch.equal(u, kept), f"{name} {tag}: the input was changed")
+    record(errs, name, "-", tag, got, K.laplace_stencil_2d_plain(u, h))
+
+
+def compare_k6_edges(device, errs):
+    """K6's two forms against the plain version at
+    :func:`window_edge_shapes`."""
+    import torch
 
     shapes = window_edge_shapes()
     for i, shape in enumerate(shapes):
         h = tuple(1.0 / max(n - 1, 1) for n in shape)
         u = torch.as_tensor(
             np.random.default_rng(700 + i).standard_normal(shape),
-            dtype=torch.float32, device=device)
-        kept = u.clone()
-        got = K.laplace_stencil_2d(u, h)
-        torch.cuda.synchronize(device)
-        tag = f"edge {shape}"
-        check(got.dtype == u.dtype and got.shape == u.shape,
-              f"laplace_stencil_2d {tag}: returned {got.dtype} "
-              f"{tuple(got.shape)}")
-        check(torch.equal(u.view(torch.int32), kept.view(torch.int32)),
-              f"laplace_stencil_2d {tag}: the input was changed")
-        record(errs, "laplace_stencil_2d", "-", tag, got,
-               K.laplace_stencil_2d_plain(u, h))
-    print(f"phase 2: K6 agrees with plain at {len(shapes)} edge shapes",
-          flush=True)
+            dtype=torch.float64, device=device)
+        for v in (u.float(), u):
+            compare_k6(v, h, f"edge {shape}", errs)
+    print(f"phase 2: K6 float32 and float64 agree with plain at {len(shapes)} "
+          "edge shapes", flush=True)
 
 
 def compare_op_edges(device, errs):
@@ -627,11 +679,12 @@ def phase_mode(solver, refinement, device):
     return prob, out, errs
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    bytes over the memory rate against operations over the f32 rate."""
+    bytes over the memory rate against operations over the f32 (or the
+    given) rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -893,6 +946,156 @@ def phase_refined(refinement, device, bf16):
     return out
 
 
+def phase_elliptic(cycle, device):
+    """The elliptic interface problem at ``cycle``: set up, ``solve()``,
+    then ``solve_refined(tol_abs=1e-10)`` on the operators the solve built;
+    launch counts over the whole path.  The true float64 residual must
+    reach the tolerance and K6 must have been launched; K6 is then compared
+    with its plain version at every level shape of both hierarchies."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        EllipticInterfaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+    from fictitious_domain_al_preconditioners_torch.ops.host_ref import \
+        HostEllipticSystem
+
+    tag = f"elliptic@{cycle}"
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    prob = EllipticInterfaceProblem(elliptic_config(),
+                                    device=device).setup(cycle)
+    setup_s = time.perf_counter() - t0
+    its = prob.solve()
+    solve = dict(prob.results)
+    constraint = prob.constraint_residual()
+    # the true float64 residual of the solve, on the host
+    rs = HostEllipticSystem(prob).residual(
+        *(x.double().cpu().numpy() for x in (prob.u, prob.u2, prob.lam)))
+    solve_true = float(np.sqrt(sum(float(r @ r) for r in rs)))
+    u, u2, lam, history = prob.solve_refined(tol_abs=REFINED_TOL)
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    res = prob.results
+    parts = prob._last_parts
+    out = dict(
+        path=tag, cycle=cycle, dofs_background=prob.space.n_dofs,
+        dofs_immersed=prob.fg_space.n_dofs,
+        dofs_total=prob.layout.total, outer_iterations=its,
+        converged=solve["converged"], residual=solve["residual"],
+        true_residual=solve_true, constraint_residual=constraint,
+        refine_steps=res["refine_steps"],
+        total_outer_iterations=res["outer_iterations"],
+        refined_residual=res["refined_residual"], history=history,
+        refined_converged=res["converged"],
+        constraint_residual_refined=prob.constraint_residual(),
+        setup_seconds=setup_s, build_seconds=solve["build_seconds"],
+        solve_seconds=solve["solve_seconds"],
+        solve_host_syncs=solve["host_syncs"],
+        refined_seconds=res["refined_seconds"],
+        refine_build_seconds=res["refine_build_seconds"],
+        device_seconds=res["correction_seconds"],
+        host_residual_seconds=res["host_residual_seconds"],
+        refined_host_syncs=res["host_syncs"],
+        gmg_levels=[len(parts["gmg11"].levels), len(parts["gmg22"].levels)],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+        launches=launches)
+    print("phase 7: " + json.dumps(out), flush=True)
+    check(solve["converged"], f"phase 7 {tag}: solve did not converge "
+          f"(residual {solve['residual']:.3e})")
+    check(res["converged"] and history[-1] <= REFINED_TOL,
+          f"phase 7 {tag}: true residual {history[-1]:.3e} > {REFINED_TOL}")
+    check(all(x.shape == (n,) and bool(np.isfinite(x).all())
+              for x, n in zip((u, u2, lam), prob.layout.sizes)),
+          f"phase 7 {tag}: non-finite or misshapen iterate")
+    check(math.isfinite(constraint), f"phase 7 {tag}: constraint residual "
+          "not finite")
+    require_launches(out, ["laplace_stencil_2d", "laplace_stencil_2d:f64"],
+                     f"phase 7 {tag}")
+    print(f"phase 7: K6 launched {launches['laplace_stencil_2d']} times in "
+          f"float32 and {launches['laplace_stencil_2d:f64']} in float64 on "
+          "the elliptic path", flush=True)
+    errs = []
+    for name in ("gmg11", "gmg22"):
+        for i, level in enumerate(parts[name].levels):
+            lat = tuple(reversed(level.space.n_points_1d))
+            h = tuple(float(x) for x in reversed(level.space.grid.h))
+            v = torch.as_tensor(
+                np.random.default_rng(1000 + i).standard_normal(lat),
+                dtype=torch.float64, device=device)
+            for x in (v.float(), v):
+                compare_k6(x, h, f"elliptic {name} level {i} {lat}", errs)
+    print(f"phase 7: K6 float32 and float64 agree with plain at all "
+          f"{len(errs)} level comparisons", flush=True)
+    return out, errs, prob.space
+
+
+def time_k6_f64(space, device, times):
+    """K6's float64 form at the lattice of ``space`` (the elliptic fine
+    background): kernel, plain and bound (8 bytes read and 8 written per
+    point, 30 operations at the float64 rate), against ``conv2d`` in float64
+    with the 3x3 weight and ``padding=1`` (the body without the edge
+    corrections), and as device ms a launch in a CUDA graph beside a float64
+    device copy of the lattice."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    shape = tuple(reversed(space.n_points_1d))
+    h = tuple(float(x) for x in reversed(space.grid.h))
+    u = torch.as_tensor(np.random.default_rng(10).standard_normal(shape),
+                        dtype=torch.float64, device=device)
+    n = shape[0] * shape[1]
+    b = bound(16 * n, STENCIL_FLOPS * n, F64_FLOP_PER_S)
+    K0, M0, K1, M1 = K.stencil_factors_2d(h)
+    w = torch.as_tensor(np.outer(K0, M1) + np.outer(M0, K1),
+                        dtype=torch.float64, device=device)[None, None]
+    ms, pms = cuda_time_turns([lambda: K.laplace_stencil_2d(u, h),
+                               lambda: K.laplace_stencil_2d_plain(u, h)])
+    lib = cuda_time_ms(lambda: torch.nn.functional.conv2d(
+        u[None, None], w, padding=1))
+    dst = torch.empty_like(u)
+    gms, gcms = graph_time_turns([lambda: K.laplace_stencil_2d(u, h),
+                                  lambda: dst.copy_(u)])
+    times["laplace_stencil_2d:f64"] = dict(
+        ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b[0], bound_by=b[1],
+        graph_ms=gms, copy_graph_ms=gcms, shape=list(shape))
+    print(f"time laplace_stencil_2d:f64 at {shape}: kernel {ms:.4f} ms, "
+          f"plain {pms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), library "
+          f"{lib:.4f} ms, in a CUDA graph: kernel {gms:.4f} ms, copy "
+          f"{gcms:.4f} ms", flush=True)
+
+
+def phase_elliptic_crosscheck(device, cycle=ELLIPTIC_CROSSCHECK_CYCLE):
+    """The elliptic problem at ``cycle`` on the card and on the CPU, both
+    with float32 V-cycles (``dtype``; the operator and the Krylov solvers
+    are float64 on both): outer counts within 1, and each of the three
+    solution blocks (u, u₂, λ) within 1e-3 of its max |CPU value|."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        EllipticInterfaceProblem
+
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        prob = EllipticInterfaceProblem(elliptic_config(), device=dev,
+                                        dtype=torch.float32).setup(cycle)
+        its = prob.solve()
+        x = [b.cpu().double() for b in (prob.u, prob.u2, prob.lam)]
+        runs[dev.type] = (x, its, prob.results["converged"])
+    (xg, itg, cg_), (xc, itc, cc) = runs["cuda"], runs["cpu"]
+    diffs = [float((g - c).abs().max()) for g, c in zip(xg, xc)]
+    scales = [float(c.abs().max()) for c in xc]
+    out = dict(path=f"elliptic@{cycle}", iterations_gpu=itg,
+               iterations_cpu=itc, converged=(cg_, cc),
+               max_abs_diff=diffs, max_abs_cpu=scales)
+    print("phase 4: " + json.dumps(out), flush=True)
+    check(cg_ and cc, "phase 4 elliptic: a solve did not converge")
+    check(abs(itg - itc) <= 1, f"phase 4 elliptic: outer counts {itg} vs "
+          f"{itc}")
+    for name, d, sc in zip(("u", "u2", "lambda"), diffs, scales):
+        check(d <= 1e-3 * sc, f"phase 4 elliptic: |{name}_gpu - {name}_cpu| "
+              f"= {d:.3e} > 1e-3 * {sc:.3e}")
+    return out
+
+
 def phase_crosscheck(device, refinement=7):
     import torch
     from fictitious_domain_al_preconditioners_torch.models import \
@@ -952,14 +1155,17 @@ def k1_resources(shape):
 
 
 def k6_resources(shape):
-    """Resources of K6, keyed as in the kernels line: of the instantiation a
-    launch on ``shape`` takes, with every instantiation's under ``chunks``."""
+    """Resources of K6's two forms, keyed as in the kernels line: of the
+    instantiation a launch on ``shape`` takes (both forms take the same
+    plan), with every instantiation's under ``chunks``."""
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
     tile = K.laplace_stencil_tile(*shape)
-    return {"laplace_stencil_2d": dict(
-        K.laplace_stencil_resources(tile["chunk_rows"]), **tile,
-        chunks={c: K.laplace_stencil_resources(c) for c in K.K1_CHUNKS})}
+    return {name: dict(
+        K.laplace_stencil_resources(tile["chunk_rows"], f64), **tile,
+        chunks={c: K.laplace_stencil_resources(c, f64) for c in K.K1_CHUNKS})
+        for name, f64 in (("laplace_stencil_2d", False),
+                          ("laplace_stencil_2d:f64", True))}
 
 
 def k2_resources(shape, degree=4):
@@ -984,8 +1190,9 @@ def k2_resources(shape, degree=4):
 
 
 def kernel_report(path_launches, errs, times, resources):
-    """The kernels' JSON line: one entry per kernel (K1's bf16 form its own),
-    K2's modes inside.  ``launches`` sums the paths of phases 3, 5 and 6
+    """The kernels' JSON line: one entry per kernel (K1's bf16 form and K6's
+    float64 form their own),
+    K2's modes inside.  ``launches`` sums the paths of phases 3, 5, 6 and 7
     (``launches_by_path`` lists them)."""
     from fictitious_domain_al_preconditioners_torch.ops.kernels import (
         MODES, launch_key)
@@ -998,8 +1205,8 @@ def kernel_report(path_launches, errs, times, resources):
         by_path = {p: n.get(key, 0) for p, n in path_launches.items()}
         return sum(by_path.values()), by_path
 
-    def entry(name, key, t):
-        total, by_path = launches(key)
+    def entry(name, t):
+        total, by_path = launches(name)
         return dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=total,
                     launches_by_path=by_path, max_abs_err=worst(name),
@@ -1024,7 +1231,7 @@ def kernel_report(path_launches, errs, times, resources):
                               max_abs_err=worst("fused_augmented_2d", key))
     # K2's own times are those of its patched op mode; its launches sum
     # every mode and form
-    k2 = entry("fused_augmented_2d", launch_key("op"), times["op"])
+    k2 = entry("fused_augmented_2d", times["op"])
     k2.update(resources["op"])
     k2["launches_by_path"] = {
         p: sum(n.get(launch_key(m, q), 0) for m in MODES
@@ -1033,13 +1240,11 @@ def kernel_report(path_launches, errs, times, resources):
     k2["launches"] = sum(k2["launches_by_path"].values())
     k2["modes"] = modes
     return {"kernels": [
-        entry("masked_laplace_2d", "masked_laplace_2d",
-              times["masked_laplace_2d"]),
-        entry("masked_laplace_2d:bf16", "masked_laplace_2d:bf16",
-              times["masked_laplace_2d:bf16"]),
+        entry("masked_laplace_2d", times["masked_laplace_2d"]),
+        entry("masked_laplace_2d:bf16", times["masked_laplace_2d:bf16"]),
         k2,
-        entry("laplace_stencil_2d", "laplace_stencil_2d",
-              times["laplace_stencil_2d"]),
+        entry("laplace_stencil_2d", times["laplace_stencil_2d"]),
+        entry("laplace_stencil_2d:f64", times["laplace_stencil_2d:f64"]),
     ]}
 
 
@@ -1051,6 +1256,12 @@ def main(argv=None) -> int:
                          f"runs at min({ELMAN_REFINEMENT}, this), "
                          f"solve_refined at min({REFINED_REFINEMENT}, "
                          "this))")
+    ap.add_argument("--elliptic-cycle", type=int, default=ELLIPTIC_CYCLE,
+                    help="cycle of the elliptic interface phase (background "
+                         "refinement 5 + cycle, immersed 3 + cycle)")
+    ap.add_argument("--elliptic-only", action="store_true",
+                    help="build the kernels and run only the elliptic "
+                         "phase and its cross-check (no kernels line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1066,6 +1277,7 @@ def main(argv=None) -> int:
     try:
         t_start = time.perf_counter()
         device = torch.device("cuda", 0)
+        torch.cuda.init()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1091,13 +1303,23 @@ def main(argv=None) -> int:
                   flush=True)
             check(r["local_bytes"] == 0, f"K2 {key} spills "
                   f"{r['local_bytes']} bytes a thread")
-        r = resources["laplace_stencil_2d"]
-        print(f"phase 1: K6 at {n}²: {json.dumps(r)}", flush=True)
-        for name, r in (("K6", r), ("K2 op", k2["op"])):
+        for key in ("laplace_stencil_2d", "laplace_stencil_2d:f64"):
+            print(f"phase 1: K6 {key} at {n}²: {json.dumps(resources[key])}",
+                  flush=True)
+        for name, r in (("K6", resources["laplace_stencil_2d"]),
+                        ("K6 f64", resources["laplace_stencil_2d:f64"]),
+                        ("K2 op", k2["op"])):
             for chunk, rc in r["chunks"].items():
                 check(rc["local_bytes"] == 0, f"{name} chunk {chunk} spills "
                       f"{rc['local_bytes']} bytes a thread")
 
+        if args.elliptic_only:
+            _, _, ell_space = phase_elliptic(args.elliptic_cycle, device)
+            time_k6_f64(ell_space, device, {})
+            phase_elliptic_crosscheck(device)
+            print(f"chip_smoke: the elliptic phases passed in "
+                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            return 0
         errs = phase_kernels(device)
         path_launches, times = {}, {}
         prob, flag = phase_flagship(args.refinement, device)
@@ -1153,7 +1375,14 @@ def main(argv=None) -> int:
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
                   f"{t['library_ms']} ms{also}", flush=True)
 
+        out, ell_errs, ell_space = phase_elliptic(args.elliptic_cycle, device)
+        path_launches[out["path"]] = out["launches"]
+        errs += ell_errs
+        torch.cuda.empty_cache()
+        time_k6_f64(ell_space, device, times)
+
         phase_crosscheck(device)
+        phase_elliptic_crosscheck(device)
         report = kernel_report(path_launches, errs, times, resources)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)

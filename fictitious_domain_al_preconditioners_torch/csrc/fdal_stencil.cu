@@ -15,7 +15,13 @@
 //     unconstrained stiffness).
 //
 // Bound: bytes.  One read and one write of the lattice per apply (8 B per
-// point in f32) against 30 flops per point.
+// point in f32, 16 B in f64) against 30 flops per point.
+//
+// Two forms of one body, templated on the element type: float32 (the
+// V-cycles' levels) and float64 (fdal_laplace_stencil_2d_f64: the outer
+// operator and the inner CGs of the elliptic interface problem, which run in
+// float64).  The float64 form takes the float32 form's plan (chunk and run
+// rows), so a lane's run of 8 rows is 64 B of its column.
 //
 // Design.  K1's register window (fdal_window.cuh: a warp owns 32 columns and
 // keeps 30, each lane a 3-row window of its column, the neighbours' share by
@@ -52,9 +58,10 @@ namespace {
 
 // (off-diagonal, centre, boundary centre) of each 1D factor, and the four
 // folded weights of the interior (centre, vertical, horizontal, diagonal).
+template <typename T>
 struct EdgeStencil {
-  float k0o, k0c, k0b, m0o, m0c, m0b, k1o, k1c, k1b, m1o, m1c, m1b;
-  float wc, wv, wh, wd;
+  T k0o, k0c, k0b, m0o, m0c, m0b, k1o, k1c, k1b, m1o, m1c, m1b;
+  T wc, wv, wh, wd;
 };
 
 // One lane's run: column c, output rows r0 .. r0 + nchunks*U - 1 (those
@@ -63,37 +70,37 @@ struct EdgeStencil {
 // the centres chosen by row and column; else every test is a compile-time
 // constant.  keep: the lane writes its column.  All 32 lanes of the warp run
 // this together.
-template <int U, bool EDGE>
-__device__ __forceinline__ void stencil_walk(const float* __restrict__ u,
-                                             float* __restrict__ out, int ny,
-                                             int nx, const EdgeStencil& st,
+template <typename T, int U, bool EDGE>
+__device__ __forceinline__ void stencil_walk(const T* __restrict__ u,
+                                             T* __restrict__ out, int ny,
+                                             int nx, const EdgeStencil<T>& st,
                                              int c, int r0, int nchunks,
                                              bool keep) {
   const bool col_in = !EDGE || (c >= 0 && c < nx);
   const bool col_edge = EDGE && (c == 0 || c == nx - 1);
-  const float k1d = col_edge ? st.k1b : st.k1c;
-  const float m1d = col_edge ? st.m1b : st.m1c;
+  const T k1d = col_edge ? st.k1b : st.k1c;
+  const T m1d = col_edge ? st.m1b : st.m1c;
   // (r0, c); dereferenced only at points inside the lattice
   const long long base = (long long)r0 * nx + c;
-  const float* pin = u + base;
-  float* pout = out + base;
+  const T* pin = u + base;
+  T* pout = out + base;
   // the value at row r0 + k (k from -1), 0 outside the lattice
-  auto load = [&](int k) -> float {
+  auto load = [&](int k) -> T {
     if (!EDGE || (col_in && r0 + k >= 0 && r0 + k < ny)) {
       return __ldg(pin + k * nx);
     }
-    return 0.f;
+    return T(0);
   };
 
-  float zu = load(-1);
-  float zc = load(0);
-  float nxt[U];
+  T zu = load(-1);
+  T zc = load(0);
+  T nxt[U];
 #pragma unroll
   for (int k = 0; k < U; ++k) nxt[k] = load(1 + k);
 
   for (int ch = 0; ch < nchunks; ++ch) {
     const int k0 = ch * U;  // this chunk's first row, from r0
-    float cur[U];
+    T cur[U];
 #pragma unroll
     for (int k = 0; k < U; ++k) cur[k] = nxt[k];
     if (ch + 1 < nchunks) {
@@ -103,25 +110,25 @@ __device__ __forceinline__ void stencil_walk(const float* __restrict__ u,
 #pragma unroll
     for (int k = 0; k < U; ++k) {
       const int r = r0 + k0 + k;
-      const float zd = cur[k];
-      const float vs = zu + zd;
-      float a, b;
+      const T zd = cur[k];
+      const T vs = zu + zd;
+      T a, b;
 #if defined(FDAL_K6_NO_COMPUTE)
-      a = zc + 0.f * vs;
-      b = 0.f;
-      const float acc = a;
+      a = zc + T(0) * vs;
+      b = T(0);
+      const T acc = a;
 #else
       if constexpr (EDGE) {
         const bool row_edge = r == 0 || r == ny - 1;
-        const float sk = st.k0o * vs + (row_edge ? st.k0b : st.k0c) * zc;
-        const float sm = st.m0o * vs + (row_edge ? st.m0b : st.m0c) * zc;
+        const T sk = st.k0o * vs + (row_edge ? st.k0b : st.k0c) * zc;
+        const T sm = st.m0o * vs + (row_edge ? st.m0b : st.m0c) * zc;
         a = m1d * sk + k1d * sm;
         b = st.m1o * sk + st.k1o * sm;
       } else {
         a = st.wc * zc + st.wv * vs;
         b = st.wh * zc + st.wd * vs;
       }
-      const float acc = a + (from_left(b) + from_right(b));
+      const T acc = a + (from_left(b) + from_right(b));
 #endif
       if (keep && (!EDGE || r < ny)) pout[(k0 + k) * nx] = acc;
       zu = zc;
@@ -130,10 +137,10 @@ __device__ __forceinline__ void stencil_walk(const float* __restrict__ u,
   }
 }
 
-template <int U>
+template <typename T, int U>
 __global__ void __launch_bounds__(NT)
-laplace_stencil_kernel(const float* __restrict__ u, float* __restrict__ out,
-                       int ny, int nx, int run, const EdgeStencil st) {
+laplace_stencil_kernel(const T* __restrict__ u, T* __restrict__ out, int ny,
+                       int nx, int run, const EdgeStencil<T> st) {
   const int lane = threadIdx.x & 31;
   // the warp's first kept column; it loads cw - 1 .. cw + KEEP
   const int cw = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * KEEP;
@@ -151,14 +158,15 @@ laplace_stencil_kernel(const float* __restrict__ u, float* __restrict__ out,
 #endif
   if (edge) {
     const int rows = min(run, ny - r0);
-    stencil_walk<U, true>(u, out, ny, nx, st, c, r0, (rows + U - 1) / U,
-                          inner && c < nx);
+    stencil_walk<T, U, true>(u, out, ny, nx, st, c, r0, (rows + U - 1) / U,
+                             inner && c < nx);
   } else {
-    stencil_walk<U, false>(u, out, ny, nx, st, c, r0, run / U, inner);
+    stencil_walk<T, U, false>(u, out, ny, nx, st, c, r0, run / U, inner);
   }
 }
 
-// The chunk and the run length for an (ny, nx) lattice.
+// The chunk and the run length for an (ny, nx) lattice (both forms: the
+// float32 form's plan).
 Plan choose_plan(int ny, int nx) {
 #if defined(FDAL_K6_UNROLL)
 #if defined(FDAL_K6_RUN)
@@ -172,35 +180,37 @@ Plan choose_plan(int ny, int nx) {
 }
 
 // fac (host): k0o, k0c, k0b, m0o, m0c, m0b, k1o, k1c, k1b, m1o, m1c, m1b.
-EdgeStencil make_edge_stencil(const float* f) {
+// The folded weights are formed in double and rounded once to T.
+template <typename T>
+EdgeStencil<T> make_edge_stencil(const T* f) {
   const double k0o = f[0], k0c = f[1], m0o = f[3], m0c = f[4];
   const double k1o = f[6], k1c = f[7], m1o = f[9], m1c = f[10];
-  return EdgeStencil{f[0], f[1], f[2], f[3], f[4],  f[5],
-                     f[6], f[7], f[8], f[9], f[10], f[11],
-                     (float)(k0c * m1c + m0c * k1c),
-                     (float)(k0o * m1c + m0o * k1c),
-                     (float)(k0c * m1o + m0c * k1o),
-                     (float)(k0o * m1o + m0o * k1o)};
+  return EdgeStencil<T>{f[0], f[1], f[2], f[3], f[4],  f[5],
+                        f[6], f[7], f[8], f[9], f[10], f[11],
+                        (T)(k0c * m1c + m0c * k1c),
+                        (T)(k0o * m1c + m0o * k1c),
+                        (T)(k0c * m1o + m0c * k1o),
+                        (T)(k0o * m1o + m0o * k1o)};
 }
 
-template <int U>
-cudaError_t launch_plan(const float* u, float* out, int ny, int nx, int run,
-                        const EdgeStencil& st, cudaStream_t stream) {
+template <typename T, int U>
+cudaError_t launch_plan(const T* u, T* out, int ny, int nx, int run,
+                        const EdgeStencil<T>& st, cudaStream_t stream) {
   if (run < U || run % U != 0) return cudaErrorInvalidValue;
-  laplace_stencil_kernel<U><<<window_grid(ny, nx, run), NT, 0, stream>>>(
+  laplace_stencil_kernel<T, U><<<window_grid(ny, nx, run), NT, 0, stream>>>(
       u, out, ny, nx, run, st);
   return cudaGetLastError();
 }
 
-// The instantiation of chunk `unroll`: launch it (res == nullptr) or write
-// its resources to res.
-cudaError_t dispatch(int unroll, const float* u, float* out, int ny, int nx,
-                     int run, const EdgeStencil& st, cudaStream_t stream,
-                     int* res) {
-#define FDAL_K6_CASE(N)                                             \
-  case N:                                                           \
-    return res ? window_resources(laplace_stencil_kernel<N>, res)   \
-               : launch_plan<N>(u, out, ny, nx, run, st, stream)
+// The instantiation of element type T and chunk `unroll`: launch it
+// (res == nullptr) or write its resources to res.
+template <typename T>
+cudaError_t dispatch(int unroll, const T* u, T* out, int ny, int nx, int run,
+                     const EdgeStencil<T>& st, cudaStream_t stream, int* res) {
+#define FDAL_K6_CASE(N)                                               \
+  case N:                                                             \
+    return res ? window_resources(laplace_stencil_kernel<T, N>, res)  \
+               : launch_plan<T, N>(u, out, ny, nx, run, st, stream)
   switch (unroll) {
 #if defined(FDAL_K6_UNROLL)
     FDAL_K6_CASE(FDAL_K6_UNROLL);
@@ -230,13 +240,29 @@ int fdal_laplace_stencil_2d(const float* u, float* out, int ny, int nx,
                        make_edge_stencil(fac), (cudaStream_t)stream, nullptr);
 }
 
+// The float64 form: the same arguments in double.
+int fdal_laplace_stencil_2d_f64(const double* u, double* out, int ny, int nx,
+                                const double* fac, void* stream) {
+  if (ny < 0 || nx < 0) return (int)cudaErrorInvalidValue;
+  if (ny == 0 || nx == 0) return 0;
+  const Plan plan = choose_plan(ny, nx);
+  return (int)dispatch(plan.unroll, u, out, ny, nx, plan.run,
+                       make_edge_stencil(fac), (cudaStream_t)stream, nullptr);
+}
+
 // What the instantiation of chunk `unroll` (one of fdal_laplace_stencil_plan's)
 // takes of the card, written to res[6]: registers a thread, local (spilled)
 // bytes a thread, static shared bytes a block, resident blocks an SM,
 // threads a block and columns a block writes.
 int fdal_laplace_stencil_resources(int unroll, int* res) {
-  return (int)dispatch(unroll, nullptr, nullptr, 0, 0, 0, EdgeStencil{},
-                       nullptr, res);
+  return (int)dispatch<float>(unroll, nullptr, nullptr, 0, 0, 0,
+                              EdgeStencil<float>{}, nullptr, res);
+}
+
+// The same for the float64 form.
+int fdal_laplace_stencil_f64_resources(int unroll, int* res) {
+  return (int)dispatch<double>(unroll, nullptr, nullptr, 0, 0, 0,
+                               EdgeStencil<double>{}, nullptr, res);
 }
 
 // The plan of a launch on an (ny, nx) lattice, written to plan[2]: the chunk

@@ -89,11 +89,17 @@ __device__ __forceinline__ void zero(__nv_bfloat16& v) {
 }
 
 // v of the lane to the left (lane 0: its own) and to the right (lane 31:
-// its own).
+// its own), in float32 and (K6's float64 form) float64.
 __device__ __forceinline__ float from_left(float v) {
   return __shfl_up_sync(0xffffffffu, v, 1);
 }
 __device__ __forceinline__ float from_right(float v) {
+  return __shfl_down_sync(0xffffffffu, v, 1);
+}
+__device__ __forceinline__ double from_left(double v) {
+  return __shfl_up_sync(0xffffffffu, v, 1);
+}
+__device__ __forceinline__ double from_right(double v) {
   return __shfl_down_sync(0xffffffffu, v, 1);
 }
 

@@ -1,5 +1,8 @@
 """Problem models: setup and solve of one configured problem."""
 
 from .immersed_laplace import ImmersedLaplaceConfig, ImmersedLaplaceProblem
+from .elliptic_interface import (EllipticInterfaceConfig,
+                                 EllipticInterfaceProblem)
 
-__all__ = ["ImmersedLaplaceConfig", "ImmersedLaplaceProblem"]
+__all__ = ["ImmersedLaplaceConfig", "ImmersedLaplaceProblem",
+           "EllipticInterfaceConfig", "EllipticInterfaceProblem"]

@@ -1,19 +1,25 @@
 """Operators, assembly, Krylov solvers and the lattice kernels."""
 
-from .linop import LinOp, diag_op
+from .linop import LinOp, diag_op, identity, zero_op
 from .operators import CellMatrix, constrain, dirichlet_rhs
-from .assembly import (rhs_vector, imm_mass_matrix, imm_rhs, interpolate,
-                       l2_error)
+from .assembly import (mass_matrix, laplace_matrix, rhs_vector,
+                       imm_mass_matrix, imm_rhs, interpolate, l2_error,
+                       h1_error)
 from .coupling import Coupling, build_coupling
-from .krylov import SolveInfo, cg, fgmres, lanczos_max_eig
+from .krylov import (SolveInfo, cg, cg_condition_number, fgmres,
+                     lanczos_max_eig)
 from .blocks import BlockLayout, block_operator
-from .host_ref import HostAugmentedSystem
+from .host_ref import HostAugmentedSystem, HostEllipticSystem
+from .sparse import COO, spgemm_ctwc
+from .sparse_band import lattice_band_linop
 from . import kernels
 
 __all__ = [
-    "LinOp", "diag_op", "CellMatrix", "constrain",
-    "dirichlet_rhs", "rhs_vector", "imm_mass_matrix", "imm_rhs",
-    "interpolate", "l2_error", "Coupling", "build_coupling", "SolveInfo",
-    "cg", "fgmres", "lanczos_max_eig", "BlockLayout", "block_operator",
-    "HostAugmentedSystem", "kernels",
+    "LinOp", "diag_op", "identity", "zero_op", "CellMatrix", "constrain",
+    "dirichlet_rhs", "mass_matrix", "laplace_matrix", "rhs_vector",
+    "imm_mass_matrix", "imm_rhs", "interpolate", "l2_error", "h1_error",
+    "Coupling", "build_coupling", "SolveInfo", "cg", "cg_condition_number",
+    "fgmres", "lanczos_max_eig", "BlockLayout", "block_operator",
+    "HostAugmentedSystem", "HostEllipticSystem", "COO", "spgemm_ctwc",
+    "lattice_band_linop", "kernels",
 ]

@@ -1,8 +1,10 @@
-"""FEM assembly for the immersed_laplace problem.
+"""FEM assembly.
 
-Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.assembly``
-(the Q1 lattice load vector, the immersed mass and stiffness matrices and
-load vector, nodal interpolation and the L2 error).  Setup-time work runs
+Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.assembly``:
+the background mass and stiffness matrices of a uniform grid (one shared
+reference local matrix), the Q1 lattice load vector, the immersed mass and
+stiffness matrices and load vector, nodal interpolation and the L2 and H1
+errors.  Setup-time work runs
 in float64 NumPy on the host; results are handed over as tensors on the
 requested device (CUDA unless the caller asks for the CPU).
 """
@@ -15,8 +17,49 @@ import torch
 from ..core.quadrature import gauss
 from .operators import CellMatrix
 
-__all__ = ["rhs_vector", "imm_mass_matrix", "imm_stiffness_matrix", "imm_rhs",
-           "interpolate", "l2_error"]
+__all__ = ["mass_matrix", "laplace_matrix", "rhs_vector", "imm_mass_matrix",
+           "imm_stiffness_matrix", "imm_rhs", "interpolate", "l2_error",
+           "h1_error"]
+
+
+def _ref_mass_local(fe, h, order) -> np.ndarray:
+    rule = gauss(fe.dim, order)
+    tab = fe.tabulate(rule.points)                      # (nq, nloc)
+    vol = float(np.prod(h))
+    return np.einsum("qa,qb,q->ab", tab, tab, rule.weights) * vol
+
+
+def _ref_laplace_local(fe, h, order) -> np.ndarray:
+    rule = gauss(fe.dim, order)
+    grad = fe.tabulate_grad(rule.points)                # (nq, nloc, dim)
+    vol = float(np.prod(h))
+    out = np.zeros((fe.n_dofs_per_cell, fe.n_dofs_per_cell))
+    for d in range(fe.dim):
+        out += (vol / h[d] ** 2) * np.einsum(
+            "qa,qb,q->ab", grad[:, :, d], grad[:, :, d], rule.weights)
+    return out
+
+
+def mass_matrix(space, order=None, coef=None, *, device="cuda",
+                dtype=torch.float64) -> CellMatrix:
+    """Mass matrix of a uniform-grid space (one shared local matrix)."""
+    order = order or space.fe.degree + 1
+    local = _ref_mass_local(space.fe, space.grid.h, order)
+    return CellMatrix(space.cell_dofs, space.cell_dofs, local,
+                      (space.n_dofs, space.n_dofs), coef, device=device,
+                      dtype=dtype)
+
+
+def laplace_matrix(space, order=None, coef=None, *, device="cuda",
+                   dtype=torch.float64) -> CellMatrix:
+    """Stiffness (grad u, grad v) of a uniform-grid space; ``coef`` is an
+    optional per-cell constant (the elliptic-interface β field,
+    elliptic_interface.cc:638-675)."""
+    order = order or space.fe.degree + 1
+    local = _ref_laplace_local(space.fe, space.grid.h, order)
+    return CellMatrix(space.cell_dofs, space.cell_dofs, local,
+                      (space.n_dofs, space.n_dofs), coef, device=device,
+                      dtype=dtype)
 
 
 def rhs_vector(space, fn, order=None, *, device="cuda", dtype=torch.float64):
@@ -108,19 +151,40 @@ def interpolate(space, fn, *, device="cuda", dtype=torch.float64):
                            device=device)
 
 
-def l2_error(space, u, exact_fn, order=None) -> float:
-    """||u_h - u||_L2 by Gauss quadrature on every background cell
-    (VectorTools::integrate_difference), float64 on the host."""
-    order = order or (space.fe.degree + 2)
+def _cell_quad_points(space, order: int):
+    """(rule, (nc, nq, dim) physical quadrature points, (nq,) JxW)."""
     rule = gauss(space.grid.dim, order)
     h = space.grid.h
     origins = (np.asarray(space.grid.origin)
                + space.grid.cell_multi_indices * h)
     pts = origins[:, None, :] + rule.points[None, :, :] * h
-    jxw = rule.weights * float(np.prod(h))
+    return rule, pts, rule.weights * float(np.prod(h))
+
+
+def _host_vector(u) -> np.ndarray:
+    return torch.as_tensor(u).detach().cpu().double().numpy()
+
+
+def l2_error(space, u, exact_fn, order=None) -> float:
+    """||u_h - u||_L2 by Gauss quadrature on every background cell
+    (VectorTools::integrate_difference), float64 on the host."""
+    order = order or (space.fe.degree + 2)
+    rule, pts, jxw = _cell_quad_points(space, order)
     tab = space.fe.tabulate(rule.points)
-    u_np = torch.as_tensor(u).detach().cpu().double().numpy()
-    uh = u_np[space.cell_dofs] @ tab.T
+    uh = _host_vector(u)[space.cell_dofs] @ tab.T
     nc, nq, dim = pts.shape
     ex = np.asarray(exact_fn(pts.reshape(-1, dim))).reshape(nc, nq)
     return float(np.sqrt(np.sum((uh - ex) ** 2 * jxw[None, :])))
+
+
+def h1_error(space, u, exact_grad_fn, order=None) -> float:
+    """H1-seminorm error ``||∇u_h - ∇u||_L2``; ``exact_grad_fn(points) ->
+    (n, dim)``; float64 on the host."""
+    order = order or (space.fe.degree + 2)
+    rule, pts, jxw = _cell_quad_points(space, order)
+    grad = space.fe.tabulate_grad(rule.points) / space.grid.h[None, None, :]
+    nc, nq, dim = pts.shape
+    gh = np.einsum("ca,qad->cqd", _host_vector(u)[space.cell_dofs], grad)
+    ge = np.asarray(exact_grad_fn(pts.reshape(-1, dim))).reshape(nc, nq, dim)
+    diff2 = np.sum((gh - ge) ** 2, axis=-1)
+    return float(np.sqrt(np.sum(diff2 * jxw[None, :])))

@@ -8,9 +8,11 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.coupling``:
 Setup builds a quad-point table: every immersed quadrature point is located
 in its background cell by index arithmetic and both bases are tabulated there
 (NumPy, host).  ``C u`` is a gather and a row sum; ``Cᵀ λ`` is an
-``index_add_``.  The Γ-band AL term of the particle form has two lattice
-forms: the 9-point patch (:meth:`Coupling.patch_w9`,
-:meth:`Coupling.patch_al_lattice`) when the band is interior to the lattice,
+``index_add_``.  The AL term γ·CᵀW⁻¹C applies matrix-free
+(:meth:`Coupling.al_term`); the particle form γ·Σ_q φφᵀ JxW has a gather
+form (:meth:`Coupling.particle_mass_term`) and two lattice forms: the
+9-point patch (:meth:`Coupling.patch_w9`, :meth:`Coupling.patch_al_lattice`,
+:meth:`Coupling.patch_stencil_al`) when the band is interior to the lattice,
 and the compact dense block (:meth:`Coupling.compact_al`) otherwise.
 """
 
@@ -62,6 +64,19 @@ class Coupling:
         self.imm_psi = ten(h["imm_psi"], dtype)
         self.jxw = ten(h["jxw"], dtype)
 
+    def to(self, device, dtype) -> "Coupling":
+        """The same table on ``device`` in ``dtype`` (from the float64 host
+        copy)."""
+        h = self.host
+        return Coupling(h["bg_dofs"], h["bg_phi"], h["imm_dofs"],
+                        h["imm_psi"], h["jxw"], self.shape, device=device,
+                        dtype=dtype)
+
+    def astype(self, dtype) -> "Coupling":
+        """This coupling in ``dtype`` on its device (itself if it is
+        already)."""
+        return self if dtype == self.dtype else self.to(self.device, dtype)
+
     def mv(self, u):
         """C @ u : background -> immersed."""
         vals = (u[self.bg_dofs] * self.bg_phi).sum(dim=1) * self.jxw
@@ -78,6 +93,82 @@ class Coupling:
 
     def as_linop(self) -> LinOp:
         return LinOp(self.mv, self.shape, self.rmv, name="C")
+
+    def al_term(self, inv_w, gamma: float) -> LinOp:
+        """γ CᵀW⁻¹C as a matrix-free LinOp (the AL augmentation, reference
+        'Use operator version': immersed_laplace.cc:653-705)."""
+        n = self.shape[1]
+
+        def mv(u):
+            return gamma * self.rmv(inv_w(self.mv(u)))
+
+        return LinOp(mv, (n, n), mv, name="AL")
+
+    def particle_mass_term(self, gamma: float) -> LinOp:
+        """γ·∫_Γ φ_i φ_j: the background mass matrix on Γ from the
+        quad-point table (the reference's particle AL loop,
+        immersed_laplace.cc:653-705) as a matrix-free operator."""
+        n = self.shape[1]
+
+        def mv(u):
+            vals = (u[self.bg_dofs] * self.bg_phi).sum(dim=1) * self.jxw
+            out = torch.zeros_like(u)
+            return gamma * out.index_add_(
+                0, self.bg_dofs.reshape(-1),
+                (self.bg_phi * vals[:, None]).reshape(-1))
+
+        return LinOp(mv, (n, n), mv, name="particleAL")
+
+    def particle_mass_diag(self, gamma: float) -> np.ndarray:
+        """Diagonal of :meth:`particle_mass_term` (float64 NumPy, flat)."""
+        h = self.host
+        return gamma * np.bincount(
+            h["bg_dofs"].reshape(-1),
+            weights=(h["bg_phi"] ** 2 * h["jxw"][:, None]).reshape(-1),
+            minlength=self.shape[1])
+
+    def al_term_diag(self, w_diag, gamma: float) -> np.ndarray:
+        """Diagonal of γ·Cᵀdiag(w)C from the deduplicated COO of C (host
+        setup, float64 NumPy; feeds the smoothers of the augmented
+        block)."""
+        rows, cols, vals = self.to_coo()
+        ncols = self.shape[1]
+        key = rows.astype(np.int64) * ncols + cols.astype(np.int64)
+        order = np.argsort(key, kind="stable")
+        key_s, vals_s = key[order], vals[order]
+        starts = np.concatenate([[0], np.flatnonzero(np.diff(key_s)) + 1])
+        v = np.add.reduceat(vals_s, starts)
+        r = (key_s[starts] // ncols).astype(np.int64)
+        c = (key_s[starts] % ncols).astype(np.int64)
+        w = np.asarray(w_diag, dtype=np.float64)
+        d = np.zeros(ncols)
+        np.add.at(d, c, w[r] * v ** 2)
+        return gamma * d
+
+    def sum(self) -> float:
+        """Sum of all entries of C, |Γ| when both spaces hold the constants
+        (DEBUG check, nitsche_bcs.cc:467-490)."""
+        h = self.host
+        return float(np.sum(h["bg_phi"].sum(axis=1)
+                            * h["imm_psi"].sum(axis=1) * h["jxw"]))
+
+    def to_coo(self):
+        """Explicit COO of C (duplicates not summed): rows (immersed), cols
+        (background), vals; float64 NumPy."""
+        h = self.host
+        nb = h["bg_phi"].shape[1]
+        ni = h["imm_psi"].shape[1]
+        rows = np.repeat(h["imm_dofs"], nb, axis=1).reshape(-1)
+        cols = np.tile(h["bg_dofs"], (1, ni)).reshape(-1)
+        vals = (h["imm_psi"][:, :, None] * h["bg_phi"][:, None, :]
+                * h["jxw"][:, None, None]).reshape(-1)
+        return rows, cols, vals
+
+    def to_dense(self) -> np.ndarray:
+        rows, cols, vals = self.to_coo()
+        out = np.zeros(self.shape)
+        np.add.at(out, (rows, cols), vals)
+        return out
 
     def compact_al(self, gamma: float, dtype=None):
         """Compact dense form of the particle AL matrix γ·Σ_q JxW φφᵀ over
@@ -138,6 +229,24 @@ class Coupling:
                 np.add.at(w9, (dr, dc, rows[:, i] - r0, cols[:, i] - c0),
                           locmat[:, i, j])
         return (r0, c0, pr, pc), gamma * w9
+
+    def patch_stencil_al(self, space, gamma: float):
+        """Particle-form AL term γ·Σ_q JxW φφᵀ as a variable-coefficient
+        9-point stencil on the Γ-band's bounding patch (the 9 planes of
+        :meth:`patch_w9`), applied to flat vectors: ``(LinOp, diag)`` with
+        the flat assembled diagonal (float64 NumPy), or None when the space
+        is not a Q1 lattice or the band touches its boundary."""
+        al = self.patch_al_lattice(space, gamma)
+        if al is None:
+            return None
+        mv2, diag = al
+        lat = tuple(reversed(space.n_points_1d))
+        n = self.shape[1]
+
+        def mv(u):
+            return mv2(u.reshape(lat)).reshape(-1)
+
+        return LinOp(mv, (n, n), mv, name="AL_stencil"), diag
 
     def patch_al_lattice(self, space, gamma: float, free=None, dtype=None):
         """Lattice-resident particle AL apply ``mv2(x2d) -> (ny, nx)`` from

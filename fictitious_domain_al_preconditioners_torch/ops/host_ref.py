@@ -1,14 +1,15 @@
-"""Host float64 reference apply of the augmented DLM system.
+"""Host float64 reference applies of the DLM block systems.
 
-Counterpart of ``HostAugmentedSystem`` and ``_axis_apply`` of
+Counterpart of ``HostAugmentedSystem``, ``HostEllipticSystem``,
+``_HostCellMat``, ``_host_cg`` and ``_axis_apply`` of
 ``fictitious_domain_al_preconditioners_tpu.ops.host_ref``
-(``host_ref.py:131-235``).  The card solves in float32, but the reference's
+(``host_ref.py:62-373``).  The card solves in float32, but the reference's
 solve-quality target is a 1e-10 absolute residual in float64.  These NumPy
-applies reproduce the exact operator the float32 solver iterates on
-(constrained lattice stiffness + particle AL term + coupling blocks) in
-float64 on the host, so the refinement loop of
-:meth:`..models.immersed_laplace.ImmersedLaplaceProblem.solve_refined` can
-drive the true residual to that target.
+applies reproduce the exact operator the float32 solver iterates on in
+float64 on the host, so the refinement loops of
+:meth:`..models.immersed_laplace.ImmersedLaplaceProblem.solve_refined` and
+:meth:`..models.elliptic_interface.EllipticInterfaceProblem.solve_refined`
+can drive the true residual to that target.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["HostAugmentedSystem"]
+__all__ = ["HostAugmentedSystem", "HostEllipticSystem"]
 
 
 def _axis_apply(v, off, diag, bdiag, axis):
@@ -33,6 +34,121 @@ def _axis_apply(v, off, diag, bdiag, axis):
 def _host(t) -> np.ndarray:
     """A tensor (on any device) as a float64 NumPy array."""
     return t.detach().to("cpu", torch.float64).numpy()
+
+
+def _lattice_apply(v, shape, h, stiffness: bool):
+    """Q1 mass (``M₁ ⊗ M₁``) or stiffness (``K₁ ⊗ M₁ + M₁ ⊗ K₁``) of a flat
+    vector on a lattice of ``shape`` and cell sizes ``h`` (lattice axis
+    order), float64."""
+    ul = v.reshape(shape)
+    dim = len(shape)
+
+    def mass(term, ax):
+        return _axis_apply(term, h[ax] / 6.0, 2.0 * h[ax] / 3.0,
+                           h[ax] / 3.0, ax)
+
+    if not stiffness:
+        for ax in range(dim):
+            ul = mass(ul, ax)
+        return ul.reshape(-1)
+    out = np.zeros_like(ul)
+    for d in range(dim):
+        term = ul
+        for ax in range(dim):
+            term = (_axis_apply(term, -1.0 / h[ax], 2.0 / h[ax], 1.0 / h[ax],
+                                ax) if ax == d else mass(term, ax))
+        out = out + term
+    return out.reshape(-1)
+
+
+def _host_cg(mv, b, dinv, tol=1e-14, max_steps=2000):
+    """Plain float64 CG with diagonal preconditioning (host mass solves:
+    the immersed mass matrices are well conditioned, ~30 iterations).
+    ``b`` may be (n,) or (n, k)."""
+    x = np.zeros_like(b)
+    r = b - mv(x)
+    z = dinv * r if np.ndim(dinv) == 0 or r.ndim == 1 else dinv[:, None] * r
+    p = z.copy()
+    rz = np.sum(r * z, axis=0)
+    nb = max(float(np.sqrt(np.sum(b * b))), 1e-300)
+
+    def _safe_div(a, b):
+        return np.divide(a, b, out=np.zeros_like(a), where=b != 0)
+
+    for _ in range(max_steps):
+        Ap = mv(p)
+        alpha = _safe_div(rz, np.sum(p * Ap, axis=0))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        if float(np.sqrt(np.sum(r * r))) <= tol * nb:
+            break
+        z = dinv * r if np.ndim(dinv) == 0 or r.ndim == 1 else \
+            dinv[:, None] * r
+        rz_new = np.sum(r * z, axis=0)
+        p = z + _safe_div(rz_new, rz) * p
+        rz = rz_new
+    return x
+
+
+class _HostCellMat:
+    """float64 host apply of an :class:`~.operators.CellMatrix` (element
+    form): gather, local matvec, bincount scatter.  Exactly the assembled
+    matrix, in double precision, without materializing COO."""
+
+    def __init__(self, cm, scale: float = 1.0):
+        self.row = cm.row_dofs_host
+        self.col = cm.col_dofs_host
+        self.local = cm.local_host * scale
+        self.coef = cm.coef_host
+        self.shape = cm.shape
+        self.shared = self.local.ndim == 2
+
+    def mv(self, x):
+        """y = A x; ``x`` may be (n,) or (n, k) (small k, host mass CG)."""
+        xe = x[self.col]                 # (c, b) or (c, b, k)
+        eq = "ab,cb...->ca..." if self.shared else "cab,cb...->ca..."
+        ye = np.einsum(eq, self.local, xe)
+        if self.coef is not None:
+            ye = ye * (self.coef[:, None] if ye.ndim == 2
+                       else self.coef[:, None, None])
+        if x.ndim == 1:
+            return np.bincount(self.row.reshape(-1), weights=ye.reshape(-1),
+                               minlength=self.shape[0])
+        out = np.zeros((self.shape[0], x.shape[1]))
+        np.add.at(out, self.row, ye)
+        return out
+
+    def rmv(self, y):
+        ye = y[self.row]
+        if self.coef is not None:
+            ye = ye * self.coef[:, None]
+        if self.shared:
+            xe = ye @ self.local
+        else:
+            xe = np.einsum("cab,ca->cb", self.local, ye)
+        return np.bincount(self.col.reshape(-1), weights=xe.reshape(-1),
+                           minlength=self.shape[1])
+
+
+class _HostLatticeMat:
+    """float64 host apply of the Q1 mass or stiffness of a uniform lattice
+    space: the matrix of a :class:`_HostCellMat` on the same space, applied
+    by separable 3-point passes (no element gather or scatter)."""
+
+    def __init__(self, space, stiffness: bool, scale: float = 1.0):
+        self.shape = tuple(reversed(space.n_points_1d))
+        self.h = tuple(float(x) for x in reversed(space.grid.h))
+        self.stiffness = stiffness
+        self.scale = scale
+
+    def mv(self, x):
+        y = _lattice_apply(x, self.shape, self.h, self.stiffness)
+        return y if self.scale == 1.0 else self.scale * y
+
+
+def _is_lattice(space) -> bool:
+    return (space is not None and space.fe.degree == 1 and space.continuous
+            and hasattr(space, "n_points_1d"))
 
 
 class HostAugmentedSystem:
@@ -132,3 +248,164 @@ class HostAugmentedSystem:
         b0, b1 = self.rhs()
         r0, r1 = self.apply(u, lam)
         return b0 - r0, b1 - r1
+
+
+class HostEllipticSystem:
+    """float64 host apply and right-hand side of the 3x3 block system of the
+    elliptic interface problem
+
+        [A11_aug  A12   Cᵀ ] [u ]   [P(f1 - β1 A1 g_D) + (I-P) g_D]
+        [A21      A22   -M ] [u2] = [f2]
+        [C        -M    0  ] [λ ]   [0]
+
+    with A11_aug = P(β1 A1 + AL11)P + (I-P), A12 = -γ1 Cᵀ W⁻¹ M,
+    A21 = -γ2 M W⁻¹ C, A22 = (β2-β1) A2 + γ2 M W⁻¹ M, as the solver of
+    :class:`~..models.elliptic_interface.EllipticInterfaceProblem` builds
+    them, for all four W variants (elliptic_interface.cc:700-739):
+    W = diag(M·M) or M² in the default form, W = diag(M) or M in the
+    h-scaled and operator forms.  A12 and Cᵀ are not masked in row 0, as in
+    the solver's operator.
+
+    On a uniform Q1 lattice (the background always; the immersed side when
+    it has a lattice twin) A1, A2 and M apply by separable passes and the
+    exact W⁻¹ is the tensor-product banded inverse, exact to machine
+    precision; otherwise the element form applies and the exact inverses
+    run as (nested) float64 Jacobi-CG.  Built from a problem after
+    ``setup()``."""
+
+    def __init__(self, prob):
+        cfg = prob.cfg
+        self.n = prob.space.n_dofs
+        self.m = prob.fg_space.n_dofs
+        self.beta_1 = float(prob.beta_1)
+        gamma_1, gamma_2 = prob.gamma_bg, prob.gamma_imm
+        if cfg.use_h_scaled_mass or cfg.use_operator_form:
+            h_imm = prob.fg_mesh.h_max
+            gamma_1, gamma_2 = gamma_1 / h_imm ** 2, gamma_2 / h_imm ** 2
+        self.gamma_1, self.gamma_2 = float(gamma_1), float(gamma_2)
+
+        fg_lat = prob.fg_gridspace if _is_lattice(prob.fg_gridspace) \
+            else None
+        self.A1 = (_HostLatticeMat(prob.space, True)
+                   if _is_lattice(prob.space) else _HostCellMat(prob.A1))
+        a2_scale = float(prob.A2_scale)
+        if fg_lat is not None:
+            self.A2 = _HostLatticeMat(fg_lat, True, scale=a2_scale)
+            self.M = _HostLatticeMat(fg_lat, False)
+        else:
+            self.A2 = _HostCellMat(prob.A2, scale=a2_scale)
+            self.M = _HostCellMat(prob.M)
+
+        C = prob.C.host
+        self.bg_dofs = np.asarray(C["bg_dofs"])
+        self.bg_phi = np.asarray(C["bg_phi"], dtype=np.float64)
+        self.imm_dofs = np.asarray(C["imm_dofs"])
+        self.imm_psi = np.asarray(C["imm_psi"], dtype=np.float64)
+        self.jxw = np.asarray(C["jxw"], dtype=np.float64)
+
+        # W variants: mass_w -> W = (diag(M) | M); else W = (diag(M·M) | M²)
+        self.diag_w = bool(cfg.use_diagonal_inverse)
+        self.mass_w = bool(cfg.use_h_scaled_mass or cfg.use_operator_form)
+        self.mdiag_inv = 1.0 / _host(prob.M.diag())
+        self.lat_inv = None
+        if self.diag_w:
+            if self.mass_w:
+                self.w_diag = self.mdiag_inv
+            else:
+                from ..precond.weights import inv_diag_of_m_squared
+
+                ones = torch.ones(self.m, dtype=prob.M.dtype,
+                                  device=prob.device)
+                self.w_diag = _host(inv_diag_of_m_squared(prob.M)(ones))
+        elif fg_lat is not None:
+            from ..precond.weights import lattice_mass_inverse
+
+            self.lat_inv = lattice_mass_inverse(
+                fg_lat, squared=not self.mass_w, device="cpu",
+                dtype=torch.float64)
+
+        self.operator_form = bool(cfg.use_operator_form)
+        if self.operator_form:
+            # particle AL quad table at the solver's quadrature order
+            from .coupling import build_coupling
+
+            Cp = build_coupling(prob.space, prob.fg_space,
+                                order=2 * cfg.background_space_degree + 1,
+                                device="cpu").host
+            self.al_dofs = np.asarray(Cp["bg_dofs"])
+            self.al_phi = Cp["bg_phi"]
+            self.al_jxw = Cp["jxw"]
+
+        self.free = _host(prob.free).astype(bool)
+        self.bc = _host(prob.bc_values)
+        self.rhs_f1 = _host(prob.rhs_f1)
+        self.rhs_f2 = _host(prob.rhs_f2)
+        self._b = None
+
+    # -- block actions -----------------------------------------------------
+
+    def c_mv(self, u):
+        vals = np.einsum("qa,qa->q", u[self.bg_dofs], self.bg_phi) * self.jxw
+        out = np.zeros(self.m)
+        np.add.at(out, self.imm_dofs, self.imm_psi * vals[:, None])
+        return out
+
+    def ct_mv(self, lam):
+        vals = np.einsum("qa,qa->q", lam[self.imm_dofs],
+                         self.imm_psi) * self.jxw
+        out = np.zeros(self.n)
+        np.add.at(out, self.bg_dofs, self.bg_phi * vals[:, None])
+        return out
+
+    def inv_w(self, x):
+        """W⁻¹x for the active variant: diagonal, the lattice inverse, or
+        Jacobi-CG in float64 (one solve for W = M, nested for W = M²)."""
+        if self.diag_w:
+            return self.w_diag * x
+        if self.lat_inv is not None:
+            return self.lat_inv(torch.from_numpy(x)).numpy()
+        y = _host_cg(self.M.mv, x, self.mdiag_inv)
+        return y if self.mass_w else _host_cg(self.M.mv, y, self.mdiag_inv)
+
+    def al11_mv(self, u):
+        if self.operator_form:
+            vals = np.einsum("qa,qa->q", u[self.al_dofs],
+                             self.al_phi) * self.al_jxw
+            out = np.zeros(self.n)
+            np.add.at(out, self.al_dofs, self.al_phi * vals[:, None])
+            return self.gamma_1 * out
+        return self.gamma_1 * self.ct_mv(self.inv_w(self.c_mv(u)))
+
+    def a11_aug_mv(self, u):
+        m = self.free
+        um = np.where(m, u, 0.0)
+        a = self.beta_1 * self.A1.mv(um) + self.al11_mv(um)
+        return np.where(m, a, u)
+
+    def a22_mv(self, u2):
+        return self.A2.mv(u2) + self.gamma_2 * self.M.mv(
+            self.inv_w(self.M.mv(u2)))
+
+    def apply(self, u, u2, lam):
+        """Full 3x3 block apply -> (row0, row1, row2)."""
+        cu, mu2 = self.c_mv(u), self.M.mv(u2)
+        r0 = (self.a11_aug_mv(u)
+              - self.gamma_1 * self.ct_mv(self.inv_w(mu2))
+              + self.ct_mv(lam))
+        r1 = (-self.gamma_2 * self.M.mv(self.inv_w(cu))
+              + self.a22_mv(u2) - self.M.mv(lam))
+        return r0, r1, cu - mu2
+
+    def rhs(self):
+        if self._b is None:
+            m = self.free
+            g = np.where(m, 0.0, self.bc)
+            b0 = np.where(m, self.rhs_f1 - self.beta_1 * self.A1.mv(g),
+                          self.bc)
+            self._b = (b0, self.rhs_f2, np.zeros(self.m))
+        return self._b
+
+    def residual(self, u, u2, lam):
+        b0, b1, b2 = self.rhs()
+        r0, r1, r2 = self.apply(u, u2, lam)
+        return b0 - r0, b1 - r1, b2 - r2

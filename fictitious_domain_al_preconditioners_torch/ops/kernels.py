@@ -13,7 +13,8 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.pallas_kernels``:
   planes) in four modes, ``op``, ``smooth``, ``pre`` and ``post``.
 - **K6** :func:`laplace_stencil_2d` replaces ``_conv9_pallas``
   (``pallas_kernels.py:31``) with the edge corrections of
-  ``SeparableStencil2D``: the unconstrained Q1 stiffness apply.
+  ``SeparableStencil2D``: the unconstrained Q1 stiffness apply, in float32
+  and in float64 (one body, templated on the element type).
 
 K2 is CUDA C++ for ``sm_90a``: the sweep kernel in ``csrc/fdal_sweep.cuh``,
 instantiated for ``smooth`` and the no-patch ``op`` (and its C entry points)
@@ -28,9 +29,10 @@ at first use, called through ctypes.  Nothing is built or imported from CUDA
 when this module is imported.
 
 Dispatch rule of every wrapper: a CPU tensor goes to the plain PyTorch
-version; a CUDA tensor launches the kernel (float32, or bfloat16 for K1;
-contiguous) or raises.  Each launch adds one to :data:`LAUNCHES` (K1 per
-dtype form, K2 per mode and per form: with or without patch planes).
+version; a CUDA tensor launches the kernel (float32, or bfloat16 for K1,
+or float64 for K6; contiguous) or raises.  Each launch adds one to
+:data:`LAUNCHES` (K1 and K6 per dtype form, K2 per mode and per form: with
+or without patch planes).
 """
 
 from __future__ import annotations
@@ -110,10 +112,10 @@ def launch_key(mode: str, patch: bool = True) -> str:
     return f"fused_augmented_2d:{mode}" + ("" if patch else ":no_patch")
 
 
-#: kernel launches made by the wrappers, keyed by kernel (K1 by dtype form,
-#: K2 by mode and form)
+#: kernel launches made by the wrappers, keyed by kernel (K1 and K6 by dtype
+#: form, K2 by mode and form)
 LAUNCHES = {"masked_laplace_2d": 0, "masked_laplace_2d:bf16": 0,
-            "laplace_stencil_2d": 0,
+            "laplace_stencil_2d": 0, "laplace_stencil_2d:f64": 0,
             **{launch_key(m, p): 0 for p in (True, False) for m in MODES}}
 
 
@@ -203,8 +205,12 @@ def _library():
     lib.fdal_masked_laplace_plan.restype = ci
     lib.fdal_laplace_stencil_2d.argtypes = [vp, vp, ci, ci, vp, vp]
     lib.fdal_laplace_stencil_2d.restype = ci
+    lib.fdal_laplace_stencil_2d_f64.argtypes = [vp, vp, ci, ci, vp, vp]
+    lib.fdal_laplace_stencil_2d_f64.restype = ci
     lib.fdal_laplace_stencil_resources.argtypes = [ci, vp]
     lib.fdal_laplace_stencil_resources.restype = ci
+    lib.fdal_laplace_stencil_f64_resources.argtypes = [ci, vp]
+    lib.fdal_laplace_stencil_f64_resources.restype = ci
     lib.fdal_laplace_stencil_plan.argtypes = [ci, ci, vp]
     lib.fdal_laplace_stencil_plan.restype = ci
     lib.fdal_augmented_op_2d.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, ci,
@@ -427,18 +433,21 @@ def laplace_stencil_2d_plain(u: torch.Tensor, h) -> torch.Tensor:
     return out
 
 
-def laplace_stencil_resources(chunk: int = 8) -> dict:
+def laplace_stencil_resources(chunk: int = 8, f64: bool = False) -> dict:
     """What K6's instantiation of ``chunk`` (one of :data:`K1_CHUNKS`) takes
-    of the card (builds the library); the keys of
-    :func:`masked_laplace_resources`."""
-    return _window_resources(f"laplace_stencil_resources({chunk})",
-                             _library().fdal_laplace_stencil_resources,
-                             int(chunk))
+    of the card (builds the library), in float32 or (``f64``) float64; the
+    keys of :func:`masked_laplace_resources`."""
+    lib = _library()
+    return _window_resources(
+        f"laplace_stencil_resources({chunk}, {f64})",
+        lib.fdal_laplace_stencil_f64_resources if f64
+        else lib.fdal_laplace_stencil_resources, int(chunk))
 
 
 def laplace_stencil_tile(ny: int, nx: int) -> dict:
     """How K6 cuts an (ny, nx) lattice, asked of the library (builds it):
-    the keys of :func:`window_plan`, which mirrors it."""
+    the keys of :func:`window_plan`, which mirrors it.  Both dtype forms
+    take this plan."""
     plan = np.zeros(2, dtype=np.int32)
     _check_rc(_library().fdal_laplace_stencil_plan(
         int(ny), int(nx), plan.ctypes.data), "laplace_stencil_tile")
@@ -449,23 +458,29 @@ def laplace_stencil_tile(ny: int, nx: int) -> dict:
 
 def laplace_stencil_2d(u: torch.Tensor, h) -> torch.Tensor:
     """K6: unconstrained Q1 stiffness apply ``(K0⊗M1 + M0⊗K1) u`` on an
-    (ny, nx) lattice tensor; ``h`` is the cell size per lattice axis."""
+    (ny, nx) lattice tensor; ``h`` is the cell size per lattice axis.  On
+    CUDA a float32 tensor runs the float32 kernel and a float64 tensor the
+    float64 one; any other dtype raises."""
     if u.device.type == "cpu":
         return laplace_stencil_2d_plain(u, h)
-    _check_cuda("laplace_stencil_2d", u)
+    _check_cuda("laplace_stencil_2d", u,
+                dtypes=(torch.float32, torch.float64))
     if u.dim() != 2:
         raise ValueError("laplace_stencil_2d: expected an (ny, nx) tensor")
+    f64 = u.dtype == torch.float64
     ny, nx = u.shape
     out = torch.empty_like(u)
     fac = np.array([v for f in _edge_factors_2d(h) for v in f],
-                   dtype=np.float32)
+                   dtype=np.float64 if f64 else np.float32)
     lib = _library()
+    fn = (lib.fdal_laplace_stencil_2d_f64 if f64
+          else lib.fdal_laplace_stencil_2d)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.fdal_laplace_stencil_2d(u.data_ptr(), out.data_ptr(), ny, nx,
-                                         fac.ctypes.data, stream)
-    _check_rc(rc, "laplace_stencil_2d")
-    LAUNCHES["laplace_stencil_2d"] += 1
+        rc = fn(u.data_ptr(), out.data_ptr(), ny, nx, fac.ctypes.data, stream)
+    key = "laplace_stencil_2d:f64" if f64 else "laplace_stencil_2d"
+    _check_rc(rc, key)
+    LAUNCHES[key] += 1
     return out
 
 

@@ -1,6 +1,6 @@
 """Krylov solvers with deal.II-style controls: CG (single and batched),
-MINRES, GMRES and flexible GMRES (CGS2), and a Lanczos largest-eigenvalue
-estimate.
+MINRES, GMRES and flexible GMRES (CGS2), a Lanczos largest-eigenvalue
+estimate and CG's condition-number estimate.
 
 Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.krylov``.  The
 ``lax.while_loop`` bodies become Python loops; each iteration reads what its
@@ -27,8 +27,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["SolveInfo", "cg", "batched_cg", "minres", "fgmres", "gmres",
-           "lanczos_max_eig"]
+__all__ = ["SolveInfo", "cg", "cg_condition_number", "batched_cg", "minres",
+           "fgmres", "gmres", "lanczos_max_eig"]
 
 
 class SolveInfo(NamedTuple):
@@ -62,9 +62,13 @@ def _threshold(tol, reduction, res0):
 def cg(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
        tol: float = 1e-10, reduction: float | None = None,
        max_steps: int = 100, fixed_iters: bool = False,
-       stats: dict | None = None):
+       track_tridiag: bool = False, stats: dict | None = None):
     """Preconditioned conjugate gradients from ``x0`` (default 0).  Returns
-    ``(x, SolveInfo)``.  Works on tensors of any shape (lattice or flat)."""
+    ``(x, SolveInfo)``; with ``track_tridiag`` also ``(alphas, betas)``,
+    NumPy arrays of length ``max_steps`` holding CG's Lanczos coefficients
+    (the reference's condition-number slot, immersed_laplace.cc:987-1010;
+    see :func:`cg_condition_number`).  Works on tensors of any shape
+    (lattice or flat)."""
     M = M or (lambda v: v)
     if x0 is None:
         x = torch.zeros_like(b)
@@ -78,6 +82,7 @@ def cg(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
     p = z
     rz = _dot(r, z)
     res, it = res0, 0
+    coefs = []
     while res > thr and it < max_steps:
         Ap = A(p)
         alpha = rz / _dot(p, Ap)
@@ -85,13 +90,45 @@ def cg(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
         r = r - alpha * Ap
         res = _host(_norm(r), stats)
         it += 1
-        if res <= thr or it >= max_steps:
+        if track_tridiag:
+            coefs.append(alpha)
+        if (res <= thr or it >= max_steps) and not track_tridiag:
             break              # the next direction would go unused
         z = M(r)
         rz_new = _dot(r, z)
-        p = z + (rz_new / rz) * p
+        beta = rz_new / rz
+        if track_tridiag:
+            coefs.append(beta)
+        p = z + beta * p
         rz = rz_new
-    return x, SolveInfo(it, res, res0, res <= thr or fixed_iters)
+    info = SolveInfo(it, res, res0, res <= thr or fixed_iters)
+    if not track_tridiag:
+        return x, info
+    ab = np.zeros((max_steps, 2))
+    if coefs:
+        ab.reshape(-1)[:len(coefs)] = np.asarray(
+            _host(torch.stack(coefs), stats))
+    return x, info, (ab[:, 0].copy(), ab[:, 1].copy())
+
+
+def cg_condition_number(alphas, betas, k) -> float:
+    """Spectral condition estimate from CG's Lanczos tridiagonal (the
+    'condition number slot', immersed_laplace.cc:993-1010); host NumPy."""
+    alphas = np.asarray(alphas)[:int(k)]
+    betas = np.asarray(betas)[:int(k)]
+    m = len(alphas)
+    if m == 0:
+        return 1.0
+    T = np.zeros((m, m))
+    T[0, 0] = 1.0 / alphas[0]
+    for i in range(1, m):
+        T[i, i] = 1.0 / alphas[i] + betas[i - 1] / alphas[i - 1]
+        off = np.sqrt(betas[i - 1]) / alphas[i - 1]
+        T[i, i - 1] = off
+        T[i - 1, i] = off
+    ev = np.linalg.eigvalsh(T)
+    ev = ev[ev > 0]
+    return float(ev.max() / ev.min()) if len(ev) else 1.0
 
 
 def batched_cg(A: Callable, B, M: Optional[Callable] = None, *,

@@ -2,8 +2,9 @@
 
 Counterpart of ``fictitious_domain_al_preconditioners_tpu.parallel.lattice``.
 A Q1 field on the uniform background grid is a dense lattice tensor; the
-stiffness applies as separable 1D three-point operators along each axis
-(K = K₁⊗M₁ + M₁⊗K₁) and the Q1 grid transfers are interleaves.
+mass and stiffness apply as separable 1D three-point operators along each
+axis (M = M₁⊗M₁, K = K₁⊗M₁ + M₁⊗K₁) and the Q1 grid transfers are
+interleaves.
 
 Layout: lattice axis order is REVERSED relative to the dof index (axis 0 =
 slowest coordinate), so a flat dof vector (first coordinate fastest) and its
@@ -24,18 +25,10 @@ __all__ = ["LatticeOps", "to_flat", "flat_to_lattice", "lattice_prolong",
            "lattice_restrict"]
 
 
-def _shift(v, s):
-    """Shift along axis 0 with zero fill: ``_shift(v, +1)[i] = v[i-1]``."""
-    pad = torch.zeros_like(v[:1])
-    if s == 1:
-        return torch.cat([pad, v[:-1]], dim=0)
-    return torch.cat([v[1:], pad], dim=0)
-
-
 @dataclass(frozen=True)
 class LatticeOps:
-    """Separable stiffness apply for a Q1 GridSpace; ``shape``/``h`` are in
-    lattice axis order (reversed coordinates)."""
+    """Separable mass and stiffness applies for a Q1 GridSpace;
+    ``shape``/``h`` are in lattice axis order (reversed coordinates)."""
 
     h: tuple
     shape: tuple
@@ -48,12 +41,12 @@ class LatticeOps:
                    tuple(int(n) for n in reversed(space.n_points_1d)))
 
     def _axis_apply_n(self, u, axis, off, diag, bdiag):
-        n = self.shape[axis]
         v = torch.movedim(u, axis, 0)
-        out = diag * v + off * (_shift(v, 1) + _shift(v, -1))
-        corr = diag - bdiag
-        out[0] = out[0] + (-corr * v[0])
-        out[n - 1] = out[n - 1] + (-corr * v[n - 1])
+        out = diag * v
+        out[1:].add_(v[:-1], alpha=off)
+        out[:-1].add_(v[1:], alpha=off)
+        out[0].add_(v[0], alpha=bdiag - diag)
+        out[-1].add_(v[-1], alpha=bdiag - diag)
         return torch.movedim(out, 0, axis)
 
     def _mass_axis(self, u, axis):
@@ -64,10 +57,18 @@ class LatticeOps:
         h = self.h[axis]
         return self._axis_apply_n(u, axis, -1.0 / h, 2.0 / h, 1.0 / h)
 
+    def mass(self, u):
+        """Q1 mass apply ``M₁ ⊗ M₁`` on a lattice tensor, one 3-point pass
+        along each axis."""
+        for ax in range(len(self.shape)):
+            u = self._mass_axis(u, ax)
+        return u
+
     def laplace(self, u):
         """Unconstrained Q1 stiffness apply on a lattice tensor.  A 2D CUDA
         tensor goes through kernel K6 (``ops.kernels.laplace_stencil_2d``,
-        the same function); otherwise the separable form below runs."""
+        the same function, in float32 or float64); otherwise the separable
+        form below runs."""
         if u.dim() == 2 and u.device.type == "cuda":
             return laplace_stencil_2d(u, self.h)
         dim = len(self.shape)
@@ -79,6 +80,17 @@ class LatticeOps:
                         else self._mass_axis(term, ax))
             out = term if out is None else out + term
         return out
+
+    def mass_diag(self) -> np.ndarray:
+        """Assembled mass diagonal as the NumPy outer product of the 1D
+        diagonals, flat (dof order), float64."""
+        out = np.array(1.0)
+        for ax in range(len(self.shape)):
+            h, n = self.h[ax], self.shape[ax]
+            m = np.full(n, 2.0 * h / 3.0)
+            m[0] = m[-1] = h / 3.0
+            out = np.multiply.outer(out, m)
+        return out.reshape(-1)
 
     def laplace_diag(self) -> np.ndarray:
         """Assembled stiffness diagonal as NumPy outer sums of the 1D

@@ -1,15 +1,21 @@
-"""The augmented-Lagrangian block preconditioner of 2x2 DLM systems.
+"""The augmented-Lagrangian block preconditioners.
 
 Counterpart of ``fictitious_domain_al_preconditioners_tpu.precond.al``
-(reference ``augmented_lagrangian_preconditioner.h`` C1, lines 14-42); the
-other four variants wait for the families that use them.
+(reference ``augmented_lagrangian_preconditioner.h``):
+
+  - :func:`al_preconditioner`           (C1, lines 14-42, 2x2 DLM systems)
+  - :func:`al_preconditioner_ideal`     (C4, lines 115-164, elliptic ideal)
+  - :func:`al_preconditioner_modified`  (C5, lines 168-238, modified AL)
+
+The Stokes (C2) and diagonal (C3) variants wait for the Stokes family.
 """
 
 from __future__ import annotations
 
 from ..ops.blocks import BlockLayout
 
-__all__ = ["al_preconditioner"]
+__all__ = ["al_preconditioner", "al_preconditioner_ideal",
+           "al_preconditioner_modified"]
 
 
 def al_preconditioner(layout: BlockLayout, aug_inv, Ct, inv_w, gamma):
@@ -24,5 +30,46 @@ def al_preconditioner(layout: BlockLayout, aug_inv, Ct, inv_w, gamma):
         v1 = -gamma * inv_w(u1)
         v0 = aug_inv(u0 - Ct(v1))
         return layout.concat((v0, v1))
+
+    return apply
+
+
+def al_preconditioner_ideal(layout: BlockLayout, aug_inv_coupled, Ct, M,
+                            inv_w, gamma):
+    """'Ideal' AL preconditioner of the 3x3 elliptic interface system
+    (reference C4, lines 130-156): the (u1, u2) block is inverted coupled,
+
+        v2        = -γ·W⁻¹ u2
+        [v0, v1]  = Aug⁻¹ [u0 - Cᵀ v2,  u1 + M v2]
+
+    ``aug_inv_coupled`` acts on the concatenated (u0, u1) sub-block."""
+    sub = BlockLayout(layout.sizes[:2])
+
+    def apply(u):
+        u0, u1, u2 = layout.split(u)
+        v2 = -gamma * inv_w(u2)
+        v0, v1 = sub.split(aug_inv_coupled(
+            sub.concat((u0 - Ct(v2), u1 + M(v2)))))
+        return layout.concat((v0, v1, v2))
+
+    return apply
+
+
+def al_preconditioner_modified(layout: BlockLayout, A11_inv, A22_inv, Ct, M,
+                               inv_w, gamma):
+    """Modified AL preconditioner, the paper's block-triangular variant
+    (reference C5, lines 225-228):
+
+        v2 = -γ·W⁻¹ λ
+        v1 = A22⁻¹ (u2 + M v2)
+        v0 = A11⁻¹ (u + γ·Cᵀ W⁻¹ M v1 - Cᵀ v2)
+    """
+
+    def apply(u):
+        u0, u1, u2 = layout.split(u)
+        v2 = -gamma * inv_w(u2)
+        v1 = A22_inv(u1 + M(v2))
+        v0 = A11_inv(u0 + gamma * Ct(inv_w(M(v1))) - Ct(v2))
+        return layout.concat((v0, v1, v2))
 
     return apply

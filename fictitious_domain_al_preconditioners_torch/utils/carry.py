@@ -4,7 +4,9 @@ This system has no weights: what a parity run carries across is the setup
 state of one problem (right-hand sides, Dirichlet data, the coupling table,
 the immersed mass diagonal or the whole immersed mass and stiffness matrices,
 and the GMG Lanczos start vectors), handed over as NumPy arrays so both
-solvers run on identical inputs.
+solvers run on identical inputs.  Two states: the immersed_laplace problem's
+(:class:`CarriedState`) and the elliptic interface problem's
+(:class:`EllipticState`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from ..ops.coupling import Coupling
 from ..ops.operators import CellMatrix
 
-__all__ = ["CarriedState", "DiagonalMatrix", "state_from_jax"]
+__all__ = ["CarriedState", "DiagonalMatrix", "EllipticState",
+           "state_from_jax"]
 
 
 class DiagonalMatrix:
@@ -43,13 +46,77 @@ class CarriedState:
     lanczos_starts: list | None
 
 
+@dataclass
+class EllipticState:
+    rhs_f1: torch.Tensor
+    rhs_f2: torch.Tensor
+    bc_values: torch.Tensor
+    free: torch.Tensor
+    coupling: Coupling
+    A1: CellMatrix
+    A2: CellMatrix
+    M: CellMatrix
+    lanczos_starts: list | None
+    lanczos_starts_a22: list | None
+
+
 _KEYS = ("rhs_f", "rhs_g", "bc_values", "free", "bg_dofs", "bg_phi",
          "imm_dofs", "imm_psi", "jxw", "m_diag")
+_ELLIPTIC_KEYS = ("rhs_f1", "rhs_f2", "bc_values", "free", "bg_dofs",
+                  "bg_phi", "imm_dofs", "imm_psi", "jxw", "a1_cell_dofs",
+                  "a1_local", "imm_cell_dofs", "a2_local", "m_local")
 
 
-def state_from_jax(arrays: dict, device, dtype) -> CarriedState:
-    """Load a reference problem's setup arrays (NumPy) for
-    :meth:`..models.immersed_laplace.ImmersedLaplaceProblem.load_state`.
+def _elliptic_state(arrays: dict, device, dtype) -> EllipticState:
+    missing = [k for k in _ELLIPTIC_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"state_from_jax: missing arrays {missing}")
+
+    def ten(key, dt=dtype):
+        return torch.as_tensor(np.array(arrays[key]), dtype=dt,
+                               device=device)
+
+    rhs_f1, rhs_f2 = ten("rhs_f1"), ten("rhs_f2")
+    n, m = rhs_f1.shape[0], rhs_f2.shape[0]
+
+    def cell_matrix(dofs, local, size):
+        return CellMatrix(arrays[dofs], arrays[dofs], np.asarray(arrays[local]),
+                          (size, size), device=device, dtype=dtype)
+
+    def starts(key):
+        v = arrays.get(key)
+        return None if v is None else [np.array(x) for x in v]
+
+    return EllipticState(
+        rhs_f1=rhs_f1, rhs_f2=rhs_f2, bc_values=ten("bc_values"),
+        free=ten("free", torch.bool),
+        coupling=Coupling(arrays["bg_dofs"], arrays["bg_phi"],
+                          arrays["imm_dofs"], arrays["imm_psi"],
+                          arrays["jxw"], (m, n), device=device, dtype=dtype),
+        A1=cell_matrix("a1_cell_dofs", "a1_local", n),
+        A2=cell_matrix("imm_cell_dofs", "a2_local", m),
+        M=cell_matrix("imm_cell_dofs", "m_local", m),
+        lanczos_starts=starts("lanczos_starts"),
+        lanczos_starts_a22=starts("lanczos_starts_a22"))
+
+
+def state_from_jax(arrays: dict, device, dtype):
+    """Load a reference problem's setup arrays (NumPy) for a port problem's
+    ``load_state``.
+
+    With ``rhs_f1`` among the arrays this is the elliptic interface
+    problem's state (:class:`EllipticState`, for
+    :meth:`..models.elliptic_interface.EllipticInterfaceProblem.load_state`):
+    ``rhs_f1``, ``rhs_f2``, ``bc_values``, ``free``, the coupling table, the
+    local matrices of A1 (``a1_local``, shared by the cells of
+    ``a1_cell_dofs``), A2 and M (``a2_local``, ``m_local``, per cell of
+    ``imm_cell_dofs``), and optionally the Lanczos start vectors of the A11
+    hierarchy (``lanczos_starts``, fine level first) and of A22's
+    (``lanczos_starts_a22``: its GMG levels, or the one vector of the
+    off-lattice Chebyshev).
+
+    Otherwise it is the immersed_laplace problem's (:class:`CarriedState`,
+    for :meth:`..models.immersed_laplace.ImmersedLaplaceProblem.load_state`).
 
     ``arrays`` holds ``rhs_f``, ``rhs_g``, ``bc_values``, ``free``, the
     coupling table ``bg_dofs``, ``bg_phi``, ``imm_dofs``, ``imm_psi``,
@@ -64,6 +131,8 @@ def state_from_jax(arrays: dict, device, dtype) -> CarriedState:
     ``imm_cell_dofs``, ``m_local`` and ``a_local`` (per-cell local matrices)
     the whole immersed mass and stiffness matrices are carried, as the
     rational mode needs them."""
+    if "rhs_f1" in arrays:
+        return _elliptic_state(arrays, device, dtype)
     missing = [k for k in _KEYS if k not in arrays]
     if missing:
         raise KeyError(f"state_from_jax: missing arrays {missing}")

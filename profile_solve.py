@@ -6,12 +6,16 @@ time goes.
     python3 profile_solve.py --solver rational --refinement 12
     python3 profile_solve.py --solver augmented_bf16 # bf16 V-cycle flagship
     python3 profile_solve.py --solver refined        # solve_refined at 11
+    python3 profile_solve.py --solver elliptic_refined --elliptic-cycle 6
 
 For each solver mode: set up ``chip_smoke.py``'s configuration of it
 (``augmented_bf16`` is the flagship with ``use_bf16_multigrid``; ``refined``
 is the flagship's ``solve_refined(tol_abs=1e-10)`` at refinement 11, or
-``--refinement`` if that is less), run two unprofiled solves (the first
-builds the solver), then one solve under ``torch.profiler`` (CPU and CUDA
+``--refinement`` if that is less; ``elliptic`` and ``elliptic_refined`` are
+the elliptic interface problem's ``solve()`` and
+``solve_refined(tol_abs=1e-10)`` in ``chip_smoke.py``'s configuration at
+``--elliptic-cycle``), run two unprofiled solves (the first builds the
+solver), then one solve under ``torch.profiler`` (CPU and CUDA
 activities).  Prints one JSON line per mode: the unprofiled and profiled wall
 times, the device time summed over the device activities (kernels, copies,
 fills) and their count, the busy share (device time over profiled wall), the
@@ -35,11 +39,11 @@ _SWEEP = re.compile(r"sweep_kernel<(?:\(int\))?(\d), (?:\(int\))?\d, "
 
 def port_kernel(name):
     """The port's kernel that a device activity's name belongs to (K1 by
-    storage form, K2 by mode and form, K6), or None."""
+    storage form, K2 by mode and form, K6 by dtype form), or None."""
     if "augmented_op_kernel" in name:
         return "K2 op"
     if "laplace_stencil_kernel" in name:
-        return "K6"
+        return "K6 float64" if "double" in name else "K6 float32"
     if "masked_laplace_kernel" in name:
         return "K1 bf16" if "bfloat16" in name else "K1 float32"
     m = _SWEEP.search(name)
@@ -50,31 +54,40 @@ def port_kernel(name):
     return None
 
 
-def profile_mode(solver, refinement, device, top):
+def profile_mode(solver, refinement, device, top, elliptic_cycle):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (REFINED_REFINEMENT, REFINED_TOL, flagship_config,
-                            mode_config)
-    from fictitious_domain_al_preconditioners_torch.models import \
-        ImmersedLaplaceProblem
+    from chip_smoke import (REFINED_REFINEMENT, REFINED_TOL, elliptic_config,
+                            flagship_config, mode_config)
+    from fictitious_domain_al_preconditioners_torch.models import (
+        EllipticInterfaceProblem, ImmersedLaplaceProblem)
 
+    elliptic = solver.startswith("elliptic")
     if solver == "refined":
         refinement = min(refinement, REFINED_REFINEMENT)
-    cfg = (flagship_config(refinement, bf16=solver == "augmented_bf16")
-           if solver.startswith("augmented") or solver == "refined"
-           else mode_config(solver, refinement))
-    prob = ImmersedLaplaceProblem(cfg, device=device).setup()
+    if elliptic:
+        refinement = elliptic_cycle
+        prob = EllipticInterfaceProblem(elliptic_config(),
+                                        device=device).setup(elliptic_cycle)
+    else:
+        cfg = (flagship_config(refinement, bf16=solver == "augmented_bf16")
+               if solver.startswith("augmented") or solver == "refined"
+               else mode_config(solver, refinement))
+        prob = ImmersedLaplaceProblem(cfg, device=device).setup()
+    refined = solver in ("refined", "elliptic_refined")
+    seconds_key = "refined_seconds" if elliptic and refined \
+        else "solve_seconds"
 
     def solve():
-        if solver == "refined":
+        if refined:
             prob.solve_refined(tol_abs=REFINED_TOL)
         else:
             prob.solve()
 
     solve()
     solve()
-    unprofiled = prob.results["solve_seconds"]
+    unprofiled = prob.results[seconds_key]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -98,6 +111,7 @@ def profile_mode(solver, refinement, device, top):
         solver=solver, refinement=refinement,
         dofs_background=prob.space.n_dofs,
         outer_iterations=prob.results["outer_iterations"],
+        refine_steps=prob.results.get("refine_steps"),
         converged=prob.results["converged"],
         host_syncs=prob.results["host_syncs"],
         unprofiled_solve_ms=unprofiled * 1e3, profiled_wall_ms=wall * 1e3,
@@ -114,8 +128,11 @@ def main(argv=None) -> int:
     ap.add_argument("--solver", nargs="+",
                     default=["augmented", "rational", "CG"],
                     choices=["augmented", "augmented_bf16", "refined",
-                             "rational", "CG", "ELMAN_triang"])
+                             "rational", "CG", "ELMAN_triang", "elliptic",
+                             "elliptic_refined"])
     ap.add_argument("--refinement", type=int, default=12)
+    ap.add_argument("--elliptic-cycle", type=int, default=6,
+                    help="cycle of the elliptic modes")
     ap.add_argument("--top", type=int, default=12,
                     help="device activities listed per mode")
     args = ap.parse_args(argv)
@@ -133,7 +150,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     for solver in args.solver:
         print(json.dumps(profile_mode(solver, args.refinement, device,
-                                      args.top)), flush=True)
+                                      args.top, args.elliptic_cycle)),
+              flush=True)
         torch.cuda.empty_cache()
     return 0
 

@@ -1,13 +1,16 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
-version (K1 in float32 and bf16; K1, K6 and the patched K2 ``op`` at the edge
-shapes of the register window they share), the wrappers' checks, and small
-solves of every mode, and of the flagship with the bf16 V-cycle, against the
-CPU.
+version (K1 in float32 and bf16; K1, K6 in float32 and float64 and the
+patched K2 ``op`` at the edge shapes of the register window they share), the
+wrappers' checks, and small solves of every mode, of the flagship with the
+bf16 V-cycle and of the elliptic interface problem against the CPU, the
+elliptic path's band stencil and lattice mass inverse against the CPU, and
+its dense float32 A22 inverse against TF32.
 Marked ``gpu``; without a card every test skips.  On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py -q
 """
 
+import functools
 import os
 import subprocess
 
@@ -294,7 +297,9 @@ def test_window_plan_is_the_librarys(cuda):
         assert K.augmented_op_tile(*shape) == dict(
             plan, patch_chunk_rows=min(plan["chunk_rows"], K.PATCH_CHUNK))
         assert K.masked_laplace_tile(*shape) == plan
-    for query in (K.laplace_stencil_resources, K.augmented_op_resources):
+    k6_f64 = functools.partial(K.laplace_stencil_resources, f64=True)
+    for query in (K.laplace_stencil_resources, k6_f64,
+                  K.augmented_op_resources):
         for chunk in K.K1_CHUNKS:
             res = query(chunk)
             assert res["threads"] == 128 and res["local_bytes"] == 0
@@ -307,25 +312,33 @@ def test_window_plan_is_the_librarys(cuda):
     assert K.fused_augmented_resources("op", patch=False)["threads"] == 384
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-13)])
 @pytest.mark.parametrize("shape", S.window_edge_shapes())
-def test_k6_matches_plain_at_tile_edges(cuda, shape):
-    """K6 against its plain version to 1e-6 of max |plain| (another float32
-    summation order) where the lattice's edge rows and columns, with their
-    boundary centres, meet the edges of a warp's columns and of a lane's
-    run; the input is left as it was."""
+def test_k6_matches_plain_at_tile_edges(cuda, shape, dtype, tol):
+    """K6 in both forms, float32 (the V-cycles') and float64 (the elliptic
+    outer operator's and inner CGs'), against its plain version to 1e-6 and
+    1e-13 of max |plain| (another summation order) where the lattice's edge
+    rows and columns, with their boundary centres, meet the edges of a
+    warp's columns and of a lane's run; each form counts under its own key
+    and leaves the input as it was."""
     h = (1.0 / max(shape[0] - 1, 1), 1.0 / max(shape[1] - 1, 1))
     u = torch.as_tensor(np.random.default_rng(sum(shape)).standard_normal(
-        shape), dtype=torch.float32, device=cuda)
+        shape), dtype=dtype, device=cuda)
     kept = u.clone()
-    before = K.LAUNCHES["laplace_stencil_2d"]
+    key = ("laplace_stencil_2d:f64" if dtype == torch.float64
+           else "laplace_stencil_2d")
+    before = dict(K.LAUNCHES)
     got = K.laplace_stencil_2d(u, h)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["laplace_stencil_2d"] == before + 1
+    assert K.LAUNCHES[key] == before[key] + 1
+    assert sum(K.LAUNCHES.values()) == sum(before.values()) + 1
     assert got.dtype == u.dtype and tuple(got.shape) == shape
     assert got.data_ptr() != u.data_ptr()
-    assert torch.equal(u.view(torch.int32), kept.view(torch.int32))
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(u.view(bits), kept.view(bits))
     assert bool(torch.isfinite(got).all())
-    assert _rel(got, K.laplace_stencil_2d_plain(u, h)) <= 1e-6
+    assert _rel(got, K.laplace_stencil_2d_plain(u, h)) <= tol
 
 
 @pytest.mark.parametrize("shape,box", S.op_edge_cases())
@@ -377,6 +390,9 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(TypeError):
         K.masked_laplace_2d(torch.zeros(st.shape, dtype=torch.float16,
                                         device=cuda), st.h)
+    with pytest.raises(TypeError):
+        K.laplace_stencil_2d(torch.zeros(st.shape, dtype=torch.bfloat16,
+                                         device=cuda), st.h)
     with pytest.raises(ValueError):
         K.fused_augmented_2d("op", st, torch.zeros((5, 5), device=cuda))
     with pytest.raises(ValueError):
@@ -454,3 +470,107 @@ def test_small_modes_match_cpu(cuda, solver):
     for key in ("masked_laplace_2d", "laplace_stencil_2d",
                 K.launch_key("pre", False), K.launch_key("post", False)):
         assert launches[key] > 0, key
+
+
+@pytest.mark.parametrize("kw", [{}, dict(use_operator_form=True),
+                                dict(use_modified_AL_preconditioner=False,
+                                     gamma_AL_immersed=10.0,
+                                     use_fixed_iterations=False)])
+def test_small_elliptic_matches_cpu(cuda, kw):
+    """The elliptic interface problem in chip_smoke.py's configuration at
+    cycle 0 (33² + 9² dofs), float32 V-cycles and float64 operator and
+    Krylov solvers: the card (K6 on every stiffness apply, float64 in the
+    operator and the inner CGs, float32 in the V-cycles) against the CPU
+    (plain versions)."""
+    from fictitious_domain_al_preconditioners_torch.models import \
+        EllipticInterfaceProblem
+
+    def problem(device, **extra):
+        cfg = S.elliptic_config()
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        return EllipticInterfaceProblem(cfg, device=device, **extra).setup(0)
+
+    K.reset_launch_counts()
+    pg = problem(cuda)
+    ig = pg.solve()
+    launches = dict(K.LAUNCHES)
+    pc = problem("cpu", dtype=torch.float32)
+    ic = pc.solve()
+    assert pg.results["converged"] and abs(ig - ic) <= 1
+    xg = torch.cat([pg.u, pg.u2, pg.lam]).cpu()
+    xc = torch.cat([pc.u, pc.u2, pc.lam])
+    assert float((xg - xc).abs().max()) <= 1e-3 * float(xc.abs().max())
+    assert launches["laplace_stencil_2d"] > 0
+    assert launches["laplace_stencil_2d:f64"] > 0
+
+
+def test_off_lattice_a22_inverse_is_full_float32(cuda):
+    """The convergence study's immersed ball (cycle 0, off the lattice) puts
+    A22's preconditioner on the dense inverse of its surrogate, applied as a
+    float32 matmul on the card: TF32 must be off, and the apply must match
+    the float64 NumPy inverse to float32 rounding, entry by entry against
+    |A⁻¹||v| (TF32's 10-bit mantissa misses that bound several times
+    over).  The
+    exact W⁻¹ (W = M², dense below DENSE_INV_MAX) runs in the float64
+    operator and matches NumPy to float64 rounding."""
+    from fictitious_domain_al_preconditioners_torch.models import \
+        EllipticInterfaceProblem
+
+    cfg = S.elliptic_config()
+    cfg.do_convergence_study = True
+    prob = EllipticInterfaceProblem(cfg, device=cuda).setup(0)
+    assert prob.fg_gridspace is None and prob.dtype == torch.float32
+    parts = prob._solver_parts()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    n = prob.fg_space.n_dofs
+    assert n <= 4000
+    gamma_2 = prob._gammas()[1]
+    inv = np.linalg.inv(prob.A2_scale * prob.A2.to_dense()
+                        + gamma_2 * np.eye(n))
+    v = np.random.default_rng(0).standard_normal(n)
+    got = parts["A22_prec"](torch.as_tensor(v, device=cuda)).cpu().numpy()
+    assert np.all(np.abs(got - inv @ v) <= 2e-5 * (np.abs(inv) @ np.abs(v)))
+    m_inv = np.linalg.inv(prob.M.to_dense())
+    w = prob._blocks()["inv_w"](torch.as_tensor(v, device=cuda))
+    ref = m_inv @ (m_inv @ v)
+    assert np.abs(w.cpu().numpy() - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+def test_band_stencil_and_mass_inverse_match_cpu(cuda):
+    """The band stencil of γ·Cᵀdiag(w)C and the banded lattice mass inverse
+    (both forms) on the card against the same functions on the CPU."""
+    from fictitious_domain_al_preconditioners_torch.core import (
+        GridSpace, background_grid_from_name, immersed_mesh_from_name)
+    from fictitious_domain_al_preconditioners_torch.core.immersed import \
+        ImmersedSpace
+    from fictitious_domain_al_preconditioners_torch.ops.coupling import \
+        build_coupling
+    from fictitious_domain_al_preconditioners_torch.ops.sparse import (
+        COO, spgemm_ctwc)
+    from fictitious_domain_al_preconditioners_torch.ops.sparse_band import \
+        lattice_band_linop
+    from fictitious_domain_al_preconditioners_torch.precond.weights import \
+        lattice_mass_inverse
+
+    args = "-0.14: 0.44: true"
+    space = GridSpace.q(background_grid_from_name(
+        "hyper_cube", "-1: 1: true", 2, 8), 1)
+    fg = GridSpace.q(background_grid_from_name("hyper_cube", args, 2, 6), 1)
+    fg_space = ImmersedSpace(immersed_mesh_from_name("hyper_cube", args, 2, 6),
+                             fg.fe, fg.cell_dofs, fg.n_dofs)
+    C = build_coupling(space, fg_space, order=2, device="cpu")
+    w = np.random.default_rng(0).uniform(0.5, 2.0, fg.n_dofs)
+    coo = spgemm_ctwc(COO.from_coupling(C), w)
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.standard_normal(space.n_dofs),
+                        dtype=torch.float32)
+    y = torch.as_tensor(rng.standard_normal(fg.n_dofs), dtype=torch.float32)
+    band = [lattice_band_linop(space, coo, scale=10.0, device=d,
+                               dtype=torch.float32)[0] for d in (cuda, "cpu")]
+    assert _rel(band[0](x.to(cuda)).cpu(), band[1](x)) <= 1e-5
+    for squared in (False, True):
+        inv = [lattice_mass_inverse(fg, squared=squared, device=d,
+                                    dtype=torch.float32) for d in (cuda, "cpu")]
+        assert _rel(inv[0](y.to(cuda)).cpu(), inv[1](y)) <= 1e-5

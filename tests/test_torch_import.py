@@ -19,6 +19,10 @@ MODULES = [
     f"{PKG}.ops.krylov", f"{PKG}.ops.operators", f"{PKG}.ops.assembly",
     f"{PKG}.parallel.lattice", f"{PKG}.precond.rational",
     f"{PKG}.precond.gmg", f"{PKG}.ops.host_ref", f"{PKG}.utils.refine",
+    f"{PKG}.models.elliptic_interface", f"{PKG}.core.generators",
+    f"{PKG}.ops.sparse", f"{PKG}.ops.sparse_band", f"{PKG}.precond.weights",
+    f"{PKG}.precond.al", f"{PKG}.utils.prm", f"{PKG}.utils.report",
+    f"{PKG}.utils.timer",
 ]
 
 
