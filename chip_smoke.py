@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's immersed_laplace and elliptic interface solves
-on one CUDA card.
+"""Drive the PyTorch port's immersed_laplace, elliptic interface and Stokes
+solves on one CUDA card.
 
     python3 chip_smoke.py                  # all phases, refinement 12
     python3 chip_smoke.py --refinement 9   # the same at a quick size
     python3 chip_smoke.py --elliptic-cycle 4 --elliptic-only
+    python3 chip_smoke.py --stokes-refinement 7:8 --stokes3d-refinement 4:1 \
+        --stokes-only
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -62,21 +64,35 @@ Phases (any failure exits non-zero before the last line is printed):
    V-cycles); both are compared with their plain versions at every level
    shape of both GMG hierarchies, and the float64 form is timed at the fine
    background lattice;
+8. the Stokes problem (``StokesProblem``, IBStokesAL) in the results
+   table's configuration (grad-div, W = diag(M_Γ)⁻², outer tolerance 3e-4
+   and reduction 1e-5; ``scripts/make_results_table.py:88-124``): 2D at
+   9:10 (``--stokes-refinement``; 2,101,250 + 263,169 + 2,050 dofs, the
+   row the TPU never ran) with ``setup()``, ``solve()`` and
+   ``solve_refined(tol_abs=1e-8)`` on the operators the solve built, then
+   3D at 5:2 (``--stokes3d-refinement``; 823,875 + 35,937 + 294 dofs; a
+   sphere, g = (-1, 1, 0), body force (1, 0, 0)) with
+   ``solve_refined(tol_abs=1e-8)``; the true float64 residual must reach
+   1e-8.  The Stokes path launches none of the kernels: every apply is
+   PyTorch (its launch counts are printed, all 0);
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
    versions) in float32 with the same Lanczos start vectors, for the
-   flagship, the three modes and the flagship with the bf16 V-cycle; and
-   the elliptic problem at cycle 1 (float32 V-cycles, float64 operator and
-   Krylov solvers on both), whose outer counts must agree within 1 and whose
-   three solution blocks within 1e-3 of each block's max.
+   flagship, the three modes and the flagship with the bf16 V-cycle; the
+   elliptic problem at cycle 1 and the Stokes problem at 4:5 (float32
+   V-cycles, float64 operator and Krylov solvers on both), whose outer
+   counts must agree within 1 and whose three solution blocks within 1e-3
+   of each block's max.
 
-Launch counts are set to 0 just before each path (phases 3, 5, 6 and 7)
-and read just after it.  The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+Launch counts are set to 0 just before each path (phases 3, 5, 6, 7 and 8)
+and read just after it.  The three last lines are the card's name and
+power limit, a JSON object with one entry per kernel, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -124,6 +140,13 @@ REFINED_TOL = 1e-10
 # reference's 8-cycle scale) and the cycle of its card-against-CPU check
 ELLIPTIC_CYCLE = 6
 ELLIPTIC_CROSSCHECK_CYCLE = 1
+# the Stokes phase: the results table's largest rows, 2D 9:10 (never run on
+# the TPU) and 3D 5:2, to the reference's 1e-8 'Stokes solver control'
+# (parameters_stokes.prm), and the rows of its card-against-CPU check
+STOKES_2D = "9:10"
+STOKES_3D = "5:2"
+STOKES_TOL = 1e-8
+STOKES_CROSSCHECK = "4:5"
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 and float64 rates
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -200,6 +223,30 @@ def elliptic_config():
         gamma_AL_background=10.0, gamma_AL_immersed=1e-2,
         use_fixed_iterations=True)
     cfg.outer.tolerance = 3e-5
+    cfg.outer.reduction = 1e-5
+    return cfg
+
+
+def stokes_config(pair, spacedim=2):
+    """The results table's Stokes configuration
+    (scripts/make_results_table.py:88-124): IBStokesAL, grad-div,
+    W = diag(M_Γ)⁻², outer tolerance 3e-4 and reduction 1e-5, at background
+    and immersed refinements ``pair`` ("9:10"); in 3D the sphere with
+    g = (-1, 1, 0), body force (1, 0, 0) and Dirichlet on all six faces."""
+    from fictitious_domain_al_preconditioners_torch.models.stokes import (
+        ALControl, StokesConfig)
+
+    ref, eref = (int(x) for x in pair.split(":"))
+    cfg = StokesConfig(spacedim=spacedim, initial_refinement=ref,
+                       initial_embedded_refinement=eref,
+                       al=ALControl(grad_div_stabilization=True,
+                                    inverse_diag_square=True))
+    if spacedim == 3:
+        cfg.dirichlet_ids = (0, 1, 2, 3, 4, 5)
+        cfg.body_force = ("1;0;0", "")
+        cfg.dirichlet_bc = ("0;0;0", "")
+        cfg.embedded_value = ("-1;1;0", "")
+    cfg.outer.tolerance = 3e-4
     cfg.outer.reduction = 1e-5
     return cfg
 
@@ -1137,6 +1184,114 @@ def phase_crosscheck(device, refinement=7):
     return outs
 
 
+def phase_stokes(pair, spacedim, device):
+    """The Stokes problem at ``pair``: set up, in 2D ``solve()``, then
+    ``solve_refined(tol_abs=1e-8)`` (on the operators the solve built);
+    launch counts over the whole path.  The true float64 residual must
+    reach the tolerance; the solution must be finite."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        StokesProblem
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+    from fictitious_domain_al_preconditioners_torch.ops.host_ref import \
+        HostStokesSystem
+
+    tag = f"stokes{'3d' if spacedim == 3 else ''}@{pair}"
+    gc.collect()        # an earlier problem's cycles hold device memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    prob = StokesProblem(stokes_config(pair, spacedim),
+                         device=device).setup()
+    setup_s = time.perf_counter() - t0
+    solve = {}
+    if spacedim == 2:
+        prob.solve()
+        solve = dict(prob.results)
+        rs = HostStokesSystem(prob).residual(
+            *(x.double().cpu().numpy() for x in (prob.u, prob.p, prob.lam)))
+        solve["true_residual"] = float(np.sqrt(sum(float(r @ r)
+                                                   for r in rs)))
+    u, p, lam, history = prob.solve_refined(tol_abs=STOKES_TOL)
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    res = prob.results
+    sizes = prob.layout.sizes
+    out = dict(
+        path=tag, spacedim=spacedim,
+        dofs_velocity=sizes[0], dofs_pressure=sizes[1],
+        dofs_immersed=sizes[2], dofs_total=prob.layout.total,
+        setup_seconds=setup_s,
+        build_seconds=res.get("build_seconds", res["refine_build_seconds"]),
+        solve_outer_iterations=solve.get("outer_iterations"),
+        solve_converged=solve.get("converged"),
+        solve_residual=solve.get("residual"),
+        solve_true_residual=solve.get("true_residual"),
+        solve_seconds=solve.get("solve_seconds"),
+        solve_host_syncs=solve.get("host_syncs"),
+        refine_steps=res["refine_steps"],
+        total_outer_iterations=res["outer_iterations"],
+        refined_residual=res["refined_residual"], history=history,
+        refined_converged=res["converged"],
+        refined_seconds=res["refined_seconds"],
+        refine_build_seconds=res["refine_build_seconds"],
+        device_seconds=res["correction_seconds"],
+        host_residual_seconds=res["host_residual_seconds"],
+        refined_host_syncs=res["host_syncs"],
+        constraint_residual=prob.constraint_residual(),
+        divergence_residual=prob.divergence_residual(),
+        gmg_levels=len(prob._parts["gmg"].levels),
+        gmg_routes=res["gmg_routes"],
+        peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+        launches=launches)
+    print("phase 8: " + json.dumps(out), flush=True)
+    if spacedim == 2:
+        check(solve["converged"], f"phase 8 {tag}: solve did not converge "
+              f"(residual {solve['residual']:.3e})")
+    check(res["converged"] and history[-1] <= STOKES_TOL,
+          f"phase 8 {tag}: true residual {history[-1]:.3e} > {STOKES_TOL}")
+    check(all(x.shape == (n,) and bool(np.isfinite(x).all())
+              for x, n in zip((u, p, lam), sizes)),
+          f"phase 8 {tag}: non-finite or misshapen iterate")
+    check(math.isfinite(out["constraint_residual"])
+          and math.isfinite(out["divergence_residual"]),
+          f"phase 8 {tag}: constraint or divergence residual not finite")
+    return out
+
+
+def phase_stokes_crosscheck(device, pair=STOKES_CROSSCHECK):
+    """The Stokes problem at ``pair`` on the card and on the CPU, both with
+    float32 V-cycles (``dtype``; the operator and the Krylov solvers are
+    float64 on both): outer counts within 1, and each of the three solution
+    blocks (u, p, λ) within 1e-3 of its max |CPU value|."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        StokesProblem
+
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        prob = StokesProblem(stokes_config(pair), device=dev,
+                             dtype=torch.float32).setup()
+        prob.solve()
+        x = [b.cpu().double() for b in (prob.u, prob.p, prob.lam)]
+        runs[dev.type] = (x, prob.results["outer_iterations"],
+                          prob.results["converged"])
+    (xg, itg, cg_), (xc, itc, cc) = runs["cuda"], runs["cpu"]
+    diffs = [float((g - c).abs().max()) for g, c in zip(xg, xc)]
+    scales = [float(c.abs().max()) for c in xc]
+    out = dict(path=f"stokes@{pair}", iterations_gpu=itg,
+               iterations_cpu=itc, converged=(cg_, cc),
+               max_abs_diff=diffs, max_abs_cpu=scales)
+    print("phase 4: " + json.dumps(out), flush=True)
+    check(cg_ and cc, "phase 4 stokes: a solve did not converge")
+    check(abs(itg - itc) <= 1, f"phase 4 stokes: outer counts {itg} vs "
+          f"{itc}")
+    for name, d, sc in zip(("u", "p", "lambda"), diffs, scales):
+        check(d <= 1e-3 * sc, f"phase 4 stokes: |{name}_gpu - {name}_cpu| "
+              f"= {d:.3e} > 1e-3 * {sc:.3e}")
+    return out
+
+
 def k1_resources(shape):
     """Resources of K1's two forms, keyed as in the kernels line: of the
     instantiation a launch on ``shape`` takes, with every instantiation's
@@ -1262,6 +1417,15 @@ def main(argv=None) -> int:
     ap.add_argument("--elliptic-only", action="store_true",
                     help="build the kernels and run only the elliptic "
                          "phase and its cross-check (no kernels line)")
+    ap.add_argument("--stokes-refinement", default=STOKES_2D,
+                    help="background:immersed refinements of the 2D Stokes "
+                         "row of phase 8")
+    ap.add_argument("--stokes3d-refinement", default=STOKES_3D,
+                    help="background:immersed refinements of the 3D Stokes "
+                         "row of phase 8")
+    ap.add_argument("--stokes-only", action="store_true",
+                    help="run only the Stokes phase and its cross-check (no "
+                         "kernels line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1313,6 +1477,14 @@ def main(argv=None) -> int:
                 check(rc["local_bytes"] == 0, f"{name} chunk {chunk} spills "
                       f"{rc['local_bytes']} bytes a thread")
 
+        if args.stokes_only:
+            for pair, sd in ((args.stokes_refinement, 2),
+                             (args.stokes3d_refinement, 3)):
+                phase_stokes(pair, sd, device)
+            phase_stokes_crosscheck(device)
+            print(f"chip_smoke: the Stokes phases passed in "
+                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            return 0
         if args.elliptic_only:
             _, _, ell_space = phase_elliptic(args.elliptic_cycle, device)
             time_k6_f64(ell_space, device, {})
@@ -1381,16 +1553,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         time_k6_f64(ell_space, device, times)
 
+        for pair, sd in ((args.stokes_refinement, 2),
+                         (args.stokes3d_refinement, 3)):
+            out = phase_stokes(pair, sd, device)
+            path_launches[out["path"]] = out["launches"]
+
         phase_crosscheck(device)
         phase_elliptic_crosscheck(device)
+        phase_stokes_crosscheck(device)
         report = kernel_report(path_launches, errs, times, resources)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1
-    print(json.dumps(report))
     print(smi)
+    print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,8 @@
 from .immersed_laplace import ImmersedLaplaceConfig, ImmersedLaplaceProblem
 from .elliptic_interface import (EllipticInterfaceConfig,
                                  EllipticInterfaceProblem)
+from .stokes import StokesConfig, StokesProblem
 
 __all__ = ["ImmersedLaplaceConfig", "ImmersedLaplaceProblem",
-           "EllipticInterfaceConfig", "EllipticInterfaceProblem"]
+           "EllipticInterfaceConfig", "EllipticInterfaceProblem",
+           "StokesConfig", "StokesProblem"]

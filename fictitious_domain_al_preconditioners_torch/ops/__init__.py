@@ -9,7 +9,8 @@ from .coupling import Coupling, build_coupling
 from .krylov import (SolveInfo, cg, cg_condition_number, fgmres,
                      lanczos_max_eig)
 from .blocks import BlockLayout, block_operator
-from .host_ref import HostAugmentedSystem, HostEllipticSystem
+from .host_ref import (HostAugmentedSystem, HostEllipticSystem,
+                       HostStokesSystem)
 from .sparse import COO, spgemm_ctwc
 from .sparse_band import lattice_band_linop
 from . import kernels
@@ -20,6 +21,6 @@ __all__ = [
     "imm_mass_matrix", "imm_rhs", "interpolate", "l2_error", "h1_error",
     "Coupling", "build_coupling", "SolveInfo", "cg", "cg_condition_number",
     "fgmres", "lanczos_max_eig", "BlockLayout", "block_operator",
-    "HostAugmentedSystem", "HostEllipticSystem", "COO", "spgemm_ctwc",
+    "HostAugmentedSystem", "HostEllipticSystem", "HostStokesSystem", "COO", "spgemm_ctwc",
     "lattice_band_linop", "kernels",
 ]

@@ -2,11 +2,15 @@
 
 Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.assembly``:
 the background mass and stiffness matrices of a uniform grid (one shared
-reference local matrix), the Q1 lattice load vector, the immersed mass and
-stiffness matrices and load vector, nodal interpolation and the L2 and H1
-errors.  Setup-time work runs
-in float64 NumPy on the host; results are handed over as tensors on the
-requested device (CUDA unless the caller asks for the CPU).
+reference local matrix), the load vector (the Q1 lattice form, and the
+element form of any degree, continuous or not, for scalar and vector
+functions), the immersed mass and stiffness matrices and load vector
+(scalar or vector), the reference local matrices of the vector blocks
+(the Stokes velocity block in its grad-div and symmetric-gradient forms,
+and the divergence block), nodal interpolation and the L2 and H1 errors.
+Setup-time work runs in float64 NumPy on the host; results are handed over
+as tensors on the requested device (CUDA unless the caller asks for the
+CPU).
 """
 
 from __future__ import annotations
@@ -19,7 +23,12 @@ from .operators import CellMatrix
 
 __all__ = ["mass_matrix", "laplace_matrix", "rhs_vector", "imm_mass_matrix",
            "imm_stiffness_matrix", "imm_rhs", "interpolate", "l2_error",
-           "h1_error"]
+           "h1_error", "default_order", "vector_cell_dofs",
+           "velocity_block_local", "divergence_block_local"]
+
+
+def default_order(space) -> int:
+    return space.fe.degree + 1
 
 
 def _ref_mass_local(fe, h, order) -> np.ndarray:
@@ -63,18 +72,43 @@ def laplace_matrix(space, order=None, coef=None, *, device="cuda",
 
 
 def rhs_vector(space, fn, order=None, *, device="cuda", dtype=torch.float64):
-    """(f, φ_i) load vector of a Q1-continuous background space."""
-    order = order or space.fe.degree + 1
-    if not (space.fe.degree == 1 and space.continuous):
-        raise NotImplementedError("only the Q1 lattice load vector is ported")
-    return torch.as_tensor(_lattice_rhs(space, fn, order), dtype=dtype,
+    """(f, φ_i) load vector of a background space: (n_dofs,) for a scalar
+    ``fn``, (n_dofs, n_comp) for a vector one.  A scalar function on a
+    Q1-continuous space takes the lattice form; every other case the
+    element form (per-cell quadrature, host scatter)."""
+    order = order or default_order(space)
+    if space.fe.degree == 1 and space.continuous:
+        out = _lattice_rhs(space, fn, order)
+        if out is not None:
+            return torch.as_tensor(out, dtype=dtype, device=device)
+    return torch.as_tensor(_element_rhs(space, fn, order), dtype=dtype,
                            device=device)
 
 
-def _lattice_rhs(space, fn, order: int) -> np.ndarray:
+def _element_rhs(space, fn, order: int) -> np.ndarray:
+    """Element-form load vector: ``fn`` at every cell's quadrature points,
+    weighted by the tabulated basis, scattered by the cell dof table."""
+    rule, pts, jxw = _cell_quad_points(space, order)
+    tab = space.fe.tabulate(rule.points)                # (nq, nloc)
+    nc, nq, dim = pts.shape
+    fv = np.asarray(fn(pts.reshape(-1, dim)), dtype=np.float64)
+    w_tab = tab * jxw[:, None]
+    dofs = space.cell_dofs.reshape(-1)
+    if fv.ndim == 1:
+        be = fv.reshape(nc, nq) @ w_tab                 # (nc, nloc)
+        return np.bincount(dofs, weights=be.reshape(-1),
+                           minlength=space.n_dofs)
+    be = np.einsum("cqk,qa->cak", fv.reshape(nc, nq, -1), w_tab)
+    return np.stack([np.bincount(dofs, weights=be[:, :, k].reshape(-1),
+                                 minlength=space.n_dofs)
+                     for k in range(be.shape[2])], axis=1)
+
+
+def _lattice_rhs(space, fn, order: int):
     """Q1 load vector as shifted slice-adds on the node lattice: per quad
     point, f is evaluated on the cell lattice and distributed to the 2^dim
-    cell corners (no per-cell dof table, no scatter).  Flat, float64."""
+    cell corners (no per-cell dof table, no scatter).  Flat, float64; None
+    for a vector ``fn`` (the element form takes it)."""
     grid = space.grid
     dim = grid.dim
     rule = gauss(dim, order)
@@ -92,7 +126,10 @@ def _lattice_rhs(space, fn, order: int) -> np.ndarray:
         pts = np.stack(
             [grid.origin[d] + (coords[d] + float(rule.points[q, d]))
              * float(grid.h[d]) for d in range(dim)], axis=-1)
-        fv = np.asarray(fn(pts.reshape(-1, dim))).reshape(cells_shape)
+        fv = np.asarray(fn(pts.reshape(-1, dim)))
+        if fv.ndim != 1:
+            return None
+        fv = fv.reshape(cells_shape)
         for a in range(mi.shape[0]):
             off = tuple(int(mi[a, d]) for d in reversed(range(dim)))
             idx = tuple(slice(o, o + n) for o, n in zip(off, cells_shape))
@@ -132,15 +169,20 @@ def imm_stiffness_matrix(ispace, order=None, *, device="cuda",
 
 
 def imm_rhs(ispace, fn, order=None, *, device="cuda", dtype=torch.float64):
-    """(g, ψ_j)_Γ load vector on the immersed space (scalar ``fn``)."""
+    """(g, ψ_j)_Γ load vector on the immersed space: (n_imm,) for a scalar
+    ``fn``, (n_imm, n_comp) for a vector one."""
     order = order or (ispace.fe.degree + 1)
     rule = gauss(ispace.mesh.dim, order)
     tab = ispace.fe.tabulate(rule.points)
     X, _, jxw = ispace.mesh.quad_geometry(rule)
     nc, nq, sd = X.shape
     fv = np.asarray(fn(X.reshape(-1, sd)))
-    be = np.einsum("cq,qa,cq->ca", fv.reshape(nc, nq), tab, jxw)
-    out = np.zeros(ispace.n_dofs)
+    if fv.ndim == 1:
+        be = np.einsum("cq,qa,cq->ca", fv.reshape(nc, nq), tab, jxw)
+        out = np.zeros(ispace.n_dofs)
+    else:
+        be = np.einsum("cqk,qa,cq->cak", fv.reshape(nc, nq, -1), tab, jxw)
+        out = np.zeros((ispace.n_dofs, be.shape[2]))
     np.add.at(out, ispace.cell_dofs, be)
     return torch.as_tensor(out, dtype=dtype, device=device)
 
@@ -188,3 +230,65 @@ def h1_error(space, u, exact_grad_fn, order=None) -> float:
     ge = np.asarray(exact_grad_fn(pts.reshape(-1, dim))).reshape(nc, nq, dim)
     diff2 = np.sum((gh - ge) ** 2, axis=-1)
     return float(np.sqrt(np.sum(diff2 * jxw[None, :])))
+
+
+# ---------------------------------------------------------------------------
+# Vector-valued (Stokes) reference local matrices
+# ---------------------------------------------------------------------------
+
+def _grad_products(fe, h, order):
+    """I[c, d, a, b] = ∫_cell ∂_c φ_a ∂_d φ_b dx on the uniform cell."""
+    rule = gauss(fe.dim, order)
+    phys = fe.tabulate_grad(rule.points) / np.asarray(h)[None, None, :]
+    return np.einsum("qac,qbd,q->cdab", phys, phys,
+                     rule.weights) * float(np.prod(h))
+
+
+def _value_products(fe, h, order):
+    """∫_cell φ_a φ_b dx on the uniform cell."""
+    rule = gauss(fe.dim, order)
+    tab = fe.tabulate(rule.points)
+    return np.einsum("qa,qb,q->ab", tab, tab,
+                     rule.weights) * float(np.prod(h))
+
+
+def vector_cell_dofs(space, n_comp: int) -> np.ndarray:
+    """(nc, nloc·n_comp) dofs of the component-major vector space:
+    component c of scalar dof i is dof ``c·n_scalar + i``."""
+    n = space.n_dofs
+    return np.concatenate([space.cell_dofs + c * n for c in range(n_comp)],
+                          axis=1)
+
+
+def velocity_block_local(fe, h, order, grad_div_coef) -> np.ndarray:
+    """(nloc·dim, nloc·dim) local matrix of the Stokes velocity block on the
+    uniform cell (stokes_immersed_boundary.cc:722-744):
+    ``(∇u : ∇v) + γ_gd (div u)(div v)`` when ``grad_div_coef`` is a number,
+    ``2 (ε(u) : ε(v))`` when it is None."""
+    dim = fe.dim
+    nloc = fe.n_dofs_per_cell
+    I = _grad_products(fe, h, order)                    # (dim, dim, a, b)
+    lap = np.einsum("ccab->ab", I)
+    out = np.zeros((nloc * dim, nloc * dim))
+    for c in range(dim):
+        for d in range(dim):
+            blk = lap.copy() if c == d else np.zeros((nloc, nloc))
+            if grad_div_coef is not None:
+                blk = blk + grad_div_coef * I[c, d]     # div-div term
+            else:
+                blk = blk + I[d, c]                     # symmetric gradient
+            out[c * nloc:(c + 1) * nloc, d * nloc:(d + 1) * nloc] = blk
+    return out
+
+
+def divergence_block_local(p_fe, u_fe, h, order) -> np.ndarray:
+    """(nloc_p, nloc_u·dim) local matrix of B = -(div u, q)
+    (stokes_immersed_boundary.cc:727-739)."""
+    rule = gauss(u_fe.dim, order)
+    p_tab = p_fe.tabulate(rule.points)                  # (nq, nloc_p)
+    phys = (u_fe.tabulate_grad(rule.points)
+            / np.asarray(h)[None, None, :])             # (nq, nloc_u, dim)
+    vol = float(np.prod(h))
+    return np.concatenate(
+        [-vol * np.einsum("qa,qb,q->ab", p_tab, phys[:, :, c], rule.weights)
+         for c in range(u_fe.dim)], axis=1)

@@ -8,8 +8,10 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.coupling``:
 Setup builds a quad-point table: every immersed quadrature point is located
 in its background cell by index arithmetic and both bases are tabulated there
 (NumPy, host).  ``C u`` is a gather and a row sum; ``Cᵀ λ`` is an
-``index_add_``.  The AL term γ·CᵀW⁻¹C applies matrix-free
-(:meth:`Coupling.al_term`); the particle form γ·Σ_q φφᵀ JxW has a gather
+``index_add_``; both also take (n, k) column blocks (the Stokes vector
+coupling applies the scalar table to every component at once).  The AL
+term γ·CᵀW⁻¹C applies matrix-free (:meth:`Coupling.al_term`); the particle
+form γ·Σ_q φφᵀ JxW has a gather
 form (:meth:`Coupling.particle_mass_term`) and two lattice forms: the
 9-point patch (:meth:`Coupling.patch_w9`, :meth:`Coupling.patch_al_lattice`,
 :meth:`Coupling.patch_stencil_al`) when the band is interior to the lattice,
@@ -77,15 +79,41 @@ class Coupling:
         already)."""
         return self if dtype == self.dtype else self.to(self.device, dtype)
 
+    def interp_bg(self, u):
+        """u_h^bg at the quadrature points: (nq,) for u of shape (n_bg,),
+        (nq, k) for a column block (n_bg, k)."""
+        if u.dim() == 2:
+            return (u[self.bg_dofs] * self.bg_phi[:, :, None]).sum(dim=1)
+        return (u[self.bg_dofs] * self.bg_phi).sum(dim=1)
+
     def mv(self, u):
-        """C @ u : background -> immersed."""
+        """C @ u : background -> immersed; u is (n_bg,) or a column block
+        (n_bg, k)."""
+        if u.dim() == 2:
+            vals = self.interp_bg(u) * self.jxw[:, None]
+            out = torch.zeros((self.shape[0], u.shape[1]), dtype=u.dtype,
+                              device=u.device)
+            return out.index_add_(
+                0, self.imm_dofs.reshape(-1),
+                (self.imm_psi[:, :, None] * vals[:, None, :]).reshape(
+                    -1, u.shape[1]))
         vals = (u[self.bg_dofs] * self.bg_phi).sum(dim=1) * self.jxw
         out = torch.zeros(self.shape[0], dtype=u.dtype, device=u.device)
         return out.index_add_(0, self.imm_dofs.reshape(-1),
                               (self.imm_psi * vals[:, None]).reshape(-1))
 
     def rmv(self, lam):
-        """Cᵀ @ λ : immersed -> background."""
+        """Cᵀ @ λ : immersed -> background; λ is (n_imm,) or a column block
+        (n_imm, k)."""
+        if lam.dim() == 2:
+            vals = ((lam[self.imm_dofs] * self.imm_psi[:, :, None]).sum(dim=1)
+                    * self.jxw[:, None])
+            out = torch.zeros((self.shape[1], lam.shape[1]), dtype=lam.dtype,
+                              device=lam.device)
+            return out.index_add_(
+                0, self.bg_dofs.reshape(-1),
+                (self.bg_phi[:, :, None] * vals[:, None, :]).reshape(
+                    -1, lam.shape[1]))
         vals = (lam[self.imm_dofs] * self.imm_psi).sum(dim=1) * self.jxw
         out = torch.zeros(self.shape[1], dtype=lam.dtype, device=lam.device)
         return out.index_add_(0, self.bg_dofs.reshape(-1),

@@ -1,15 +1,16 @@
 """Host float64 reference applies of the DLM block systems.
 
 Counterpart of ``HostAugmentedSystem``, ``HostEllipticSystem``,
-``_HostCellMat``, ``_host_cg`` and ``_axis_apply`` of
-``fictitious_domain_al_preconditioners_tpu.ops.host_ref``
-(``host_ref.py:62-373``).  The card solves in float32, but the reference's
+``HostStokesSystem``, ``_HostCellMat``, ``_HostVectorCoupling``, ``_host_cg``
+and ``_axis_apply`` of ``fictitious_domain_al_preconditioners_tpu.ops
+.host_ref`` (``host_ref.py:25-477``).  The card solves in float32, but the reference's
 solve-quality target is a 1e-10 absolute residual in float64.  These NumPy
 applies reproduce the exact operator the float32 solver iterates on in
 float64 on the host, so the refinement loops of
-:meth:`..models.immersed_laplace.ImmersedLaplaceProblem.solve_refined` and
+:meth:`..models.immersed_laplace.ImmersedLaplaceProblem.solve_refined`,
 :meth:`..models.elliptic_interface.EllipticInterfaceProblem.solve_refined`
-can drive the true residual to that target.
+and :meth:`..models.stokes.StokesProblem.solve_refined` can drive the true
+residual to that target.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["HostAugmentedSystem", "HostEllipticSystem"]
+__all__ = ["HostAugmentedSystem", "HostEllipticSystem", "HostStokesSystem"]
 
 
 def _axis_apply(v, off, diag, bdiag, axis):
@@ -128,6 +129,44 @@ class _HostCellMat:
             xe = np.einsum("cab,ca->cb", self.local, ye)
         return np.bincount(self.col.reshape(-1), weights=xe.reshape(-1),
                            minlength=self.shape[1])
+
+
+class _HostVectorCoupling:
+    """float64 componentwise vector coupling from a scalar quad-point table
+    (:class:`..models.stokes.VectorCoupling` on component-major flat
+    vectors)."""
+
+    def __init__(self, scalar, sd: int):
+        h = scalar.host
+        self.sd = sd
+        self.bg_dofs = np.asarray(h["bg_dofs"])
+        self.bg_phi = np.asarray(h["bg_phi"], dtype=np.float64)
+        self.imm_dofs = np.asarray(h["imm_dofs"])
+        self.imm_psi = np.asarray(h["imm_psi"], dtype=np.float64)
+        self.jxw = np.asarray(h["jxw"], dtype=np.float64)
+        self.m, self.nu = scalar.shape
+
+    def _s_mv(self, us):              # (nu, k) -> (m, k)
+        vals = np.einsum("qak,qa->qk", us[self.bg_dofs],
+                         self.bg_phi) * self.jxw[:, None]
+        out = np.zeros((self.m, us.shape[1]))
+        np.add.at(out, self.imm_dofs,
+                  self.imm_psi[:, :, None] * vals[:, None, :])
+        return out
+
+    def _st_mv(self, lam_s):          # (m, k) -> (nu, k)
+        vals = np.einsum("qak,qa->qk", lam_s[self.imm_dofs],
+                         self.imm_psi) * self.jxw[:, None]
+        out = np.zeros((self.nu, lam_s.shape[1]))
+        np.add.at(out, self.bg_dofs,
+                  self.bg_phi[:, :, None] * vals[:, None, :])
+        return out
+
+    def mv(self, u):
+        return self._s_mv(u.reshape(self.sd, self.nu).T).T.reshape(-1)
+
+    def rmv(self, lam):
+        return self._st_mv(lam.reshape(self.sd, self.m).T).T.reshape(-1)
 
 
 class _HostLatticeMat:
@@ -408,4 +447,96 @@ class HostEllipticSystem:
     def residual(self, u, u2, lam):
         b0, b1, b2 = self.rhs()
         r0, r1, r2 = self.apply(u, u2, lam)
+        return b0 - r0, b1 - r1, b2 - r2
+
+
+class HostStokesSystem:
+    """float64 host apply and right-hand side of the IBStokesAL 3x3 block
+    system
+
+        [Aug  Bᵀ  Cᵀ] [u]   [P(f - A g_D) + (I-P) g_D + γ P CᵀW⁻¹ g]
+        [B    0   0 ] [p] = [-B g_D]
+        [C    0   0 ] [λ]   [g - C g_D]
+
+    with Aug = constrain(A) + γ CᵀW⁻¹C (+ γ_gd Bᵀ Mp⁻¹ B when the grad-div
+    term is not assembled into A) and B, C condensed on the velocity, as
+    :class:`~..models.stokes.StokesProblem` builds them.  W⁻¹ = diag(M_Γ)⁻²
+    or (M_Γ⁻¹)² by float64 Jacobi-CG (stokes_immersed_boundary.cc:965-985).
+    Built from a problem after ``setup()`` (or ``load_state``)."""
+
+    def __init__(self, prob):
+        cfg = prob.cfg
+        self.sd = sd = cfg.spacedim
+        self.gamma = float(cfg.al.gamma)
+        self.gamma_gd = float(cfg.al.gamma_grad_div)
+        self.grad_div_in_a = bool(cfg.al.grad_div_stabilization)
+        self.A = _HostCellMat(prob.A)
+        self.B = _HostCellMat(prob.B)
+        self.Mp = _HostCellMat(prob.Mp)
+        self.Mimm = _HostCellMat(prob.M_imm_s)
+        self.mp_lump_inv = 1.0 / _host(prob.Mp.row_sums())
+        self.m = prob.M_imm_s.shape[0]
+        self.Cv = _HostVectorCoupling(prob.Cs, sd)
+        self.diag_w = bool(cfg.al.inverse_diag_square)
+        self.mdiag_inv = 1.0 / prob.M_imm_s.diag_host()
+        self.free = _host(prob.free).astype(bool)
+        self.bc = _host(prob.bc_values)
+        self.rhs_u = _host(prob.rhs_u)
+        self.rhs_g = _host(prob.rhs_g)
+
+    def inv_w(self, lam):
+        ls = lam.reshape(self.sd, self.m).T
+        if self.diag_w:
+            out = (self.mdiag_inv ** 2)[:, None] * ls
+        else:
+            out = _host_cg(self.Mimm.mv, _host_cg(self.Mimm.mv, ls,
+                                                  self.mdiag_inv),
+                           self.mdiag_inv)
+        return out.T.reshape(-1)
+
+    def mp_inv(self, p):
+        return _host_cg(self.Mp.mv, p, self.mp_lump_inv)
+
+    # -- block actions, condensed on the velocity ------------------------
+
+    def _a_c(self, u):
+        m = self.free
+        return np.where(m, self.A.mv(np.where(m, u, 0.0)), u)
+
+    def _b_c(self, u):
+        return self.B.mv(np.where(self.free, u, 0.0))
+
+    def _bt_c(self, p):
+        return np.where(self.free, self.B.rmv(p), 0.0)
+
+    def _c_c(self, u):
+        return self.Cv.mv(np.where(self.free, u, 0.0))
+
+    def _ct_c(self, lam):
+        return np.where(self.free, self.Cv.rmv(lam), 0.0)
+
+    def aug_mv(self, u):
+        out = self._a_c(u) + self.gamma * self._ct_c(
+            self.inv_w(self._c_c(u)))
+        if not self.grad_div_in_a:
+            out = out + self.gamma_gd * self._bt_c(
+                self.mp_inv(self._b_c(u)))
+        return out
+
+    def apply(self, u, p, lam):
+        """Full 3x3 block apply -> (row0, row1, row2)."""
+        return (self.aug_mv(u) + self._bt_c(p) + self._ct_c(lam),
+                self._b_c(u), self._c_c(u))
+
+    def rhs(self):
+        m = self.free
+        g = np.where(m, 0.0, self.bc)
+        b0 = np.where(m, self.rhs_u - self.A.mv(g), self.bc)
+        b0 = b0 + np.where(m, self.gamma * self.Cv.rmv(
+            self.inv_w(self.rhs_g)), 0.0)
+        return b0, -self.B.mv(g), self.rhs_g - self.Cv.mv(g)
+
+    def residual(self, u, p, lam):
+        b0, b1, b2 = self.rhs()
+        r0, r1, r2 = self.apply(u, p, lam)
         return b0 - r0, b1 - r1, b2 - r2

@@ -62,21 +62,29 @@ def _threshold(tol, reduction, res0):
 def cg(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
        tol: float = 1e-10, reduction: float | None = None,
        max_steps: int = 100, fixed_iters: bool = False,
-       track_tridiag: bool = False, stats: dict | None = None):
+       track_tridiag: bool = False, norm_weight=None,
+       stats: dict | None = None):
     """Preconditioned conjugate gradients from ``x0`` (default 0).  Returns
     ``(x, SolveInfo)``; with ``track_tridiag`` also ``(alphas, betas)``,
     NumPy arrays of length ``max_steps`` holding CG's Lanczos coefficients
     (the reference's condition-number slot, immersed_laplace.cc:987-1010;
-    see :func:`cg_condition_number`).  Works on tensors of any shape
-    (lattice or flat)."""
+    see :func:`cg_condition_number`).  ``norm_weight`` (a tensor like ``b``)
+    changes only the convergence-check norm to ``||norm_weight * r||``: a
+    caller iterating in rescaled variables keeps the original system's
+    stopping rule (the Stokes diagonally scaled inner solve).  Works on
+    tensors of any shape (lattice or flat)."""
     M = M or (lambda v: v)
+
+    def cnorm(v):
+        return _norm(v if norm_weight is None else norm_weight * v)
+
     if x0 is None:
         x = torch.zeros_like(b)
         r = b                      # b - A(0)
     else:
         x = x0
         r = b - A(x0)
-    res0 = _host(_norm(r), stats)
+    res0 = _host(cnorm(r), stats)
     thr = _threshold(tol, reduction, res0)
     z = M(r)
     p = z
@@ -88,7 +96,7 @@ def cg(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
         alpha = rz / _dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
-        res = _host(_norm(r), stats)
+        res = _host(cnorm(r), stats)
         it += 1
         if track_tridiag:
             coefs.append(alpha)

@@ -4,17 +4,18 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.precond.al``
 (reference ``augmented_lagrangian_preconditioner.h``):
 
   - :func:`al_preconditioner`           (C1, lines 14-42, 2x2 DLM systems)
+  - :func:`al_preconditioner_stokes`    (C2, lines 44-79, 3x3 (u, p, λ))
+  - :func:`al_preconditioner_diagonal`  (C3, lines 81-110, SPD for MinRes)
   - :func:`al_preconditioner_ideal`     (C4, lines 115-164, elliptic ideal)
   - :func:`al_preconditioner_modified`  (C5, lines 168-238, modified AL)
-
-The Stokes (C2) and diagonal (C3) variants wait for the Stokes family.
 """
 
 from __future__ import annotations
 
 from ..ops.blocks import BlockLayout
 
-__all__ = ["al_preconditioner", "al_preconditioner_ideal",
+__all__ = ["al_preconditioner", "al_preconditioner_stokes",
+           "al_preconditioner_diagonal", "al_preconditioner_ideal",
            "al_preconditioner_modified"]
 
 
@@ -30,6 +31,40 @@ def al_preconditioner(layout: BlockLayout, aug_inv, Ct, inv_w, gamma):
         v1 = -gamma * inv_w(u1)
         v0 = aug_inv(u0 - Ct(v1))
         return layout.concat((v0, v1))
+
+    return apply
+
+
+def al_preconditioner_stokes(layout: BlockLayout, aug_inv, Bt, Ct, inv_w,
+                             mp_inv, gamma, gamma_grad_div):
+    """3x3 Stokes AL preconditioner over (u, p, λ) (reference C2, lines
+    62-70):
+
+        v2 = -γ·W⁻¹ u2
+        v1 = -γ_gd·Mp⁻¹ u1
+        v0 = Aug⁻¹ (u0 - Bᵀ v1 - Cᵀ v2)
+    """
+
+    def apply(u):
+        u0, u1, u2 = layout.split(u)
+        v2 = -gamma * inv_w(u2)
+        v1 = -gamma_grad_div * mp_inv(u1)
+        v0 = aug_inv(u0 - Bt(v1) - Ct(v2))
+        return layout.concat((v0, v1, v2))
+
+    return apply
+
+
+def al_preconditioner_diagonal(layout: BlockLayout, aug_inv, inv_w, mp_inv,
+                               gamma, gamma_grad_div):
+    """SPD block-diagonal variant for MinRes (reference C3, lines 95-103):
+    ``diag(Aug⁻¹, γ_gd Mp⁻¹, γ W⁻¹)`` ('Diagonal SPD preconditioner',
+    stokes_immersed_boundary.cc:1056-1064)."""
+
+    def apply(u):
+        u0, u1, u2 = layout.split(u)
+        return layout.concat((aug_inv(u0), gamma_grad_div * mp_inv(u1),
+                              gamma * inv_w(u2)))
 
     return apply
 

@@ -1,20 +1,27 @@
-"""Geometric multigrid on the Q1 background lattice.
+"""Geometric multigrid on the uniform background grid.
 
-Counterpart of the lattice path of
-``fictitious_domain_al_preconditioners_tpu.precond.gmg``.  Coarsening is
-exact 2:1 grid coarsening; every level's operator is re-discretized
-(including the AL term, whose per-level coupling table is rebuilt by
-relocating the immersed quadrature points); transfers are the Q1 lattice
-interleaves; smoothers are Chebyshev with Lanczos bounds; the coarse solve is
-a dense inverse built in float64 on the host.  Every level vector is an
-(ny, nx) lattice tensor.  The V-cycle is symmetric, so it is a valid CG
-preconditioner.
+Counterpart of ``fictitious_domain_al_preconditioners_tpu.precond.gmg``.
+Coarsening is exact 2:1 grid coarsening; every level's operator is
+re-discretized (including the AL term, whose per-level coupling table is
+rebuilt by relocating the immersed quadrature points); smoothers are
+Chebyshev with Lanczos bounds; the coarse solve is a dense inverse built in
+float64 on the host.  The V-cycle is symmetric, so it is a valid CG
+preconditioner.  Two hierarchies share the cycle (:class:`GMG`):
 
-The cycle runs in its own precision (``build_gmg(dtype=...)``), which may be
-lower than the caller's: with bfloat16 the level vectors, masks, diagonals
-and transfers are bfloat16, the Lanczos bounds are estimated in float32 and
-the coarse inverse is held and applied in float32 (``gmg.py:202-265,
-364-456`` of the reference); ``apply`` casts at its boundary.
+- :func:`build_gmg`, the lattice hierarchy of a 2D Q1 space: every level
+  vector is an (ny, nx) lattice tensor and the transfers are the Q1 lattice
+  interleaves;
+- :func:`build_gmg_flat`, the flat hierarchy of any continuous space
+  (``gmg.py:272-459`` of the reference without the lattice branch): level
+  vectors are flat, of ``n_comp·n`` entries for a component-major vector
+  field (the Stokes velocity), and the transfers are the FE embedding
+  (:class:`Prolongation`, per component :class:`VectorProlongation`).
+
+The cycle runs in its own precision (``dtype``), which may be lower than the
+caller's: with bfloat16 the level vectors, masks, diagonals and transfers
+are bfloat16, the Lanczos bounds are estimated in float32 and the coarse
+inverse is held and applied in float32 (``gmg.py:202-265, 364-456`` of the
+reference); ``apply`` casts at its boundary.
 """
 
 from __future__ import annotations
@@ -28,7 +35,68 @@ from ..ops.krylov import lanczos_max_eig
 from ..parallel.lattice import lattice_prolong, lattice_restrict
 from .chebyshev import chebyshev
 
-__all__ = ["FusedSmoother", "LatticeTransfer2D", "GMG", "build_gmg"]
+__all__ = ["FusedSmoother", "LatticeTransfer2D", "Prolongation",
+           "VectorProlongation", "make_prolongation", "GMG", "build_gmg",
+           "build_gmg_flat"]
+
+
+class Prolongation:
+    """FE embedding coarse -> fine on flat vectors: ``mv`` is a gather and a
+    weighted row sum, ``rmv`` (the restriction) its ``index_add_``
+    transpose.  ``cell_dofs[f]`` are the coarse dofs of the coarse cell
+    holding fine dof f and ``phi[f]`` their basis values there."""
+
+    def __init__(self, cell_dofs, phi, shape, *, device, dtype):
+        self.cell_dofs = torch.as_tensor(np.asarray(cell_dofs),
+                                         dtype=torch.int64, device=device)
+        self.phi = torch.as_tensor(np.asarray(phi), dtype=dtype,
+                                   device=device)
+        self.shape = tuple(shape)            # (n_fine, n_coarse)
+
+    def mv(self, xc):
+        return (xc[self.cell_dofs] * self.phi.to(xc.dtype)).sum(dim=1)
+
+    def rmv(self, xf):
+        out = torch.zeros(self.shape[1], dtype=xf.dtype, device=xf.device)
+        return out.index_add_(0, self.cell_dofs.reshape(-1),
+                              (self.phi.to(xf.dtype) * xf[:, None])
+                              .reshape(-1))
+
+
+def make_prolongation(fine, coarse, *, device, dtype=torch.float64):
+    """FE-embedding prolongation from ``coarse`` to ``fine`` (the same
+    element on a 2:1 coarser grid): every fine dof point is located in its
+    coarse cell and the coarse basis is tabulated there."""
+    cells, refs = coarse.grid.locate(fine.dof_points)
+    return Prolongation(coarse.cell_dofs[cells], coarse.fe.tabulate(refs),
+                        (fine.n_dofs, coarse.n_dofs), device=device,
+                        dtype=dtype)
+
+
+class VectorProlongation:
+    """Componentwise :class:`Prolongation` of a component-major vector
+    field: every component goes through the scalar transfer (the 'vector
+    constant modes' of the reference's AMG setup, utilities.h:304-317)."""
+
+    def __init__(self, scalar: Prolongation, n_comp: int):
+        self.scalar = scalar
+        self.n_comp = n_comp
+        self.shape = (scalar.shape[0] * n_comp, scalar.shape[1] * n_comp)
+
+    def mv(self, xc):
+        p = self.scalar
+        x2 = xc.reshape(self.n_comp, p.shape[1])
+        return (x2[:, p.cell_dofs] * p.phi.to(xc.dtype)).sum(dim=2).reshape(-1)
+
+    def rmv(self, xf):
+        p = self.scalar
+        x2 = xf.reshape(self.n_comp, p.shape[0])
+        out = torch.zeros((self.n_comp, p.shape[1]), dtype=xf.dtype,
+                          device=xf.device)
+        return out.index_add_(
+            1, p.cell_dofs.reshape(-1),
+            (p.phi.to(xf.dtype) * x2[:, :, None]).reshape(self.n_comp, -1)
+        ).reshape(-1)
 
 
 @dataclass
@@ -68,14 +136,15 @@ class _Level:
     space: object
     op: object               # masked lattice apply
     diag_inv: torch.Tensor
-    mask: torch.Tensor       # free-dof mask, float 0/1, lattice shape
+    mask: torch.Tensor       # free-dof mask, float 0/1, level vector shape
     smoother: object
-    prolong: LatticeTransfer2D | None  # from the next-coarser level
+    prolong: object          # from the next-coarser level, or None
     lam_max: float
 
 
 class GMG:
-    """V-cycle preconditioner on lattice tensors: ``apply(b) -> x``.
+    """V-cycle preconditioner: ``apply(b) -> x`` on the hierarchy's level
+    vectors (lattice tensors or flat).
     ``dtype`` is the cycle precision; ``apply`` takes ``b`` in any floating
     dtype and returns ``x`` in ``b``'s."""
 
@@ -121,6 +190,28 @@ EIG_RATIO = 30.0       # Chebyshev targets [lam_max / EIG_RATIO, 1.1 lam_max]
 LANCZOS_STEPS = 10
 
 
+def _level_spaces(fine_space):
+    """The hierarchy's spaces, fine first: 2:1 coarsening while every axis
+    has an even number of cells and at least ``2 * MIN_CELLS``."""
+    def coarsenable(sp):
+        g = sp.grid
+        return not (any(n % 2 != 0 for n in g.ncells)
+                    or min(g.ncells) // 2 < MIN_CELLS)
+
+    spaces = [fine_space]
+    while coarsenable(spaces[-1]):
+        spaces.append(spaces[-1].coarse_space())
+    return spaces
+
+
+def _constrained_faces(fine_space, fine_mask):
+    """Boundary ids whose dofs the fine mask (of the first component)
+    holds fixed; the coarse levels constrain the same faces."""
+    scalar = fine_mask[:fine_space.n_dofs]
+    return [bid for bid in range(2 * fine_space.grid.dim)
+            if not scalar[fine_space.boundary_dof_mask([bid])].any()]
+
+
 def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
               lanczos_start=None, dtype=torch.float64,
               stats: dict | None = None) -> GMG:
@@ -137,20 +228,10 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
     level's Lanczos start vector.  ``dtype`` is the cycle precision: the
     level ops take and return it; with bfloat16 the Lanczos runs in float32
     and the coarse inverse is float32."""
-    def coarsenable(sp):
-        g = sp.grid
-        return not (any(n % 2 != 0 for n in g.ncells)
-                    or min(g.ncells) // 2 < MIN_CELLS)
-
-    spaces = [fine_space]
-    while coarsenable(spaces[-1]):
-        spaces.append(spaces[-1].coarse_space())
-
+    spaces = _level_spaces(fine_space)
     device = free_mask.device
     fine_mask = free_mask.cpu().numpy()
-    constrained_ids = [bid for bid in range(2 * fine_space.grid.dim)
-                       if not fine_mask[fine_space.boundary_dof_mask([bid])]
-                       .any()]
+    constrained_ids = _constrained_faces(fine_space, fine_mask)
 
     # Lanczos and the coarse inverse need more precision than bf16 keeps
     work_dt = torch.float32 if dtype == torch.bfloat16 else dtype
@@ -197,6 +278,75 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
     eye = torch.eye(nco, dtype=dtype, device=device)
     dense = torch.stack([coarse.op(eye[k].reshape(lat)).reshape(-1)
                          for k in range(nco)], dim=1)
+    inv = np.linalg.inv(dense.cpu().double().numpy())
+    return GMG(levels, torch.as_tensor(inv, dtype=work_dt, device=device),
+               dtype)
+
+
+def build_gmg_flat(fine_space, op_factory, *, free_mask, n_comp: int = 1,
+                   smoother_degree: int = 4, lanczos_start=None,
+                   dtype=torch.float64, stats: dict | None = None) -> GMG:
+    """Build a flat GMG hierarchy on a continuous uniform-grid space of any
+    degree and dimension, for a scalar (``n_comp = 1``) or component-major
+    vector field.
+
+    ``op_factory(space) -> (mv, diag)``: ``mv`` applies the level's
+    unconstrained operator to flat vectors of ``n_comp·n`` entries in the
+    cycle precision, ``diag`` is its assembled diagonal (float64 NumPy or a
+    tensor, flat).  The level operator is the Dirichlet-masked
+    ``m*A(m*x) + (1-m)*x``; ``free_mask`` is the fine mask (bool tensor of
+    ``n_comp·n``), coarse masks hold the same faces fixed in every
+    component.  ``lanczos_start(level_index, n) -> ndarray`` optionally
+    supplies each level's Lanczos start vector (``n = n_comp·n_level``).
+    ``dtype`` is the cycle precision, as in :func:`build_gmg`."""
+    spaces = _level_spaces(fine_space)
+    device = free_mask.device
+    fine_mask = free_mask.cpu().numpy()
+    constrained_ids = _constrained_faces(fine_space, fine_mask)
+    work_dt = torch.float32 if dtype == torch.bfloat16 else dtype
+    levels = []
+    for i, sp in enumerate(spaces):
+        n = n_comp * sp.n_dofs
+        if i == 0:
+            m = fine_mask
+        elif constrained_ids:
+            m = np.tile(~sp.boundary_dof_mask(constrained_ids), n_comp)
+        else:
+            m = np.ones(n, dtype=bool)
+        mask = torch.as_tensor(m, device=device)
+        mv_raw, diag = op_factory(sp)
+        diag = torch.as_tensor(np.asarray(diag.cpu() if torch.is_tensor(diag)
+                                          else diag, dtype=np.float64),
+                               device=device)
+
+        def op(x, mv_raw=mv_raw, mask=mask):
+            return torch.where(mask, mv_raw(torch.where(mask, x, 0.0)), x)
+
+        diag_inv = torch.where(mask, 1.0 / diag, 1.0).to(dtype)
+
+        def lanc_mv(v, op=op, di=diag_inv):
+            return (di * op(v.to(dtype))).to(work_dt)
+
+        v0 = lanczos_start(i, n) if lanczos_start is not None else None
+        lam = lanczos_max_eig(lanc_mv, n, steps=LANCZOS_STEPS, v0=v0,
+                              dtype=work_dt, device=device, stats=stats)
+        smoother = chebyshev(op, diag_inv, lam, degree=smoother_degree,
+                             eig_ratio=EIG_RATIO)
+        prolong = None
+        if i > 0:
+            prolong = make_prolongation(spaces[i - 1], sp, device=device,
+                                        dtype=dtype)
+            if n_comp > 1:
+                prolong = VectorProlongation(prolong, n_comp)
+        levels.append(_Level(sp, op, diag_inv, mask.to(dtype), smoother,
+                             prolong, lam))
+
+    # coarse dense inverse: columns op(e_k) in the cycle precision, inverted
+    # on the host in float64, held in the working precision
+    coarse = levels[-1]
+    nco = n_comp * coarse.space.n_dofs
+    eye = torch.eye(nco, dtype=dtype, device=device)
+    dense = torch.stack([coarse.op(eye[k]) for k in range(nco)], dim=1)
     inv = np.linalg.inv(dense.cpu().double().numpy())
     return GMG(levels, torch.as_tensor(inv, dtype=work_dt, device=device),
                dtype)

@@ -4,9 +4,9 @@ This system has no weights: what a parity run carries across is the setup
 state of one problem (right-hand sides, Dirichlet data, the coupling table,
 the immersed mass diagonal or the whole immersed mass and stiffness matrices,
 and the GMG Lanczos start vectors), handed over as NumPy arrays so both
-solvers run on identical inputs.  Two states: the immersed_laplace problem's
-(:class:`CarriedState`) and the elliptic interface problem's
-(:class:`EllipticState`).
+solvers run on identical inputs.  Three states: the immersed_laplace
+problem's (:class:`CarriedState`), the elliptic interface problem's
+(:class:`EllipticState`) and the Stokes problem's (:class:`StokesState`).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from ..ops.coupling import Coupling
 from ..ops.operators import CellMatrix
 
-__all__ = ["CarriedState", "DiagonalMatrix", "EllipticState",
+__all__ = ["CarriedState", "DiagonalMatrix", "EllipticState", "StokesState",
            "state_from_jax"]
 
 
@@ -60,11 +60,59 @@ class EllipticState:
     lanczos_starts_a22: list | None
 
 
+@dataclass
+class StokesState:
+    rhs_u: torch.Tensor
+    rhs_g: torch.Tensor
+    bc_values: torch.Tensor
+    free: torch.Tensor
+    coupling: Coupling          # the scalar table (velocity's scalar space)
+    M_imm: CellMatrix           # scalar immersed mass
+    Mp: CellMatrix              # pressure mass
+    lanczos_starts: list | None
+
+
 _KEYS = ("rhs_f", "rhs_g", "bc_values", "free", "bg_dofs", "bg_phi",
          "imm_dofs", "imm_psi", "jxw", "m_diag")
 _ELLIPTIC_KEYS = ("rhs_f1", "rhs_f2", "bc_values", "free", "bg_dofs",
                   "bg_phi", "imm_dofs", "imm_psi", "jxw", "a1_cell_dofs",
                   "a1_local", "imm_cell_dofs", "a2_local", "m_local")
+
+
+_STOKES_KEYS = ("rhs_u", "rhs_g", "bc_values", "free", "bg_dofs", "bg_phi",
+                "imm_dofs", "imm_psi", "jxw", "imm_cell_dofs", "m_local",
+                "p_cell_dofs", "mp_local")
+
+
+def _stokes_state(arrays: dict, device, dtype) -> StokesState:
+    missing = [k for k in _STOKES_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"state_from_jax: missing arrays {missing}")
+
+    def ten(key, dt=dtype):
+        return torch.as_tensor(np.array(arrays[key]), dtype=dt,
+                               device=device)
+
+    def cell_matrix(dofs, local):
+        d = np.asarray(arrays[dofs])
+        n = int(d.max()) + 1
+        return CellMatrix(d, d, np.asarray(arrays[local]), (n, n),
+                          device=device, dtype=dtype)
+
+    M_imm = cell_matrix("imm_cell_dofs", "m_local")
+    bg_dofs = np.asarray(arrays["bg_dofs"])
+    n_comp = len(np.asarray(arrays["rhs_g"])) // M_imm.shape[0]
+    n_bg = len(np.asarray(arrays["rhs_u"])) // n_comp
+    starts = arrays.get("lanczos_starts")
+    return StokesState(
+        rhs_u=ten("rhs_u"), rhs_g=ten("rhs_g"), bc_values=ten("bc_values"),
+        free=ten("free", torch.bool),
+        coupling=Coupling(bg_dofs, arrays["bg_phi"], arrays["imm_dofs"],
+                          arrays["imm_psi"], arrays["jxw"],
+                          (M_imm.shape[0], n_bg), device=device, dtype=dtype),
+        M_imm=M_imm, Mp=cell_matrix("p_cell_dofs", "mp_local"),
+        lanczos_starts=None if starts is None
+        else [np.array(v) for v in starts])
 
 
 def _elliptic_state(arrays: dict, device, dtype) -> EllipticState:
@@ -104,6 +152,16 @@ def state_from_jax(arrays: dict, device, dtype):
     """Load a reference problem's setup arrays (NumPy) for a port problem's
     ``load_state``.
 
+    With ``rhs_u`` among the arrays this is the Stokes problem's state
+    (:class:`StokesState`, for
+    :meth:`..models.stokes.StokesProblem.load_state`): ``rhs_u`` and
+    ``rhs_g`` (component-major), ``bc_values``, ``free``, the scalar
+    coupling table, the immersed mass (per-cell ``m_local`` on
+    ``imm_cell_dofs``), the pressure mass (``mp_local``, shared by the cells
+    of ``p_cell_dofs``) and optionally the Lanczos start vectors of the
+    velocity hierarchy (``lanczos_starts``, fine level first, each of
+    ``spacedim·n_level`` entries).
+
     With ``rhs_f1`` among the arrays this is the elliptic interface
     problem's state (:class:`EllipticState`, for
     :meth:`..models.elliptic_interface.EllipticInterfaceProblem.load_state`):
@@ -131,6 +189,8 @@ def state_from_jax(arrays: dict, device, dtype):
     ``imm_cell_dofs``, ``m_local`` and ``a_local`` (per-cell local matrices)
     the whole immersed mass and stiffness matrices are carried, as the
     rational mode needs them."""
+    if "rhs_u" in arrays:
+        return _stokes_state(arrays, device, dtype)
     if "rhs_f1" in arrays:
         return _elliptic_state(arrays, device, dtype)
     missing = [k for k in _KEYS if k not in arrays]

@@ -7,6 +7,8 @@ time goes.
     python3 profile_solve.py --solver augmented_bf16 # bf16 V-cycle flagship
     python3 profile_solve.py --solver refined        # solve_refined at 11
     python3 profile_solve.py --solver elliptic_refined --elliptic-cycle 6
+    python3 profile_solve.py --solver stokes stokes_refined \
+        --stokes-refinement 9:10
 
 For each solver mode: set up ``chip_smoke.py``'s configuration of it
 (``augmented_bf16`` is the flagship with ``use_bf16_multigrid``; ``refined``
@@ -14,9 +16,11 @@ is the flagship's ``solve_refined(tol_abs=1e-10)`` at refinement 11, or
 ``--refinement`` if that is less; ``elliptic`` and ``elliptic_refined`` are
 the elliptic interface problem's ``solve()`` and
 ``solve_refined(tol_abs=1e-10)`` in ``chip_smoke.py``'s configuration at
-``--elliptic-cycle``), run two unprofiled solves (the first builds the
-solver), then one solve under ``torch.profiler`` (CPU and CUDA
-activities).  Prints one JSON line per mode: the unprofiled and profiled wall
+``--elliptic-cycle``; ``stokes`` and ``stokes_refined`` the 2D Stokes
+problem's ``solve()`` and ``solve_refined(tol_abs=1e-8)`` in its
+configuration at ``--stokes-refinement``), run two unprofiled solves (the
+first builds the solver), then one solve under ``torch.profiler`` (CPU and
+CUDA activities).  Prints one JSON line per mode: the unprofiled and profiled wall
 times, the device time summed over the device activities (kernels, copies,
 fills) and their count, the busy share (device time over profiled wall), the
 host syncs, the device ms and calls of each of the port's own kernels
@@ -54,19 +58,26 @@ def port_kernel(name):
     return None
 
 
-def profile_mode(solver, refinement, device, top, elliptic_cycle):
+def profile_mode(solver, refinement, device, top, elliptic_cycle,
+                 stokes_pair):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (REFINED_REFINEMENT, REFINED_TOL, elliptic_config,
-                            flagship_config, mode_config)
+    from chip_smoke import (REFINED_REFINEMENT, REFINED_TOL, STOKES_TOL,
+                            elliptic_config, flagship_config, mode_config,
+                            stokes_config)
     from fictitious_domain_al_preconditioners_torch.models import (
-        EllipticInterfaceProblem, ImmersedLaplaceProblem)
+        EllipticInterfaceProblem, ImmersedLaplaceProblem, StokesProblem)
 
     elliptic = solver.startswith("elliptic")
+    stokes = solver.startswith("stokes")
     if solver == "refined":
         refinement = min(refinement, REFINED_REFINEMENT)
-    if elliptic:
+    if stokes:
+        refinement = stokes_pair
+        prob = StokesProblem(stokes_config(stokes_pair),
+                             device=device).setup()
+    elif elliptic:
         refinement = elliptic_cycle
         prob = EllipticInterfaceProblem(elliptic_config(),
                                         device=device).setup(elliptic_cycle)
@@ -75,13 +86,14 @@ def profile_mode(solver, refinement, device, top, elliptic_cycle):
                if solver.startswith("augmented") or solver == "refined"
                else mode_config(solver, refinement))
         prob = ImmersedLaplaceProblem(cfg, device=device).setup()
-    refined = solver in ("refined", "elliptic_refined")
-    seconds_key = "refined_seconds" if elliptic and refined \
+    refined = solver in ("refined", "elliptic_refined", "stokes_refined")
+    seconds_key = "refined_seconds" if (elliptic or stokes) and refined \
         else "solve_seconds"
 
     def solve():
         if refined:
-            prob.solve_refined(tol_abs=REFINED_TOL)
+            prob.solve_refined(tol_abs=STOKES_TOL if stokes
+                               else REFINED_TOL)
         else:
             prob.solve()
 
@@ -109,7 +121,8 @@ def profile_mode(solver, refinement, device, top, elliptic_cycle):
             ours[key][1] += n
     return dict(
         solver=solver, refinement=refinement,
-        dofs_background=prob.space.n_dofs,
+        dofs_background=(prob.results["dofs_background"] if stokes
+                         else prob.space.n_dofs),
         outer_iterations=prob.results["outer_iterations"],
         refine_steps=prob.results.get("refine_steps"),
         converged=prob.results["converged"],
@@ -129,10 +142,14 @@ def main(argv=None) -> int:
                     default=["augmented", "rational", "CG"],
                     choices=["augmented", "augmented_bf16", "refined",
                              "rational", "CG", "ELMAN_triang", "elliptic",
-                             "elliptic_refined"])
+                             "elliptic_refined", "stokes",
+                             "stokes_refined"])
     ap.add_argument("--refinement", type=int, default=12)
     ap.add_argument("--elliptic-cycle", type=int, default=6,
                     help="cycle of the elliptic modes")
+    ap.add_argument("--stokes-refinement", default="9:10",
+                    help="background:immersed refinements of the Stokes "
+                         "modes")
     ap.add_argument("--top", type=int, default=12,
                     help="device activities listed per mode")
     args = ap.parse_args(argv)
@@ -150,7 +167,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     for solver in args.solver:
         print(json.dumps(profile_mode(solver, args.refinement, device,
-                                      args.top, args.elliptic_cycle)),
+                                      args.top, args.elliptic_cycle,
+                                      args.stokes_refinement)),
               flush=True)
         torch.cuda.empty_cache()
     return 0

@@ -4,7 +4,9 @@ patched K2 ``op`` at the edge shapes of the register window they share), the
 wrappers' checks, and small solves of every mode, of the flagship with the
 bf16 V-cycle and of the elliptic interface problem against the CPU, the
 elliptic path's band stencil and lattice mass inverse against the CPU, and
-its dense float32 A22 inverse against TF32.
+its dense float32 A22 inverse against TF32; the Stokes problem at 4:5
+against the CPU, and its velocity hierarchy's level operators (the vector
+band stencil, the element form) and V-cycle against the CPU.
 Marked ``gpu``; without a card every test skips.  On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py -q
@@ -574,3 +576,37 @@ def test_band_stencil_and_mass_inverse_match_cpu(cuda):
         inv = [lattice_mass_inverse(fg, squared=squared, device=d,
                                     dtype=torch.float32) for d in (cuda, "cpu")]
         assert _rel(inv[0](y.to(cuda)).cpu(), inv[1](y)) <= 1e-5
+
+
+def test_small_stokes_matches_cpu(cuda):
+    """The Stokes problem in chip_smoke.py's configuration at 4:5, float32
+    V-cycle and float64 operator and Krylov solvers, on the card against
+    the CPU: outer counts within 1, every block within 1e-3 of its max
+    (``chip_smoke.phase_stokes_crosscheck`` raises otherwise)."""
+    out = S.phase_stokes_crosscheck(cuda)
+    assert all(out["converged"])
+
+
+@pytest.mark.parametrize("pair,spacedim", [("4:5", 2), ("3:0", 3)])
+def test_stokes_levels_and_vcycle_match_cpu(cuda, pair, spacedim):
+    """The float32 velocity hierarchy of the Stokes problem (the vector band
+    stencil on the 2D coarse levels, the element form with the coupling
+    applies elsewhere) on the card against the CPU: every level operator
+    and one V-cycle."""
+    from fictitious_domain_al_preconditioners_torch.models import \
+        StokesProblem
+
+    probs = [StokesProblem(S.stokes_config(pair, spacedim), device=d,
+                           dtype=torch.float32).setup() for d in (cuda, "cpu")]
+    gmgs = [p._al_parts()["gmg"] for p in probs]
+    routes = probs[1].results["gmg_routes"]
+    assert probs[0].results["gmg_routes"] == routes
+    assert ("band" in routes) == (spacedim == 2)
+    rng = np.random.default_rng(0)
+    for lg, lc in zip(gmgs[0].levels, gmgs[1].levels):
+        x = torch.as_tensor(rng.standard_normal(lc.mask.numel()),
+                            dtype=torch.float32)
+        assert _rel(lg.op(x.to(cuda)).cpu(), lc.op(x)) <= 1e-5
+    b = torch.as_tensor(rng.standard_normal(probs[1].layout.sizes[0]),
+                        dtype=torch.float64) * probs[1].free
+    assert _rel(gmgs[0].apply(b.to(cuda)).cpu(), gmgs[1].apply(b)) <= 1e-4

@@ -22,7 +22,7 @@ MODULES = [
     f"{PKG}.models.elliptic_interface", f"{PKG}.core.generators",
     f"{PKG}.ops.sparse", f"{PKG}.ops.sparse_band", f"{PKG}.precond.weights",
     f"{PKG}.precond.al", f"{PKG}.utils.prm", f"{PKG}.utils.report",
-    f"{PKG}.utils.timer",
+    f"{PKG}.utils.timer", f"{PKG}.models.stokes",
 ]
 
 
