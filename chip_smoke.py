@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's immersed_laplace, elliptic interface and Stokes
-solves on one CUDA card.
+"""Drive the PyTorch port's immersed_laplace, elliptic interface, Stokes,
+nitsche and elasticity interface solves on one CUDA card.
 
     python3 chip_smoke.py                  # all phases, refinement 12
     python3 chip_smoke.py --refinement 9   # the same at a quick size
     python3 chip_smoke.py --elliptic-cycle 4 --elliptic-only
     python3 chip_smoke.py --stokes-refinement 7:8 --stokes3d-refinement 4:1 \
         --stokes-only
+    python3 chip_smoke.py --families-only
+    python3 chip_smoke.py --elasticity-only --elasticity-cycle 3
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -75,18 +77,48 @@ Phases (any failure exits non-zero before the last line is printed):
    ``solve_refined(tol_abs=1e-8)``; the true float64 residual must reach
    1e-8.  The Stokes path launches none of the kernels: every apply is
    PyTorch (its launch counts are printed, all 0);
+9. the augmented solver's other AL forms on the flagship's data and
+   stopping rule: the operator form with the exact W = M at the refinement
+   (``exactw``: the flagship's lattice path, K1 and K2 must be launched) and
+   the explicit form with W = diag(M)² and W = M² at refinement 11 (at
+   most the refinement; the fine compact AL block must form within 30 s):
+   K1 and the masked compact block on every level, K1 must be launched;
+   the block's rows, bytes and seconds are printed; a warm-up and a timed
+   solve each; the kernels of each path are compared with their plain
+   versions at its level shapes.  Phase 5 also runs the
+   rational mode at refinements 7-9 under the results table's rule, beside
+   the TPU's counts, each within 1 of the JAX package's float32 count on
+   the CPU;
+10. the nitsche problem (``NitscheProblem``, the manufactured solution of
+    the results table) at cycles 0-4 (289 ... 66,049 bulk dofs) and 7
+    (refinement 11, at most the refinement; 4,198,401 + 8,192 dofs):
+    ``solve_refined(tol_abs=1e-10)`` on every row, whose true float64
+    residual must reach 1e-10, with the inner CG iterations per outer
+    iteration and the L2/H1 errors and rates (the last L2 rate of the study
+    above 1.6);
+11. the 3D elasticity interface problem (``ElasticityInterfaceProblem``,
+    the results table's configuration) at cycles 0 to 2
+    (``--elasticity-cycle``; cycle 2 is 107,811 + 14,739 + 14,739 dofs;
+    the scale row at cycle 3, 823,875 + 107,811 + 107,811, is cut from the
+    default run for its time): ``solve()``, then
+    ``solve_refined(tol_abs=1e-10)`` on every row, whose true float64
+    residual must reach 1e-10, with the routes of both GMG hierarchies'
+    levels.  Neither phase 10 nor 11 launches a kernel: their counts must
+    stay 0;
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
    versions) in float32 with the same Lanczos start vectors, for the
    flagship, the three modes and the flagship with the bf16 V-cycle; the
    elliptic problem at cycle 1 and the Stokes problem at 4:5 (float32
    V-cycles, float64 operator and Krylov solvers on both), whose outer
    counts must agree within 1 and whose three solution blocks within 1e-3
-   of each block's max.
+   of each block's max; likewise the three AL forms of phase 9 at
+   refinement 7, the nitsche problem at cycle 0 and the elasticity problem
+   at background refinement 2, immersed 1 (to a reduction of 1e-10).
 
-Launch counts are set to 0 just before each path (phases 3, 5, 6, 7 and 8)
-and read just after it.  The three last lines are the card's name and
-power limit, a JSON object with one entry per kernel, and
-``{"ok": true, "device": {...}}``.
+Launch counts are set to 0 just before each path (phases 3, 5, 6, 7, 8, 9,
+10 and 11) and read just after it. The three last lines are the card's name
+and power limit, a JSON object with one entry per kernel, and ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -147,6 +179,26 @@ STOKES_2D = "9:10"
 STOKES_3D = "5:2"
 STOKES_TOL = 1e-8
 STOKES_CROSSCHECK = "4:5"
+# phase 9: the exact-W operator form at the flagship's refinement; the two
+# explicit forms at EXPLICIT_REFINEMENT (at most the flagship's), whose fine
+# compact AL block the setup must form within COMPACT_SETUP_LIMIT_S
+EXPLICIT_REFINEMENT = 11
+COMPACT_SETUP_LIMIT_S = 30.0
+AL_FORMS = {"exactw": (True, False), "explicit": (False, True),
+            "explicit_exactw": (False, False)}
+# phase 5's open cell: the rational mode at refinements 7-9 under the
+# results table's rule: refinement -> (the TPU's float32 count,
+# tables/results_tpu.md:44-46; the JAX package's float32 count on the CPU,
+# tests/test_torch_rational_table*.py, which the card's must equal within 1)
+RATIONAL_TABLE = {7: (37, 10), 8: (55, 10), 9: (37, 10)}
+# phase 10: nitsche, the reference's 5-cycle study (parameters_nitsche.prm,
+# scripts/make_results_table.py:193-219) and a scale row at refinement 11
+NITSCHE_CYCLES = (0, 1, 2, 3, 4)
+NITSCHE_SCALE_CYCLE = 7
+# phase 11: elasticity 3D in the results table's configuration
+# (scripts/make_results_table.py:222-246), cycles 0 to this one; cycle 3
+# (1,039,497 dofs) ran past the script's time limit (PERF.md §4)
+ELASTICITY_CYCLE = 2
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 and float64 rates
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -247,6 +299,44 @@ def stokes_config(pair, spacedim=2):
         cfg.dirichlet_bc = ("0;0;0", "")
         cfg.embedded_value = ("-1;1;0", "")
     cfg.outer.tolerance = 3e-4
+    cfg.outer.reduction = 1e-5
+    return cfg
+
+
+def al_form_config(refinement, form):
+    """The flagship's configuration in one of the augmented solver's other
+    AL forms (:data:`AL_FORMS`): ``exactw`` is the operator form with
+    W = M, ``explicit`` and ``explicit_exactw`` the explicit form with
+    W = diag(M)² and W = M²."""
+    cfg = flagship_config(refinement)
+    cfg.use_operator_form, cfg.use_diagonal_inverse = AL_FORMS[form]
+    return cfg
+
+
+def nitsche_config():
+    """The results table's nitsche configuration
+    (scripts/make_results_table.py:193-219): the manufactured solution
+    u = sin(πx)sin(πy), initial refinement 4, outer tolerance 1e-8."""
+    from fictitious_domain_al_preconditioners_torch.models import \
+        NitscheConfig
+
+    return NitscheConfig(use_manufactured_solution=True)
+
+
+def elasticity_config(small=False):
+    """The results table's elasticity configuration
+    (scripts/make_results_table.py:222-246): 3D, fixed inner iterations,
+    W = M² exact, outer tolerance 3e-5 and reduction 1e-5, background
+    refinement 3 and immersed 2 at cycle 0; ``small``: background 2 and
+    immersed 1 (tests/test_elasticity.py's smallest row)."""
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ElasticityInterfaceConfig
+
+    cfg = ElasticityInterfaceConfig(use_fixed_iterations=True)
+    if small:
+        cfg.initial_background_refinement = 2
+        cfg.initial_immersed_refinement = 1
+    cfg.outer.tolerance = 3e-5
     cfg.outer.reduction = 1e-5
     return cfg
 
@@ -1151,12 +1241,17 @@ def phase_crosscheck(device, refinement=7):
         l2_error
 
     outs = []
-    for solver in ("augmented",) + MODE_SOLVERS + ("augmented_bf16",):
+    for solver in (("augmented",) + MODE_SOLVERS + ("augmented_bf16",)
+                   + tuple(AL_FORMS)):
         runs = {}
         for dev in (device, torch.device("cpu")):
-            cfg = (flagship_config(refinement, bf16=solver.endswith("bf16"))
-                   if solver.startswith("augmented")
-                   else mode_config(solver, refinement))
+            if solver in AL_FORMS:
+                cfg = al_form_config(refinement, solver)
+            elif solver.startswith("augmented"):
+                cfg = flagship_config(refinement,
+                                      bf16=solver.endswith("bf16"))
+            else:
+                cfg = mode_config(solver, refinement)
             prob = ImmersedLaplaceProblem(cfg, device=dev,
                                           dtype=torch.float32).setup()
             u, _, info = prob.solve()
@@ -1169,7 +1264,7 @@ def phase_crosscheck(device, refinement=7):
         out = dict(solver=solver, refinement=refinement, iterations_gpu=itg,
                    iterations_cpu=itc, converged=(cg_, cc),
                    max_abs_diff=diff, max_abs_cpu=scale)
-        if solver.startswith("augmented"):
+        if solver.startswith("augmented") or solver in AL_FORMS:
             out["l2_error_gpu"] = l2_error(pg.space, ug, exact_solution)
         print("phase 4: " + json.dumps(out), flush=True)
         check(cg_ and cc, f"phase 4 {solver}: a solve did not converge")
@@ -1177,7 +1272,7 @@ def phase_crosscheck(device, refinement=7):
               f"vs {itc}")
         check(diff <= 1e-3 * scale, f"phase 4 {solver}: |u_gpu - u_cpu| = "
               f"{diff:.3e}")
-        if solver.startswith("augmented"):
+        if "l2_error_gpu" in out:
             check(out["l2_error_gpu"] < 6e-3,
                   f"phase 4: L2 error {out['l2_error_gpu']:.3e}")
         outs.append(out)
@@ -1292,6 +1387,295 @@ def phase_stokes_crosscheck(device, pair=STOKES_CROSSCHECK):
     return out
 
 
+def phase_al_forms(refinement, explicit_refinement, device):
+    """Phase 9: the augmented solver's exact-W operator form at
+    ``refinement`` (the flagship's lattice path: K2 and K1) and its two
+    explicit forms (K1 and the masked compact AL block on every level) at
+    ``explicit_refinement``, whose fine compact block must form within
+    :data:`COMPACT_SETUP_LIMIT_S`; a warm-up and a timed solve each.  Every
+    kernel of each path is compared with its plain version at that path's
+    level shapes.  Returns ``(outs, errs)``."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+    from fictitious_domain_al_preconditioners_torch.ops.kernels import \
+        launch_key
+
+    outs, errs = [], []
+    for form in AL_FORMS:
+        ref = refinement if form == "exactw" else explicit_refinement
+        gc.collect()
+        torch.cuda.empty_cache()
+        prob, out = drive(lambda: ImmersedLaplaceProblem(
+            al_form_config(ref, form), device=device), device)
+        blocks = prob.compact_blocks
+        fine = blocks[0] if blocks and form != "exactw" else None
+        check(fine is None or fine["seconds"] <= COMPACT_SETUP_LIMIT_S,
+              f"phase 9 {form}@{ref}: the fine compact block took "
+              f"{fine and fine['seconds']} s > {COMPACT_SETUP_LIMIT_S} s")
+        out["path"] = f"{form}@{ref}"
+        out["gmg_levels"] = len(prob._last_gmg.levels)
+        out["compact_blocks"] = blocks
+        if fine is not None:
+            out.update(compact_rows=fine["rows"], compact_bytes=fine["bytes"],
+                       compact_seconds=fine["seconds"])
+        print("phase 9: " + json.dumps(out), flush=True)
+        if form == "exactw":
+            require_launches(out, ["masked_laplace_2d"] + [
+                launch_key(m) for m in ("op", "pre", "post")], "phase 9")
+            errs += phase_flagship_shapes(prob, device)
+        else:
+            require_launches(out, ["masked_laplace_2d"], f"phase 9 {form}")
+            check(all(st is None for st in prob.level_stencils),
+                  f"phase 9 {form}: a level has patch planes")
+            for i, level in enumerate(prob._last_gmg.levels):
+                lat = tuple(reversed(level.space.n_points_1d))
+                h = tuple(1.0 / (n - 1) for n in lat)
+                u = torch.as_tensor(
+                    np.random.default_rng(700 + i).standard_normal(lat),
+                    dtype=torch.float32, device=device)
+                record(errs, "masked_laplace_2d", "-",
+                       f"{form} level {i} {lat}", K.masked_laplace_2d(u, h),
+                       K.masked_laplace_2d_plain(u, h))
+        print(f"phase 9: {form}: kernels agree with plain at all "
+              f"{len(errs)} path comparisons so far", flush=True)
+        outs.append(out)
+        del prob
+    gc.collect()
+    torch.cuda.empty_cache()
+    return outs, errs
+
+
+def phase_rational_table(device):
+    """Phase 5's open cell: the rational mode at refinements 7-9 under the
+    results table's rule (f = 0, g = 1 on the circle, tolerance 3e-5,
+    reduction 1e-6), a warm-up and a timed solve each, beside the TPU's
+    counts; each count must equal the JAX package's float32 count on the
+    CPU within 1."""
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceProblem
+
+    outs = []
+    for ref, (tpu, cpu) in RATIONAL_TABLE.items():
+        _, out = drive(lambda: ImmersedLaplaceProblem(
+            mode_config("rational", ref), device=device), device)
+        out["path"] = f"rational@{ref}"
+        out["tpu_outer_iterations"] = tpu
+        out["reference_cpu_float32_outer_iterations"] = cpu
+        print("phase 5: rational table row " + json.dumps(out), flush=True)
+        check(abs(out["outer_iterations"] - cpu) <= 1,
+              f"phase 5 rational@{ref}: {out['outer_iterations']} outer "
+              f"iterations, the reference's float32 CPU count is {cpu}")
+        outs.append(out)
+    return outs
+
+
+def _no_launches(tag):
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    check(not launches, f"{tag}: kernels launched on a path that has none: "
+          f"{launches}")
+    return launches
+
+
+def phase_nitsche(device, cycles):
+    """Phase 10: the nitsche problem's manufactured study, one
+    ``solve_refined(tol_abs=1e-10)`` a cycle (the first call builds the
+    host system and the correction solver, timed apart), the true float64
+    residual to 1e-10 on every row, the L2/H1 errors and their rates, the
+    inner CG iterations per outer iteration.  No kernel is on this path:
+    its launch counts must stay 0.  Returns the rows."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        NitscheProblem
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    rows = []
+    for cycle in cycles:
+        tag = f"nitsche@{cycle}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        prob = NitscheProblem(nitsche_config(), device=device).setup(cycle)
+        setup_s = time.perf_counter() - t0
+        u, lam, history = prob.solve_refined(tol_abs=REFINED_TOL)
+        launches = _no_launches(f"phase 10 {tag}")
+        res = prob.results
+        l2, h1 = prob.errors()
+        out = dict(
+            path=tag, cycle=cycle, dofs_bulk=res["dofs_u"],
+            dofs_multiplier=res["dofs_lambda"],
+            refine_steps=res["refine_steps"],
+            total_outer_iterations=res["outer_its"],
+            inner_cg_total=res["inner_cg_total"],
+            inner_cg_per_outer=res["inner_cg_per_outer"],
+            refined_residual=res["refined_residual"], history=history,
+            converged=res["converged"], l2_error=l2, h1_error=h1,
+            setup_seconds=setup_s,
+            refine_build_seconds=res["refine_build_seconds"],
+            refined_seconds=res["refined_seconds"],
+            device_seconds=res["correction_seconds"],
+            host_residual_seconds=res["host_residual_seconds"],
+            host_syncs=res["host_syncs"],
+            gmg_levels=len(prob._parts["gmg"].levels),
+            peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+            launches=launches)
+        if rows and rows[-1]["cycle"] == cycle - 1:
+            out["l2_rate"] = math.log2(rows[-1]["l2_error"] / l2)
+            out["h1_rate"] = math.log2(rows[-1]["h1_error"] / h1)
+        print("phase 10: " + json.dumps(out), flush=True)
+        check(res["converged"] and history[-1] <= REFINED_TOL,
+              f"phase 10 {tag}: true residual {history[-1]:.3e} > "
+              f"{REFINED_TOL}")
+        check(all(x.shape == (n,) and bool(np.isfinite(x).all())
+                  for x, n in zip((u, lam), prob.layout.sizes)),
+              f"phase 10 {tag}: non-finite or misshapen iterate")
+        rows.append(out)
+        del prob
+    study = [r for r in rows if "l2_rate" in r]
+    if study:
+        check(study[-1]["l2_rate"] > 1.6, "phase 10: L2 rate "
+              f"{study[-1]['l2_rate']:.3f} <= 1.6 at cycle "
+              f"{study[-1]['cycle']}")
+    return rows
+
+
+def phase_elasticity(device, cycles):
+    """Phase 11: the 3D elasticity interface problem in the results table's
+    configuration, one ``solve()`` (printed first) and one
+    ``solve_refined(tol_abs=1e-10)`` a cycle on the operators the solve
+    built, the true float64 residual to 1e-10 on every row, the GMG
+    levels' routes (band or element) of both hierarchies.  No kernel is on
+    this path: its launch counts must stay 0.  Returns the rows."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ElasticityInterfaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    rows = []
+    for cycle in cycles:
+        tag = f"elasticity@{cycle}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        prob = ElasticityInterfaceProblem(elasticity_config(),
+                                          device=device).setup(cycle)
+        setup_s = time.perf_counter() - t0
+        prob.solve()
+        solve = dict(prob.results)
+        print(f"phase 11: {tag} solve(): {solve['outer_iterations']} outer "
+              f"iterations, converged {solve['converged']}, "
+              f"{solve['solve_seconds']:.2f} s after "
+              f"{solve['build_seconds']:.2f} s of build", flush=True)
+        u, u2, lam, history = prob.solve_refined(tol_abs=REFINED_TOL)
+        launches = _no_launches(f"phase 11 {tag}")
+        res = prob.results
+        parts = prob._last_parts
+        sizes = prob.layout.sizes
+        out = dict(
+            path=tag, cycle=cycle, dofs_background=sizes[0],
+            dofs_immersed=sizes[1], dofs_multiplier=sizes[2],
+            dofs_total=prob.layout.total,
+            solve_outer_iterations=solve["outer_iterations"],
+            solve_converged=solve["converged"],
+            solve_seconds=solve["solve_seconds"],
+            build_seconds=solve["build_seconds"],
+            solve_host_syncs=solve["host_syncs"],
+            refine_steps=res["refine_steps"],
+            total_outer_iterations=res["outer_iterations"],
+            refined_residual=res["refined_residual"], history=history,
+            converged=res["converged"],
+            constraint_residual=prob.constraint_residual(),
+            setup_seconds=setup_s,
+            refine_build_seconds=res["refine_build_seconds"],
+            refined_seconds=res["refined_seconds"],
+            device_seconds=res["correction_seconds"],
+            host_residual_seconds=res["host_residual_seconds"],
+            host_syncs=res["host_syncs"],
+            gmg_levels=[len(parts["gmg11"].levels),
+                        len(parts["gmg22"].levels)],
+            gmg_routes=res["gmg_routes"],
+            peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+            launches=launches)
+        print("phase 11: " + json.dumps(out), flush=True)
+        check(solve["converged"], f"phase 11 {tag}: solve did not converge")
+        check(res["converged"] and history[-1] <= REFINED_TOL,
+              f"phase 11 {tag}: true residual {history[-1]:.3e} > "
+              f"{REFINED_TOL}")
+        check(all(x.shape == (n,) and bool(np.isfinite(x).all())
+                  for x, n in zip((u, u2, lam), sizes)),
+              f"phase 11 {tag}: non-finite or misshapen iterate")
+        check(math.isfinite(out["constraint_residual"]),
+              f"phase 11 {tag}: constraint residual not finite")
+        rows.append(out)
+        del prob, parts
+    return rows
+
+
+def _crosscheck(tag, make, device):
+    """``make(device)`` solved on the card and on the CPU (float32
+    V-cycles on both; the operator and the Krylov solvers float64): outer
+    counts within 1, each solution block within 1e-3 of its max |CPU
+    value|."""
+    import torch
+
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        prob, blocks = make(dev)
+        res = prob.results
+        its = res.get("outer_iterations", res.get("outer_its"))
+        runs[dev.type] = ([b.cpu().double() for b in blocks], its,
+                          res["converged"])
+    (xg, itg, cg_), (xc, itc, cc) = runs["cuda"], runs["cpu"]
+    diffs = [float((g - c).abs().max()) for g, c in zip(xg, xc)]
+    scales = [float(c.abs().max()) for c in xc]
+    out = dict(path=tag, iterations_gpu=itg, iterations_cpu=itc,
+               converged=(cg_, cc), max_abs_diff=diffs, max_abs_cpu=scales)
+    print("phase 4: " + json.dumps(out), flush=True)
+    check(cg_ and cc, f"phase 4 {tag}: a solve did not converge")
+    check(abs(itg - itc) <= 1, f"phase 4 {tag}: outer counts {itg} vs {itc}")
+    for i, (d, sc) in enumerate(zip(diffs, scales)):
+        check(d <= 1e-3 * sc, f"phase 4 {tag}: block {i}: |gpu - cpu| = "
+              f"{d:.3e} > 1e-3 * {sc:.3e}")
+    return out
+
+
+def phase_family_crosscheck(device):
+    """The nitsche problem at cycle 0 and the 3D elasticity problem at
+    background refinement 2, immersed 1, on the card against the CPU.  The
+    elasticity solve runs to a reduction of 1e-10: at the table's 1e-5 its
+    iterate is defined only to a few 1e-3 (the inner CGs stop at an
+    absolute 1e-2, where a rounding-level change moves a stop; a float32
+    and a float64 V-cycle on the CPU differ by 3e-3 in u and 5e-2 in λ
+    there, by 1.3e-7 at 1e-10)."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import (
+        ElasticityInterfaceProblem, NitscheProblem)
+
+    def nitsche(dev):
+        prob = NitscheProblem(nitsche_config(), device=dev,
+                              dtype=torch.float32).setup(0)
+        prob.solve()
+        return prob, (prob.u, prob.lam)
+
+    def elasticity(dev):
+        cfg = elasticity_config(small=True)
+        cfg.outer.tolerance, cfg.outer.reduction = 1e-14, 1e-10
+        prob = ElasticityInterfaceProblem(cfg, device=dev,
+                                          dtype=torch.float32)
+        prob.setup(0).solve()
+        return prob, (prob.u, prob.u2, prob.lam)
+
+    return [_crosscheck("nitsche@0", nitsche, device),
+            _crosscheck("elasticity@2:1", elasticity, device)]
+
+
 def k1_resources(shape):
     """Resources of K1's two forms, keyed as in the kernels line: of the
     instantiation a launch on ``shape`` takes, with every instantiation's
@@ -1346,9 +1730,10 @@ def k2_resources(shape, degree=4):
 
 def kernel_report(path_launches, errs, times, resources):
     """The kernels' JSON line: one entry per kernel (K1's bf16 form and K6's
-    float64 form their own),
-    K2's modes inside.  ``launches`` sums the paths of phases 3, 5, 6 and 7
-    (``launches_by_path`` lists them)."""
+    float64 form their own), K2's modes inside.  ``launches`` sums the
+    paths of phases 3, 5 (with its rational table rows), 6, 7, 8, 9, 10 and
+    11 (``launches_by_path`` lists them; 0 on the Stokes, nitsche and
+    elasticity paths)."""
     from fictitious_domain_al_preconditioners_torch.ops.kernels import (
         MODES, launch_key)
 
@@ -1426,7 +1811,20 @@ def main(argv=None) -> int:
     ap.add_argument("--stokes-only", action="store_true",
                     help="run only the Stokes phase and its cross-check (no "
                          "kernels line)")
+    ap.add_argument("--elasticity-cycle", type=int, default=ELASTICITY_CYCLE,
+                    help="last cycle of phase 11 (background refinement 3 + "
+                         "cycle, immersed 2 + cycle; 3 is the scale row of "
+                         "1,039,497 dofs, cut from the default run)")
+    ap.add_argument("--families-only", action="store_true",
+                    help="run only phases 9-11, the rational table rows and "
+                         "their cross-checks (no kernels line)")
+    ap.add_argument("--elasticity-only", action="store_true",
+                    help="run only phase 11 (no kernels line)")
     args = ap.parse_args(argv)
+    explicit_ref = min(EXPLICIT_REFINEMENT, args.refinement)
+    nitsche_cycles = tuple(sorted(set(NITSCHE_CYCLES) | {
+        min(NITSCHE_SCALE_CYCLE, args.refinement - 4)}))
+    elasticity_cycles = tuple(range(args.elasticity_cycle + 1))
 
     import torch
 
@@ -1485,6 +1883,20 @@ def main(argv=None) -> int:
             print(f"chip_smoke: the Stokes phases passed in "
                   f"{time.perf_counter() - t_start:.1f} s", flush=True)
             return 0
+        if args.elasticity_only:
+            phase_elasticity(device, elasticity_cycles)
+            print(f"chip_smoke: phase 11 passed in "
+                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            return 0
+        if args.families_only:
+            phase_al_forms(args.refinement, explicit_ref, device)
+            phase_rational_table(device)
+            phase_nitsche(device, nitsche_cycles)
+            phase_elasticity(device, elasticity_cycles)
+            phase_family_crosscheck(device)
+            print(f"chip_smoke: phases 9-11 passed in "
+                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            return 0
         if args.elliptic_only:
             _, _, ell_space = phase_elliptic(args.elliptic_cycle, device)
             time_k6_f64(ell_space, device, {})
@@ -1519,6 +1931,8 @@ def main(argv=None) -> int:
                            times)
             del prob
             torch.cuda.empty_cache()
+        for out in phase_rational_table(device):
+            path_launches[out["path"]] = out["launches"]
 
         prob, out, bf16_errs = phase_bf16_flagship(
             args.refinement, device, flag["outer_iterations"])
@@ -1558,9 +1972,19 @@ def main(argv=None) -> int:
             out = phase_stokes(pair, sd, device)
             path_launches[out["path"]] = out["launches"]
 
+        outs, form_errs = phase_al_forms(args.refinement, explicit_ref,
+                                         device)
+        errs += form_errs
+        for out in outs:
+            path_launches[out["path"]] = out["launches"]
+        for out in (phase_nitsche(device, nitsche_cycles)
+                    + phase_elasticity(device, elasticity_cycles)):
+            path_launches[out["path"]] = out["launches"]
+
         phase_crosscheck(device)
         phase_elliptic_crosscheck(device)
         phase_stokes_crosscheck(device)
+        phase_family_crosscheck(device)
         report = kernel_report(path_launches, errs, times, resources)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -11,10 +11,15 @@ uniform Q1 background with Dirichlet conditions on all four sides:
 
 Solver modes (``cfg.solver``, immersed_laplace.cc:502-951):
 
-- ``augmented`` (the paper's method; operator-form AL term, W = diag(M)):
-  outer FGMRES (CGS2) on ``[[Aug, Cᵀ], [C, 0]]`` with the AL
-  preconditioner; ``Aug⁻¹`` is an inner CG preconditioned by a lattice GMG
-  V-cycle that re-discretizes the AL term on every level.
+- ``augmented`` (the paper's method): outer FGMRES (CGS2) on
+  ``[[Aug, Cᵀ], [C, 0]]`` with the AL preconditioner; ``Aug⁻¹`` is an inner
+  CG preconditioned by a lattice GMG V-cycle that re-discretizes the AL
+  term on every level.  In operator form (``use_operator_form``) the AL
+  term is the particle mass γ/h_Γ·Σ_q φφᵀ JxW and W = diag(M) or M; in the
+  explicit form it is γ·CᵀW⁻¹C with W = diag(M)² (the compact dense block
+  of :meth:`..ops.coupling.Coupling.compact_al`) or W = M² (matrix-free in
+  the operator, its diagonal surrogate on the GMG levels, as the
+  reference's AMG is built, immersed_laplace.cc:711-715).
 - ``CG``: exact Schur complement ``S = C K⁻¹ Cᵀ`` by CG.
 - ``ELMAN_triang``: BFBt block-triangular preconditioner, right GMRES.
 - ``rational``: ``diag(K⁻¹, (−Δ_Γ)^{-1/2})`` with AAA poles; MINRES in
@@ -34,10 +39,12 @@ correction solves in the working dtype (``utils.refine``).
 
 On CUDA the kernels carry the lattice work: K2 (``fused_augmented_2d``)
 applies the augmented operator (``op``) and smooths (``pre``/``post``) on
-every level whose Γ-band is interior, and smooths ``K⁻¹``'s levels in its
-no-patch form; K1 (``masked_laplace_2d``) is the constrained stiffness of
-``K⁻¹``, of a coarse level whose band touches ∂Ω, and, in bfloat16, of every
-level of the bf16 V-cycle; K6 (``laplace_stencil_2d``, through
+every level of the operator form whose Γ-band is interior, and smooths
+``K⁻¹``'s levels in its no-patch form; K1 (``masked_laplace_2d``) is the
+constrained stiffness of ``K⁻¹``, of a coarse level whose band touches ∂Ω,
+of the operator and every level of the explicit form (beside the masked
+compact AL block, with the unfused Chebyshev smoother) and, in bfloat16, of
+every level of the bf16 V-cycle; K6 (``laplace_stencil_2d``, through
 ``LatticeOps.laplace``) is the unconstrained stiffness that lifts the
 Dirichlet data.  On the CPU the same wrappers run their plain PyTorch
 versions.
@@ -67,7 +74,8 @@ from ..parallel.lattice import LatticeOps
 from ..precond.al import al_preconditioner
 from ..precond.gmg import FusedSmoother, build_gmg
 from ..precond.rational import rational_preconditioner
-from ..precond.weights import inv_diag
+from ..precond.weights import (inv_diag, inv_diag_squared, inv_exact,
+                               inv_squared_exact)
 from ..utils.expressions import ParsedFunction
 from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
 
@@ -137,6 +145,7 @@ class ImmersedLaplaceProblem:
         self.results = {}
         self.stats = {"host_syncs": 0}
         self.lanczos_start = None
+        self.compact_blocks = []
         self._solvers = {}
         self._refine_cache = None
 
@@ -146,10 +155,6 @@ class ImmersedLaplaceProblem:
             raise ValueError(f"unknown solver {cfg.solver!r}; one of "
                              f"{SOLVERS}")
         missing = []
-        if cfg.solver == "augmented" and (not cfg.use_operator_form
-                                          or not cfg.use_diagonal_inverse):
-            missing.append("the augmented solver other than operator form "
-                           "+ diagonal inverse")
         if cfg.delta_refinement:
             missing.append("delta_refinement")
         if cfg.embedding_space_degree != 1 or cfg.embedded_space_degree != 1:
@@ -259,26 +264,30 @@ class ImmersedLaplaceProblem:
             dofs_immersed=self.imm_space.n_dofs)
         return u, lam, info
 
-    def _level_operator(self, sp, coupling, gamma, dtype=None):
+    def _level_operator(self, sp, coupling, gamma, dtype=None, w_diag=None):
         """Masked augmented operator of one lattice level: ``(op, diag,
         smoother_builder)`` for :func:`..precond.gmg.build_gmg`, and the
         level's :class:`AugmentedStencil2D` (None on a compact-AL level and
         in bfloat16).
 
-        In the working dtype a level whose Γ-band is interior is K2 (``op``,
-        and ``pre``/``post`` as its smoother).  In bfloat16 (``dtype``, the
-        bf16 V-cycle) it is K1's bf16 form plus the masked 9-point patch in
-        bf16, with the unfused Chebyshev smoother: the reference has no bf16
-        form of the fused kernel (``pallas_kernels.py:451-452``).  A level
-        whose band touches ∂Ω is K1 plus the masked compact AL block in
-        either dtype."""
+        In the working dtype a level of the operator form whose Γ-band is
+        interior is K2 (``op``, and ``pre``/``post`` as its smoother).  In
+        bfloat16 (``dtype``, the bf16 V-cycle) it is K1's bf16 form plus the
+        masked 9-point patch in bf16, with the unfused Chebyshev smoother:
+        the reference has no bf16 form of the fused kernel
+        (``pallas_kernels.py:451-452``).  A level whose band touches ∂Ω,
+        and every level of the explicit form (``w_diag``, the weights of
+        γ·Cᵀdiag(w)C), is K1 plus the masked compact AL block in either
+        dtype (``_fused_masked_k`` + ``_masked_wrap`` of the reference,
+        immersed_laplace.py:1100-1106, 1129-1135)."""
         dev, dt = self.device, self.dtype
         lat = LatticeOps.for_space(sp)
         ny, nx = lat.shape
         k_diag = lat.laplace_diag()
         free = ~sp.boundary_dof_mask(list(self.cfg.dirichlet_ids))
         bf16 = dtype == torch.bfloat16
-        pw = None if bf16 else coupling.patch_w9(sp, gamma)
+        explicit = w_diag is not None
+        pw = None if bf16 or explicit else coupling.patch_w9(sp, gamma)
         if pw is not None:
             box, w9 = pw
             r0, c0, pr, pc = box
@@ -302,7 +311,7 @@ class ImmersedLaplaceProblem:
             return (op, k_diag + al_diag.reshape(-1), smoother_builder), st
 
         al = (coupling.patch_al_lattice(sp, gamma, free=free, dtype=dtype)
-              if bf16 else None)
+              if bf16 and not explicit else None)
         if al is not None:
             al_mv2, al_diag = al
 
@@ -311,15 +320,30 @@ class ImmersedLaplaceProblem:
 
             return (op, k_diag + al_diag, None), None
 
-        # Γ-band touches ∂Ω on this (coarse) level: compact AL block
-        al, al_diag = coupling.compact_al(gamma, dtype=dtype)
-        m = torch.as_tensor(free.reshape(ny, nx), device=dev)
+        # the explicit form, or a (coarse) level whose Γ-band touches ∂Ω:
+        # the compact AL block
+        t0 = time.perf_counter()
+        al, al_diag = coupling.compact_al(gamma, w_diag, dtype=dtype)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.compact_blocks.append(dict(
+            shape=[ny, nx], rows=al.rows,
+            bytes=al.rows ** 2 * (dtype or dt).itemsize,
+            seconds=time.perf_counter() - t0))
+        return self._masked_aug_level(lat, free, al, k_diag + al_diag), None
+
+    def _masked_aug_level(self, lat, free, al, diag):
+        """``(op, diag, None)`` of a level whose operator is K1 plus the
+        masked AL term ``al`` (flat in, flat out): ``K1(x) + m⊙al(m⊙x)``,
+        the unfused Chebyshev as its smoother."""
+        ny, nx = lat.shape
+        m = torch.as_tensor(free.reshape(ny, nx), device=self.device)
 
         def op(x2):
             al_x = al(torch.where(m, x2, 0.0).reshape(-1)).reshape(ny, nx)
             return masked_laplace_2d(x2, lat.h) + torch.where(m, al_x, 0.0)
 
-        return (op, k_diag + al_diag, None), None
+        return op, diag, None
 
     def _augmented_run(self, raw_rhs: bool = False,
                        max_steps: int | None = None):
@@ -332,28 +356,59 @@ class ImmersedLaplaceProblem:
         built)."""
         cfg = self.cfg
         dev, dt = self.device, self.dtype
-        gamma = cfg.gamma / self.curve.h_max
         C_lin = self.C.as_linop()
         Ct_lin = C_lin.T
         layout = self.layout
         free = self.free
-        inv_w = inv_diag(self.M)
         shape = LatticeOps.for_space(self.space).shape
         n = self.space.n_dofs
         if max_steps is None:
             max_steps = cfg.schur.max_steps
         gmg_dt = torch.bfloat16 if cfg.use_bf16_multigrid else dt
+        self.compact_blocks = []   # every compact AL block formed, in order
+        if cfg.use_operator_form:
+            # γ scaled by 1/h_Γ; the AL term is the particle mass on Γ
+            gamma = cfg.gamma / self.curve.h_max
+            inv_w = (inv_diag(self.M) if cfg.use_diagonal_inverse
+                     else inv_exact(self.M))
+            w_diag = None
 
-        def particle_coupling(sp):
-            return build_coupling(
-                sp, self.imm_space, order=2 * cfg.embedding_space_degree + 1,
-                device=dev, dtype=dt)
+            def coupling_for(sp):
+                return build_coupling(
+                    sp, self.imm_space,
+                    order=2 * cfg.embedding_space_degree + 1, device=dev,
+                    dtype=dt)
+
+            fine_coupling = coupling_for(self.space)
+        else:
+            # explicit γ·CᵀW⁻¹C with W = diag(M)² or M² (γ not scaled);
+            # every GMG level carries the diagonal surrogate γ·Cᵀdiag(w)C
+            # of its own coupling
+            gamma = cfg.gamma
+            m_diag = (self.M.diag_host() if hasattr(self.M, "diag_host")
+                      else self.M.diag().double().cpu().numpy())
+            w_diag = 1.0 / m_diag ** 2
+            inv_w = (inv_diag_squared(self.M) if cfg.use_diagonal_inverse
+                     else inv_squared_exact(self.M))
+
+            def coupling_for(sp):
+                return build_coupling(sp, self.imm_space,
+                                      cfg.coupling_quadrature_order,
+                                      device=dev, dtype=dt)
+
+            fine_coupling = self.C
 
         # the fine augmented operator of the inner CG, in the working dtype
-        fine_coupling = particle_coupling(self.space)
         fine_level, fine_stencil = self._level_operator(
-            self.space, fine_coupling, gamma)
-        aug_lat = fine_level[0]
+            self.space, fine_coupling, gamma, w_diag=w_diag)
+        if cfg.use_operator_form or cfg.use_diagonal_inverse:
+            aug_lat = fine_level[0]
+        else:
+            # W = M² is not diagonal: the operator keeps the matrix-free
+            # γ·CᵀW⁻¹C (immersed_laplace.py:1013-1016 of the reference)
+            aug_lat = self._masked_aug_level(
+                LatticeOps.for_space(self.space), free.cpu().numpy(),
+                self.C.al_term(inv_w, gamma), None)[0]
 
         self.level_stencils = []   # per GMG level, fine first
 
@@ -362,9 +417,9 @@ class ImmersedLaplaceProblem:
                 level, st = fine_level, fine_stencil
             else:
                 coupling = (fine_coupling if sp is self.space
-                            else particle_coupling(sp))
+                            else coupling_for(sp))
                 level, st = self._level_operator(sp, coupling, gamma,
-                                                 dtype=gmg_dt)
+                                                 dtype=gmg_dt, w_diag=w_diag)
             self.level_stencils.append(st)
             return level
 
@@ -417,11 +472,22 @@ class ImmersedLaplaceProblem:
 
         return run
 
+    def _check_refinable(self):
+        cfg = self.cfg
+        if not (cfg.solver == "augmented" and cfg.use_operator_form
+                and cfg.use_diagonal_inverse):
+            raise NotImplementedError(
+                "solve_refined: the augmented solver in operator form with "
+                "W = diag(M) only; the host float64 reference "
+                "(ops.host_ref.HostAugmentedSystem) applies that system "
+                "alone, as the reference package's does")
+
     def build_correction_solver(self):
         """``(b0, b1) -> (du, dlam, info)``: one AL-preconditioned FGMRES
         solve of the augmented system with a raw right-hand side, its outer
         steps capped at ``utils.refine.CORRECTION_MAX_OUTER`` (the inner
         engine of :meth:`solve_refined`)."""
+        self._check_refinable()
         return self._augmented_run(
             raw_rhs=True,
             max_steps=min(self.cfg.schur.max_steps, CORRECTION_MAX_OUTER))
@@ -440,7 +506,9 @@ class ImmersedLaplaceProblem:
         iterations, the final residual, the accepted steps, convergence,
         the seconds of the whole loop, of the device correction solves and
         of the host residuals, and the host syncs.  The host system and the
-        correction solver are built once per :meth:`setup`."""
+        correction solver are built once per :meth:`setup`.  Operator form
+        with W = diag(M) only (else ``NotImplementedError``)."""
+        self._check_refinable()
         if self._refine_cache is None:
             t0 = time.perf_counter()
             self._refine_cache = (HostAugmentedSystem(self),

@@ -33,7 +33,6 @@ strided products).
 
 from __future__ import annotations
 
-import itertools
 import time
 from dataclasses import dataclass, field
 
@@ -46,13 +45,12 @@ from ..ops.assembly import (divergence_block_local, imm_mass_matrix, imm_rhs,
                             mass_matrix, rhs_vector, vector_cell_dofs,
                             velocity_block_local)
 from ..ops.blocks import BlockLayout, block_operator
-from ..ops.coupling import Coupling, build_coupling
+from ..ops.coupling import VectorCoupling, build_coupling
 from ..ops.host_ref import HostStokesSystem
 from ..ops.krylov import cg, fgmres, minres
 from ..ops.linop import LinOp
 from ..ops.operators import CellMatrix, constrain, dirichlet_rhs
-from ..ops.sparse import COO, spgemm_ctwc
-from ..ops.sparse_band import lattice_band_linop
+from ..ops.sparse_band import vector_al_level
 from ..precond.al import al_preconditioner_diagonal, al_preconditioner_stokes
 from ..precond.gmg import build_gmg_flat
 from ..utils.expressions import ParsedFunction
@@ -60,42 +58,9 @@ from ..utils.prm import Params, parse_prm
 from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
 from ..utils.timer import TimerOutput
 
-__all__ = ["ALControl", "OuterControl", "StokesConfig", "StokesProblem",
-           "VectorCoupling"]
+__all__ = ["ALControl", "OuterControl", "StokesConfig", "StokesProblem"]
 
 SOLVERS = ("Stokes", "IBStokes", "IBStokesAL")
-# the band stencil's caps on its half-width and weight planes
-# (ops.sparse_band's defaults)
-MAX_BAND = 4
-MAX_PLANES = 512
-
-
-class VectorCoupling:
-    """Componentwise vector coupling over a scalar quad-point table:
-    velocity (n_comp·n_bg, component-major) <-> vector multiplier
-    (n_comp·n_imm).  C[(j,c),(i,c)] = ∫_Γ φ_i ψ_j, the same scalar kernel in
-    every component (stokes_immersed_boundary.cc:660,782)."""
-
-    def __init__(self, scalar: Coupling, n_comp: int):
-        self.scalar = scalar
-        self.n_comp = n_comp
-        self.shape = (scalar.shape[0] * n_comp, scalar.shape[1] * n_comp)
-
-    def mv(self, u_flat):
-        u = u_flat.reshape(self.n_comp, self.scalar.shape[1])
-        return self.scalar.mv(u.T).T.reshape(-1)
-
-    def rmv(self, lam_flat):
-        lam = lam_flat.reshape(self.n_comp, self.scalar.shape[0])
-        return self.scalar.rmv(lam.T).T.reshape(-1)
-
-    def as_linop(self) -> LinOp:
-        return LinOp(self.mv, self.shape, self.rmv, name="C_vec")
-
-    def al_term_diag(self, w_diag_scalar, gamma) -> np.ndarray:
-        """Diagonal of γ·Cᵀdiag(w)C in every component (float64 NumPy)."""
-        return np.tile(self.scalar.al_term_diag(w_diag_scalar, gamma),
-                       self.n_comp)
 
 
 @dataclass
@@ -192,43 +157,6 @@ class StokesConfig:
                             ";".join(["0"] * (spacedim + 1))),
             body_force=fn("Body force", ";".join(["1"] * spacedim)),
         )
-
-
-def band_planes_lower_bound(fe, local, n_comp: int) -> int:
-    """At least how many weight planes the band stencil of an operator
-    assembled from the shared component-major local matrix ``local`` on a
-    lattice of ``fe`` needs (the AL term, zero at the lattice's corners,
-    only adds planes).  For every lattice offset o there is a lattice corner
-    node that lies in one cell only, in which the node o away is also a node;
-    the assembled entry between them is the single local entry, so its plane
-    is not empty when that entry is not zero."""
-    mi = fe.node_multi_indices
-    k, nloc = fe.degree, len(mi)
-    index = {tuple(int(x) for x in m): i for i, m in enumerate(mi)}
-    count = 0
-    for o in itertools.product(range(-k, k + 1), repeat=mi.shape[1]):
-        a = tuple(0 if x >= 0 else k for x in o)
-        ia = index[a]
-        ib = index[tuple(x + y for x, y in zip(a, o))]
-        for ci in range(n_comp):
-            for cj in range(n_comp):
-                count += local[ci * nloc + ia, cj * nloc + ib] != 0.0
-    return int(count)
-
-
-def lattice_offset_extent(space, rows, cols) -> int:
-    """Largest lattice-axis distance between the row and column dofs of the
-    (component-major) entries ``rows``, ``cols`` on ``space``'s lattice: the
-    band half-width :func:`..ops.sparse_band.lattice_band_linop` would
-    need for them."""
-    npts = space.n_points_1d
-    n = int(np.prod(npts))
-    ri, ci = np.asarray(rows) % n, np.asarray(cols) % n
-    extent = 0
-    for m in npts:
-        extent = max(extent, int(np.abs(ci % m - ri % m).max(initial=0)))
-        ri, ci = ri // m, ci // m
-    return extent
 
 
 class StokesProblem:
@@ -478,52 +406,16 @@ class StokesProblem:
         def factory(sp):
             A_l = (self.A.astype(dt) if sp is self.vel_space
                    else self._vel_block(sp, dt))
-            Cl = al = None
+            Cl = None
             if with_al:
                 Cl = (self.Cs if sp is self.vel_space else build_coupling(
                     sp, self.mult_space, self._coupling_order(),
                     device="cpu"))
-                ns = sp.n_dofs
-                al_s = spgemm_ctwc(COO.from_coupling(Cl),
-                                   np.asarray(w_diag_scalar))
-                al = COO(np.concatenate([al_s.rows + k * ns
-                                         for k in range(sd)]),
-                         np.concatenate([al_s.cols + k * ns
-                                         for k in range(sd)]),
-                         np.concatenate([al_s.vals] * sd), (ns * sd,) * 2)
-            # the whole level matrix as one band stencil: no gather or
-            # scatter in the smoother (the reference's AMG consumes the
-            # same explicit matrices, utilities.h:111-331).  The band is
-            # refused before A_l's triplets are built when A_l alone needs
-            # too many planes or the AL term alone reaches past its
-            # half-width
-            band = None
-            if (band_planes_lower_bound(sp.fe, self._vel_local(sp), sd)
-                    <= MAX_PLANES and (al is None or lattice_offset_extent(
-                        sp, al.rows, al.cols) <= MAX_BAND)):
-                lvl = COO.from_cell_matrix(A_l)
-                if al is not None:
-                    lvl = lvl.add(al, alpha=gamma)
-                band = lattice_band_linop(sp, lvl, n_comp=sd,
-                                          max_band=MAX_BAND,
-                                          max_planes=MAX_PLANES, device=dev,
-                                          dtype=dt)
-            if band is not None:
-                routes.append("band")
-                return band[0], band[2]
-            routes.append("element")
-            diag = A_l.diag_host()
-            if not with_al:
-                return A_l.mv, diag
-            Cv = VectorCoupling(Cl.to(dev, dt), sd)
-            inv_w_d = torch.as_tensor(w_diag_scalar, dtype=dt, device=dev)
-            n_imm = Cl.shape[0]
-
-            def mv_aug(x, A_l=A_l, Cv=Cv):
-                wl = (inv_w_d * Cv.mv(x).reshape(sd, n_imm)).reshape(-1)
-                return A_l.mv(x) + gamma * Cv.rmv(wl)
-
-            return mv_aug, diag + Cv.al_term_diag(w_diag_scalar, gamma)
+            mv, diag, route = vector_al_level(
+                sp, A_l, self._vel_local(sp), sd, Cl, w_diag_scalar, gamma,
+                device=dev, dtype=dt)
+            routes.append(route)
+            return mv, diag
 
         gmg = build_gmg_flat(self.vel_space, factory, free_mask=self.free,
                              n_comp=sd, lanczos_start=self.lanczos_start,

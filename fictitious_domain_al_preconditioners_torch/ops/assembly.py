@@ -7,8 +7,8 @@ element form of any degree, continuous or not, for scalar and vector
 functions), the immersed mass and stiffness matrices and load vector
 (scalar or vector), the reference local matrices of the vector blocks
 (the Stokes velocity block in its grad-div and symmetric-gradient forms,
-and the divergence block), nodal interpolation and the L2 and H1 errors.
-Setup-time work runs in float64 NumPy on the host; results are handed over
+the elasticity block and the divergence block), nodal interpolation and
+the L2 and H1 errors.  Setup-time work runs in float64 NumPy on the host; results are handed over
 as tensors on the requested device (CUDA unless the caller asks for the
 CPU).
 """
@@ -24,7 +24,8 @@ from .operators import CellMatrix
 __all__ = ["mass_matrix", "laplace_matrix", "rhs_vector", "imm_mass_matrix",
            "imm_stiffness_matrix", "imm_rhs", "interpolate", "l2_error",
            "h1_error", "default_order", "vector_cell_dofs",
-           "velocity_block_local", "divergence_block_local"]
+           "velocity_block_local", "elasticity_block_local",
+           "divergence_block_local"]
 
 
 def default_order(space) -> int:
@@ -277,6 +278,24 @@ def velocity_block_local(fe, h, order, grad_div_coef) -> np.ndarray:
                 blk = blk + grad_div_coef * I[c, d]     # div-div term
             else:
                 blk = blk + I[d, c]                     # symmetric gradient
+            out[c * nloc:(c + 1) * nloc, d * nloc:(d + 1) * nloc] = blk
+    return out
+
+
+def elasticity_block_local(fe, h, order, lam: float, mu: float) -> np.ndarray:
+    """(nloc·dim, nloc·dim) local matrix of linear elasticity on the uniform
+    cell, ``λ(div u, div v) + 2μ(ε(u) : ε(v))`` (the elasticity cell kernel,
+    ElasticityUtilities::assemble_elasticity, utilities.h:377-427)."""
+    dim = fe.dim
+    nloc = fe.n_dofs_per_cell
+    I = _grad_products(fe, h, order)                    # (dim, dim, a, b)
+    lap = np.einsum("ccab->ab", I)
+    out = np.zeros((nloc * dim, nloc * dim))
+    for c in range(dim):
+        for d in range(dim):
+            blk = lam * I[c, d] + mu * I[d, c]
+            if c == d:
+                blk = blk + mu * lap
             out[c * nloc:(c + 1) * nloc, d * nloc:(d + 1) * nloc] = blk
     return out
 

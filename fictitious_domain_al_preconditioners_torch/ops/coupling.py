@@ -15,7 +15,8 @@ form γ·Σ_q φφᵀ JxW has a gather
 form (:meth:`Coupling.particle_mass_term`) and two lattice forms: the
 9-point patch (:meth:`Coupling.patch_w9`, :meth:`Coupling.patch_al_lattice`,
 :meth:`Coupling.patch_stencil_al`) when the band is interior to the lattice,
-and the compact dense block (:meth:`Coupling.compact_al`) otherwise.
+and the compact dense block (:meth:`Coupling.compact_al`) otherwise, which
+also holds the explicit form γ·Cᵀdiag(w)C.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from ..core.quadrature import gauss
 from .linop import LinOp
 
-__all__ = ["Coupling", "build_coupling", "accumulate_al"]
+__all__ = ["Coupling", "VectorCoupling", "build_coupling", "accumulate_al"]
 
 
 def accumulate_al(idx, phi, w, m):
@@ -42,16 +43,18 @@ class Coupling:
     """Quad-point form of C : V_bg -> V_imm (shape (n_imm, n_bg)).
 
     The table is kept twice: as float64 NumPy arrays for setup-time work
-    (``host``) and as tensors on ``device`` for the applies."""
+    (``host``) and as tensors on ``device`` for the applies.  ``points``
+    (optional, host) are the physical quadrature points, (nq, spacedim)."""
 
     def __init__(self, bg_dofs, bg_phi, imm_dofs, imm_psi, jxw, shape, *,
-                 device, dtype):
+                 device, dtype, points=None):
         self.host = dict(bg_dofs=np.asarray(bg_dofs),
                          bg_phi=np.asarray(bg_phi, dtype=np.float64),
                          imm_dofs=np.asarray(imm_dofs),
                          imm_psi=np.asarray(imm_psi, dtype=np.float64),
                          jxw=np.asarray(jxw, dtype=np.float64))
         self.shape = tuple(int(s) for s in shape)
+        self.points = None if points is None else np.asarray(points)
         self.device = torch.device(device)
         self.dtype = dtype
 
@@ -72,7 +75,7 @@ class Coupling:
         h = self.host
         return Coupling(h["bg_dofs"], h["bg_phi"], h["imm_dofs"],
                         h["imm_psi"], h["jxw"], self.shape, device=device,
-                        dtype=dtype)
+                        dtype=dtype, points=self.points)
 
     def astype(self, dtype) -> "Coupling":
         """This coupling in ``dtype`` on its device (itself if it is
@@ -198,19 +201,36 @@ class Coupling:
         np.add.at(out, (rows, cols), vals)
         return out
 
-    def compact_al(self, gamma: float, dtype=None):
-        """Compact dense form of the particle AL matrix γ·Σ_q JxW φφᵀ over
-        the set of background dofs the band touches.  Returns
+    def compact_al(self, gamma: float, w_diag=None, dtype=None):
+        """Compact dense form of an AL matrix over the set of background
+        dofs the band touches: the particle form γ·Σ_q JxW φφᵀ with
+        ``w_diag=None`` (immersed_laplace.cc:653-705), else the explicit
+        form γ·Cᵀdiag(w)C (``coupling.py:120-170`` of the reference).  The
+        block is formed once, in float64 (the explicit one as the SpGEMM of
+        :func:`.sparse.spgemm_ctwc` scattered into the dense block on the
+        coupling's device), and held in ``dtype`` (default: the
+        coupling's), the dtype of the level that applies it.  Returns
         ``(LinOp, diag)`` with ``diag`` the flat assembled diagonal (float64
-        NumPy).  The block is held in ``dtype`` (default: the coupling's),
-        the dtype of the level that applies it."""
+        NumPy); the LinOp's ``rows`` is the block's row count."""
         dofs = self.host["bg_dofs"]
         uniq, inv = np.unique(dofs.reshape(-1), return_inverse=True)
-        inv = inv.reshape(dofs.shape)
-        A = accumulate_al(inv, self.host["bg_phi"], self.host["jxw"],
-                          len(uniq))
-        Aj = torch.as_tensor(gamma * A, dtype=self.dtype,
-                             device=self.device).to(dtype or self.dtype)
+        m = len(uniq)
+        if w_diag is None:
+            A = torch.as_tensor(accumulate_al(
+                inv.reshape(dofs.shape), self.host["bg_phi"],
+                self.host["jxw"], m), device=self.device)
+        else:
+            from .sparse import COO, spgemm_ctwc
+
+            ctwc = spgemm_ctwc(COO.from_coupling(self),
+                               np.asarray(w_diag, dtype=np.float64))
+            A = torch.zeros((m, m), dtype=torch.float64, device=self.device)
+            A[torch.as_tensor(np.searchsorted(uniq, ctwc.rows),
+                              device=self.device),
+              torch.as_tensor(np.searchsorted(uniq, ctwc.cols),
+                              device=self.device)] = torch.as_tensor(
+                ctwc.vals, device=self.device)
+        Aj = (gamma * A).to(self.dtype).to(dtype or self.dtype)
         uniqj = torch.as_tensor(uniq, dtype=torch.int64, device=self.device)
         n = self.shape[1]
 
@@ -223,8 +243,10 @@ class Coupling:
             return out
 
         diag = np.zeros(n)
-        diag[uniq] = gamma * np.diagonal(A)
-        return LinOp(mv, (n, n), mv, name="AL_compact"), diag
+        diag[uniq] = gamma * torch.diagonal(A).cpu().numpy()
+        lin = LinOp(mv, (n, n), mv, name="AL_compact")
+        lin.rows = m
+        return lin, diag
 
     def patch_w9(self, space, gamma: float, free=None):
         """Raw Γ-band 9-point patch weights ``((r0, c0, pr, pc), w9)``, float64
@@ -311,6 +333,34 @@ class Coupling:
         return mv2, dg.reshape(-1)
 
 
+class VectorCoupling:
+    """Componentwise vector coupling over a scalar quad-point table:
+    velocity (n_comp·n_bg, component-major) <-> vector multiplier
+    (n_comp·n_imm).  C[(j,c),(i,c)] = ∫_Γ φ_i ψ_j, the same scalar kernel in
+    every component (stokes_immersed_boundary.cc:660,782)."""
+
+    def __init__(self, scalar: Coupling, n_comp: int):
+        self.scalar = scalar
+        self.n_comp = n_comp
+        self.shape = (scalar.shape[0] * n_comp, scalar.shape[1] * n_comp)
+
+    def mv(self, u_flat):
+        u = u_flat.reshape(self.n_comp, self.scalar.shape[1])
+        return self.scalar.mv(u.T).T.reshape(-1)
+
+    def rmv(self, lam_flat):
+        lam = lam_flat.reshape(self.n_comp, self.scalar.shape[0])
+        return self.scalar.rmv(lam.T).T.reshape(-1)
+
+    def as_linop(self) -> LinOp:
+        return LinOp(self.mv, self.shape, self.rmv, name="C_vec")
+
+    def al_term_diag(self, w_diag_scalar, gamma) -> np.ndarray:
+        """Diagonal of γ·Cᵀdiag(w)C in every component (float64 NumPy)."""
+        return np.tile(self.scalar.al_term_diag(w_diag_scalar, gamma),
+                       self.n_comp)
+
+
 def _cell_dofs_of(space, cells):
     """Global dof indices (n, nloc) of the given background cells — the rows
     ``space.cell_dofs[cells]`` without building the whole cell table."""
@@ -348,4 +398,4 @@ def build_coupling(bg_space, imm_space, order: int = 3, *,
                          axis=1).reshape(-1, imm_space.cell_dofs.shape[1])
     return Coupling(bg_dofs, bg_phi, imm_dofs, imm_psi, jxw.reshape(-1),
                     (imm_space.n_dofs, bg_space.n_dofs), device=device,
-                    dtype=dtype)
+                    dtype=dtype, points=flat_pts)

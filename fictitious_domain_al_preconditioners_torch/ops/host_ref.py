@@ -1,16 +1,19 @@
 """Host float64 reference applies of the DLM block systems.
 
 Counterpart of ``HostAugmentedSystem``, ``HostEllipticSystem``,
-``HostStokesSystem``, ``_HostCellMat``, ``_HostVectorCoupling``, ``_host_cg``
-and ``_axis_apply`` of ``fictitious_domain_al_preconditioners_tpu.ops
-.host_ref`` (``host_ref.py:25-477``).  The card solves in float32, but the reference's
+``HostStokesSystem``, ``HostNitscheSystem``, ``HostElasticitySystem``,
+``_HostCellMat``, ``_HostVectorCoupling``, ``_host_cg`` and ``_axis_apply``
+of ``fictitious_domain_al_preconditioners_tpu.ops.host_ref``
+(``host_ref.py:25-611``).  The card solves in float32, but the reference's
 solve-quality target is a 1e-10 absolute residual in float64.  These NumPy
 applies reproduce the exact operator the float32 solver iterates on in
 float64 on the host, so the refinement loops of
 :meth:`..models.immersed_laplace.ImmersedLaplaceProblem.solve_refined`,
-:meth:`..models.elliptic_interface.EllipticInterfaceProblem.solve_refined`
-and :meth:`..models.stokes.StokesProblem.solve_refined` can drive the true
-residual to that target.
+:meth:`..models.elliptic_interface.EllipticInterfaceProblem.solve_refined`,
+:meth:`..models.stokes.StokesProblem.solve_refined`,
+:meth:`..models.nitsche_bcs.NitscheProblem.solve_refined` and
+:meth:`..models.elasticity.ElasticityInterfaceProblem.solve_refined` can
+drive the true residual to that target.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["HostAugmentedSystem", "HostEllipticSystem", "HostStokesSystem"]
+__all__ = ["HostAugmentedSystem", "HostEllipticSystem", "HostStokesSystem",
+           "HostNitscheSystem", "HostElasticitySystem"]
 
 
 def _axis_apply(v, off, diag, bdiag, axis):
@@ -131,9 +135,43 @@ class _HostCellMat:
                            minlength=self.shape[1])
 
 
+class _HostCoupling:
+    """float64 scalar coupling C and Cᵀ from a quad-point table."""
+
+    def __init__(self, coupling):
+        h = coupling.host
+        self.bg_dofs = np.asarray(h["bg_dofs"])
+        self.bg_phi = np.asarray(h["bg_phi"], dtype=np.float64)
+        self.imm_dofs = np.asarray(h["imm_dofs"])
+        self.imm_psi = np.asarray(h["imm_psi"], dtype=np.float64)
+        self.jxw = np.asarray(h["jxw"], dtype=np.float64)
+        self.m, self.n = coupling.shape
+
+    def _at_quad(self, u):
+        return np.einsum("qa,qa->q", u[self.bg_dofs], self.bg_phi) * self.jxw
+
+    def mv(self, u):
+        out = np.zeros(self.m)
+        np.add.at(out, self.imm_dofs, self.imm_psi * self._at_quad(u)[:, None])
+        return out
+
+    def rmv(self, lam):
+        vals = np.einsum("qa,qa->q", lam[self.imm_dofs],
+                         self.imm_psi) * self.jxw
+        out = np.zeros(self.n)
+        np.add.at(out, self.bg_dofs, self.bg_phi * vals[:, None])
+        return out
+
+    def particle_mass(self, u):
+        """Σ_q JxW φφᵀ u: the background mass on the coupling's curve."""
+        out = np.zeros(self.n)
+        np.add.at(out, self.bg_dofs, self.bg_phi * self._at_quad(u)[:, None])
+        return out
+
+
 class _HostVectorCoupling:
     """float64 componentwise vector coupling from a scalar quad-point table
-    (:class:`..models.stokes.VectorCoupling` on component-major flat
+    (:class:`.coupling.VectorCoupling` on component-major flat
     vectors)."""
 
     def __init__(self, scalar, sd: int):
@@ -214,14 +252,7 @@ class HostAugmentedSystem:
         self.h = tuple(float(x) for x in reversed(sp.grid.h))
         self.gamma = cfg.gamma / prob.curve.h_max
         self.free = _host(prob.free).astype(bool)
-        C = prob.C.host
-        self.bg_dofs = np.asarray(C["bg_dofs"])
-        self.bg_phi = np.asarray(C["bg_phi"], dtype=np.float64)
-        self.imm_dofs = np.asarray(C["imm_dofs"])
-        self.imm_psi = np.asarray(C["imm_psi"], dtype=np.float64)
-        self.jxw = np.asarray(C["jxw"], dtype=np.float64)
-        self.n = sp.n_dofs
-        self.m = prob.imm_space.n_dofs
+        self.C = _HostCoupling(prob.C)
         self.inv_w = 1.0 / _host(prob.M.diag())
         self.rhs_f = _host(prob.rhs_f)
         self.rhs_g = _host(prob.rhs_g)
@@ -230,57 +261,26 @@ class HostAugmentedSystem:
     # -- block actions -----------------------------------------------------
 
     def k_mv(self, u):
-        ul = u.reshape(self.shape)
-        out = np.zeros_like(ul)
-        dim = len(self.shape)
-        for d in range(dim):
-            term = ul
-            for ax in range(dim):
-                h = self.h[ax]
-                if ax == d:
-                    term = _axis_apply(term, -1.0 / h, 2.0 / h, 1.0 / h, ax)
-                else:
-                    term = _axis_apply(term, h / 6.0, 2.0 * h / 3.0,
-                                       h / 3.0, ax)
-            out = out + term
-        return out.reshape(-1)
-
-    def al_mv(self, u):
-        vals = np.einsum("qa,qa->q", u[self.bg_dofs], self.bg_phi) * self.jxw
-        out = np.zeros(self.n)
-        np.add.at(out, self.bg_dofs, self.bg_phi * vals[:, None])
-        return self.gamma * out
-
-    def c_mv(self, u):
-        vals = np.einsum("qa,qa->q", u[self.bg_dofs], self.bg_phi) * self.jxw
-        out = np.zeros(self.m)
-        np.add.at(out, self.imm_dofs, self.imm_psi * vals[:, None])
-        return out
-
-    def ct_mv(self, lam):
-        vals = np.einsum("qa,qa->q", lam[self.imm_dofs], self.imm_psi) * \
-            self.jxw
-        out = np.zeros(self.n)
-        np.add.at(out, self.bg_dofs, self.bg_phi * vals[:, None])
-        return out
+        return _lattice_apply(u, self.shape, self.h, stiffness=True)
 
     def aug_mv(self, u):
         m = self.free
         um = np.where(m, u, 0.0)
-        return np.where(m, self.k_mv(um) + self.al_mv(um), u)
+        return np.where(m, self.k_mv(um)
+                        + self.gamma * self.C.particle_mass(um), u)
 
     def apply(self, u, lam):
         """Full block apply -> (row0, row1).  Cᵀ is not masked in row 0,
         matching the solver's outer operator."""
-        return (self.aug_mv(u) + self.ct_mv(lam), self.c_mv(u))
+        return (self.aug_mv(u) + self.C.rmv(lam), self.C.mv(u))
 
     def rhs(self):
         """The augmented right-hand side (that of ``_augmented_run``)."""
         m = self.free
         g = np.where(m, 0.0, self.bc)
         b0 = np.where(m, self.rhs_f - self.k_mv(g), self.bc)
-        b0 = b0 + np.where(m, self.gamma * self.ct_mv(self.inv_w * self.rhs_g),
-                           0.0)
+        b0 = b0 + np.where(m, self.gamma * self.C.rmv(self.inv_w
+                                                      * self.rhs_g), 0.0)
         return b0, self.rhs_g
 
     def residual(self, u, lam):
@@ -335,12 +335,7 @@ class HostEllipticSystem:
             self.A2 = _HostCellMat(prob.A2, scale=a2_scale)
             self.M = _HostCellMat(prob.M)
 
-        C = prob.C.host
-        self.bg_dofs = np.asarray(C["bg_dofs"])
-        self.bg_phi = np.asarray(C["bg_phi"], dtype=np.float64)
-        self.imm_dofs = np.asarray(C["imm_dofs"])
-        self.imm_psi = np.asarray(C["imm_psi"], dtype=np.float64)
-        self.jxw = np.asarray(C["jxw"], dtype=np.float64)
+        self.C = _HostCoupling(prob.C)
 
         # W variants: mass_w -> W = (diag(M) | M); else W = (diag(M·M) | M²)
         self.diag_w = bool(cfg.use_diagonal_inverse)
@@ -368,12 +363,9 @@ class HostEllipticSystem:
             # particle AL quad table at the solver's quadrature order
             from .coupling import build_coupling
 
-            Cp = build_coupling(prob.space, prob.fg_space,
-                                order=2 * cfg.background_space_degree + 1,
-                                device="cpu").host
-            self.al_dofs = np.asarray(Cp["bg_dofs"])
-            self.al_phi = Cp["bg_phi"]
-            self.al_jxw = Cp["jxw"]
+            self.Cp = _HostCoupling(build_coupling(
+                prob.space, prob.fg_space,
+                order=2 * cfg.background_space_degree + 1, device="cpu"))
 
         self.free = _host(prob.free).astype(bool)
         self.bc = _host(prob.bc_values)
@@ -382,19 +374,6 @@ class HostEllipticSystem:
         self._b = None
 
     # -- block actions -----------------------------------------------------
-
-    def c_mv(self, u):
-        vals = np.einsum("qa,qa->q", u[self.bg_dofs], self.bg_phi) * self.jxw
-        out = np.zeros(self.m)
-        np.add.at(out, self.imm_dofs, self.imm_psi * vals[:, None])
-        return out
-
-    def ct_mv(self, lam):
-        vals = np.einsum("qa,qa->q", lam[self.imm_dofs],
-                         self.imm_psi) * self.jxw
-        out = np.zeros(self.n)
-        np.add.at(out, self.bg_dofs, self.bg_phi * vals[:, None])
-        return out
 
     def inv_w(self, x):
         """W⁻¹x for the active variant: diagonal, the lattice inverse, or
@@ -408,12 +387,8 @@ class HostEllipticSystem:
 
     def al11_mv(self, u):
         if self.operator_form:
-            vals = np.einsum("qa,qa->q", u[self.al_dofs],
-                             self.al_phi) * self.al_jxw
-            out = np.zeros(self.n)
-            np.add.at(out, self.al_dofs, self.al_phi * vals[:, None])
-            return self.gamma_1 * out
-        return self.gamma_1 * self.ct_mv(self.inv_w(self.c_mv(u)))
+            return self.gamma_1 * self.Cp.particle_mass(u)
+        return self.gamma_1 * self.C.rmv(self.inv_w(self.C.mv(u)))
 
     def a11_aug_mv(self, u):
         m = self.free
@@ -427,10 +402,10 @@ class HostEllipticSystem:
 
     def apply(self, u, u2, lam):
         """Full 3x3 block apply -> (row0, row1, row2)."""
-        cu, mu2 = self.c_mv(u), self.M.mv(u2)
+        cu, mu2 = self.C.mv(u), self.M.mv(u2)
         r0 = (self.a11_aug_mv(u)
-              - self.gamma_1 * self.ct_mv(self.inv_w(mu2))
-              + self.ct_mv(lam))
+              - self.gamma_1 * self.C.rmv(self.inv_w(mu2))
+              + self.C.rmv(lam))
         r1 = (-self.gamma_2 * self.M.mv(self.inv_w(cu))
               + self.a22_mv(u2) - self.M.mv(lam))
         return r0, r1, cu - mu2
@@ -539,4 +514,119 @@ class HostStokesSystem:
     def residual(self, u, p, lam):
         b0, b1, b2 = self.rhs()
         r0, r1, r2 = self.apply(u, p, lam)
+        return b0 - r0, b1 - r1, b2 - r2
+
+
+class HostNitscheSystem:
+    """float64 host apply and right-hand side of the boundary-multiplier
+    2x2 system of :class:`~..models.nitsche_bcs.NitscheProblem`
+
+        [K + M + γ(1/h)Σφφᵀ   Cᵀ] [u]   [f + γ(1/h)(g, φ)_∂Ω]
+        [C                    0 ] [λ] = [(g, μ)]
+
+    (nitsche_bcs.cc:515-632), with the consistent augmentation of the bulk
+    right-hand side.  No strong Dirichlet rows: the boundary condition is
+    the multiplier equation.  K and M apply as separable lattice passes on
+    a Q1 lattice, in element form otherwise.  Built from a problem after
+    ``setup()`` (or ``load_state``)."""
+
+    def __init__(self, prob):
+        sp = prob.space
+        if _is_lattice(sp):
+            self.K = _HostLatticeMat(sp, True)
+            self.Mbulk = _HostLatticeMat(sp, False)
+        else:
+            self.K = _HostCellMat(prob.K)
+            self.Mbulk = _HostCellMat(prob.Mbulk)
+        self.C = _HostCoupling(prob.C)
+        self.gal = float(prob.cfg.gamma) / float(prob.bmesh.h_max)
+        self.rhs_f = _host(prob.rhs_f)
+        self.rhs_g = _host(prob.rhs_g)
+        self.aug_rhs = prob._aug_rhs()
+
+    def apply(self, u, lam):
+        """Full block apply -> (row0, row1)."""
+        r0 = (self.K.mv(u) + self.Mbulk.mv(u)
+              + self.gal * self.C.particle_mass(u) + self.C.rmv(lam))
+        return r0, self.C.mv(u)
+
+    def rhs(self):
+        return self.rhs_f + self.aug_rhs, self.rhs_g
+
+    def residual(self, u, lam):
+        b0, b1 = self.rhs()
+        r0, r1 = self.apply(u, lam)
+        return b0 - r0, b1 - r1
+
+
+class HostElasticitySystem:
+    """float64 host apply and right-hand side of the elasticity interface
+    3x3 system of :class:`~..models.elasticity.ElasticityInterfaceProblem`
+    (vector fields, component-major; homogeneous Dirichlet data)
+
+        [A11   A12   Cᵀ ] [u ]   [P f1]
+        [A21   A22   -M ] [u2] = [f2]
+        [C     -M    0  ] [λ ]   [0]
+
+    with A11 = P A1 P + (I-P) + γ1 CᵀW⁻¹C (the AL term not masked, as the
+    solver builds it), A12 = -γ1 CᵀW⁻¹M, A21 = -γ2 MW⁻¹C,
+    A22 = A2 + γ2 MW⁻¹M and W = M² componentwise: W⁻¹ = diag(M)⁻², or
+    (M⁻¹)² by two float64 Jacobi-CGs.  Built from a problem after
+    ``setup()`` (or ``load_state``)."""
+
+    def __init__(self, prob):
+        cfg = prob.cfg
+        self.dim = cfg.dim
+        self.gamma_1 = float(prob.gamma_bg)
+        self.gamma_2 = float(prob.gamma_imm)
+        self.A1 = _HostCellMat(prob.A1)
+        self.A2 = _HostCellMat(prob.A2)
+        self.Mimm = _HostCellMat(prob.M)
+        self.Cv = _HostVectorCoupling(prob.Cs, self.dim)
+        self.n_fg_s = prob.M.shape[0]
+        self.diag_w = bool(cfg.use_diagonal_inverse)
+        self.mdiag_inv = 1.0 / prob.M.diag_host()
+        self.free = _host(prob.free).astype(bool)
+        self.rhs_f1 = _host(prob.rhs_f1)
+        self.rhs_f2 = _host(prob.rhs_f2)
+
+    def m_vec(self, x):
+        v = x.reshape(self.dim, self.n_fg_s).T
+        return self.Mimm.mv(v).T.reshape(-1)
+
+    def inv_w(self, lam):
+        ls = lam.reshape(self.dim, self.n_fg_s).T
+        if self.diag_w:
+            out = (self.mdiag_inv ** 2)[:, None] * ls
+        else:
+            out = _host_cg(self.Mimm.mv, _host_cg(self.Mimm.mv, ls,
+                                                  self.mdiag_inv),
+                           self.mdiag_inv)
+        return out.T.reshape(-1)
+
+    def a11_mv(self, u):
+        m = self.free
+        a = np.where(m, self.A1.mv(np.where(m, u, 0.0)), u)
+        return a + self.gamma_1 * self.Cv.rmv(self.inv_w(self.Cv.mv(u)))
+
+    def a22_mv(self, u2):
+        return self.A2.mv(u2) + self.gamma_2 * self.m_vec(
+            self.inv_w(self.m_vec(u2)))
+
+    def apply(self, u, u2, lam):
+        """Full 3x3 block apply -> (row0, row1, row2)."""
+        cu, mu2 = self.Cv.mv(u), self.m_vec(u2)
+        r0 = (self.a11_mv(u) - self.gamma_1 * self.Cv.rmv(self.inv_w(mu2))
+              + self.Cv.rmv(lam))
+        r1 = (-self.gamma_2 * self.m_vec(self.inv_w(cu)) + self.a22_mv(u2)
+              - self.m_vec(lam))
+        return r0, r1, cu - mu2
+
+    def rhs(self):
+        b0 = np.where(self.free, self.rhs_f1, 0.0)
+        return b0, self.rhs_f2, np.zeros(self.rhs_f2.shape[0])
+
+    def residual(self, u, u2, lam):
+        b0, b1, b2 = self.rhs()
+        r0, r1, r2 = self.apply(u, u2, lam)
         return b0 - r0, b1 - r1, b2 - r2

@@ -20,18 +20,27 @@ elasticity or Stokes velocity stiffness with cross-component coupling).
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
+from .coupling import VectorCoupling
 from .linop import LinOp
-from .sparse import COO
+from .sparse import COO, spgemm_ctwc
 
-__all__ = ["lattice_band_linop"]
+__all__ = ["MAX_BAND", "MAX_PLANES", "al_reach", "band_plane_keys",
+           "band_plane_keys_lower_bound", "lattice_band_linop",
+           "vector_al_level"]
+
+# the band stencil's caps on its half-width and weight planes
+MAX_BAND = 4
+MAX_PLANES = 512
 
 
 def lattice_band_linop(space, coo: COO, *, scale: float = 1.0,
-                       max_band: int = 4, n_comp: int = 1,
-                       max_planes: int = 512, device="cuda",
+                       max_band: int = MAX_BAND, n_comp: int = 1,
+                       max_planes: int = MAX_PLANES, device="cuda",
                        dtype=torch.float64):
     """Exact banded apply of ``scale * coo`` on a lattice space.
 
@@ -152,3 +161,117 @@ def lattice_band_linop(space, coo: COO, *, scale: float = 1.0,
     nn = n_comp * n
     return (LinOp(mv, (nn, nn), mv, name="band_stencil"), mv_lat,
             dg.reshape(-1))
+
+
+def band_plane_keys_lower_bound(fe, local, n_comp: int) -> set:
+    """Weight planes that the band stencil of an operator assembled from the
+    shared component-major local matrix ``local`` on a lattice of ``fe``
+    needs at least, as keys ``(ci, cj) + offset`` (the offset column minus
+    row along each lattice axis, x first).  For every lattice offset o there
+    is a lattice corner node that lies in one cell only, in which the node o
+    away is also a node; the assembled entry between them is the single
+    local entry, so its plane is not empty when that entry is not zero (the
+    AL term, zero at the lattice's corners, only adds planes)."""
+    mi = fe.node_multi_indices
+    k, nloc = fe.degree, len(mi)
+    index = {tuple(int(x) for x in m): i for i, m in enumerate(mi)}
+    keys = set()
+    for o in itertools.product(range(-k, k + 1), repeat=mi.shape[1]):
+        a = tuple(0 if x >= 0 else k for x in o)
+        ia = index[a]
+        ib = index[tuple(x + y for x, y in zip(a, o))]
+        for ci in range(n_comp):
+            for cj in range(n_comp):
+                if local[ci * nloc + ia, cj * nloc + ib] != 0.0:
+                    keys.add((ci, cj) + tuple(o))
+    return keys
+
+
+def al_reach(space, coupling) -> int:
+    """Largest lattice-axis distance between two background dofs of
+    ``space`` that share an immersed dof in the coupling table: the band
+    half-width that γ·Cᵀdiag(w)C needs (every product of two positive
+    entries is an entry), read from the table without forming the product."""
+    h = coupling.host
+    imm = np.asarray(h["imm_dofs"]).reshape(-1)
+    per_qp = h["imm_dofs"].shape[1]
+    idx = np.asarray(h["bg_dofs"], dtype=np.int64)
+    reach = 0
+    for m in space.n_points_1d:
+        c = idx % m
+        idx = idx // m
+        lo = np.full(coupling.shape[0], np.iinfo(np.int64).max)
+        hi = np.full(coupling.shape[0], -1)
+        np.minimum.at(lo, imm, np.repeat(c.min(axis=1), per_qp))
+        np.maximum.at(hi, imm, np.repeat(c.max(axis=1), per_qp))
+        touched = hi >= 0
+        reach = max(reach, int((hi - lo)[touched].max(initial=0)))
+    return reach
+
+
+def band_plane_keys(space, coo, n_comp) -> set:
+    """The band's weight planes of a component-major COO on ``space``'s
+    lattice, as keys ``(ci, cj) + offset`` (x first), its entries all
+    within :data:`MAX_BAND` of their rows."""
+    n = space.n_dofs
+    ri, ci = coo.rows % n, coo.cols % n
+    base = 2 * MAX_BAND + 1
+    code = (coo.rows // n) * n_comp + coo.cols // n
+    for m in space.n_points_1d:
+        code = code * base + (ci % m - ri % m + MAX_BAND)
+        ri, ci = ri // m, ci // m
+    keys = set()
+    for c in np.unique(code).tolist():
+        offs = []
+        for _ in space.n_points_1d:
+            c, o = divmod(c, base)
+            offs.append(o - MAX_BAND)
+        ci_, cj_ = divmod(c, n_comp)
+        keys.add((ci_, cj_) + tuple(reversed(offs)))
+    return keys
+
+
+def vector_al_level(space, A_l, local, n_comp: int, coupling=None,
+                    w_diag=None, gamma: float = 0.0, *, device, dtype):
+    """``(mv, diag, route)`` of a vector GMG level matrix
+    ``A_l + γ·blockdiag(Cᵀdiag(w)C)`` (``A_l`` alone when ``coupling`` is
+    None; the AL term is the scalar ``coupling``'s in every component).
+
+    ``route`` is ``"band"`` when the whole matrix is one band stencil
+    (:func:`lattice_band_linop`: no gather or scatter in the smoother; the
+    reference's AMG consumes the same explicit matrices,
+    utilities.h:111-331), else ``"element"``: the element-form ``A_l.mv``
+    plus the coupling's applies.  The band is refused before the SpGEMM
+    when the coupling reaches past its half-width (:func:`al_reach`), and
+    before ``A_l``'s triplets are formed when ``A_l`` (from its shared
+    local matrix ``local``) and the AL term together need more weight
+    planes than it allows."""
+    keys = band_plane_keys_lower_bound(space.fe, local, n_comp)
+    al = None
+    if coupling is not None and al_reach(space, coupling) <= MAX_BAND:
+        ns = space.n_dofs
+        al_s = spgemm_ctwc(COO.from_coupling(coupling), np.asarray(w_diag))
+        al = COO(np.concatenate([al_s.rows + k * ns for k in range(n_comp)]),
+                 np.concatenate([al_s.cols + k * ns for k in range(n_comp)]),
+                 np.concatenate([al_s.vals] * n_comp), (ns * n_comp,) * 2)
+        keys = keys | band_plane_keys(space, al, n_comp)
+    if (coupling is None or al is not None) and len(keys) <= MAX_PLANES:
+        lvl = COO.from_cell_matrix(A_l)
+        if al is not None:
+            lvl = lvl.add(al, alpha=gamma)
+        band = lattice_band_linop(space, lvl, n_comp=n_comp, device=device,
+                                  dtype=dtype)
+        if band is not None:
+            return band[0], band[2], "band"
+    diag = A_l.diag_host()
+    if coupling is None:
+        return A_l.mv, diag, "element"
+    Cv = VectorCoupling(coupling.to(device, dtype), n_comp)
+    wd = torch.as_tensor(w_diag, dtype=dtype, device=device)
+    n_imm = coupling.shape[0]
+
+    def mv(x):
+        wl = (wd * Cv.mv(x).reshape(n_comp, n_imm)).reshape(-1)
+        return A_l.mv(x) + gamma * Cv.rmv(wl)
+
+    return mv, diag + Cv.al_term_diag(w_diag, gamma), "element"

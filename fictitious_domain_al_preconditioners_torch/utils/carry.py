@@ -4,9 +4,11 @@ This system has no weights: what a parity run carries across is the setup
 state of one problem (right-hand sides, Dirichlet data, the coupling table,
 the immersed mass diagonal or the whole immersed mass and stiffness matrices,
 and the GMG Lanczos start vectors), handed over as NumPy arrays so both
-solvers run on identical inputs.  Three states: the immersed_laplace
+solvers run on identical inputs.  Five states: the immersed_laplace
 problem's (:class:`CarriedState`), the elliptic interface problem's
-(:class:`EllipticState`) and the Stokes problem's (:class:`StokesState`).
+(:class:`EllipticState`), the Stokes problem's (:class:`StokesState`), the
+nitsche problem's (:class:`NitscheState`) and the elasticity interface
+problem's (:class:`ElasticityState`).
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ import torch
 from ..ops.coupling import Coupling
 from ..ops.operators import CellMatrix
 
-__all__ = ["CarriedState", "DiagonalMatrix", "EllipticState", "StokesState",
-           "state_from_jax"]
+__all__ = ["CarriedState", "DiagonalMatrix", "ElasticityState",
+           "EllipticState", "NitscheState", "StokesState", "state_from_jax"]
 
 
 class DiagonalMatrix:
@@ -70,6 +72,26 @@ class StokesState:
     M_imm: CellMatrix           # scalar immersed mass
     Mp: CellMatrix              # pressure mass
     lanczos_starts: list | None
+
+
+@dataclass
+class NitscheState:
+    rhs_f: torch.Tensor
+    rhs_g: torch.Tensor
+    coupling: Coupling          # with its quadrature points
+    M: CellMatrix               # multiplier mass
+    lanczos_starts: list | None
+
+
+@dataclass
+class ElasticityState:
+    rhs_f1: torch.Tensor        # component-major
+    rhs_f2: torch.Tensor
+    free: torch.Tensor
+    coupling: Coupling          # the scalar table
+    M: CellMatrix               # scalar immersed mass
+    lanczos_starts: list | None
+    lanczos_starts_a22: list | None
 
 
 _KEYS = ("rhs_f", "rhs_g", "bc_values", "free", "bg_dofs", "bg_phi",
@@ -148,6 +170,55 @@ def _elliptic_state(arrays: dict, device, dtype) -> EllipticState:
         lanczos_starts_a22=starts("lanczos_starts_a22"))
 
 
+_NITSCHE_KEYS = ("rhs_f", "rhs_g", "bg_dofs", "bg_phi", "imm_dofs",
+                 "imm_psi", "jxw", "points", "imm_cell_dofs", "m_local")
+_ELASTICITY_KEYS = ("rhs_f1", "rhs_f2", "free", "bg_dofs", "bg_phi",
+                    "imm_dofs", "imm_psi", "jxw", "imm_cell_dofs", "m_local")
+
+
+def _starts(arrays, key):
+    v = arrays.get(key)
+    return None if v is None else [np.array(x) for x in v]
+
+
+def _family_state(arrays: dict, device, dtype):
+    """The nitsche or elasticity problem's state (``arrays["problem"]``)."""
+    nitsche = arrays["problem"] == "nitsche"
+    keys = _NITSCHE_KEYS if nitsche else _ELASTICITY_KEYS
+    missing = [k for k in keys if k not in arrays]
+    if missing:
+        raise KeyError(f"state_from_jax: missing arrays {missing}")
+
+    def ten(key, dt=dtype):
+        return torch.as_tensor(np.array(arrays[key]), dtype=dt,
+                               device=device)
+
+    dofs = np.asarray(arrays["imm_cell_dofs"])
+    m = int(dofs.max()) + 1
+    M = CellMatrix(dofs, dofs, np.asarray(arrays["m_local"]), (m, m),
+                   device=device, dtype=dtype)
+    if nitsche:
+        rhs_f = ten("rhs_f")
+        return NitscheState(
+            rhs_f=rhs_f, rhs_g=ten("rhs_g"),
+            coupling=Coupling(arrays["bg_dofs"], arrays["bg_phi"],
+                              arrays["imm_dofs"], arrays["imm_psi"],
+                              arrays["jxw"], (m, rhs_f.shape[0]),
+                              device=device, dtype=dtype,
+                              points=arrays["points"]),
+            M=M, lanczos_starts=_starts(arrays, "lanczos_starts"))
+    rhs_f1 = ten("rhs_f1")
+    n_comp = len(np.asarray(arrays["rhs_f2"])) // m
+    return ElasticityState(
+        rhs_f1=rhs_f1, rhs_f2=ten("rhs_f2"), free=ten("free", torch.bool),
+        coupling=Coupling(arrays["bg_dofs"], arrays["bg_phi"],
+                          arrays["imm_dofs"], arrays["imm_psi"],
+                          arrays["jxw"], (m, rhs_f1.shape[0] // n_comp),
+                          device=device, dtype=dtype),
+        M=M, lanczos_starts=_starts(arrays, "lanczos_starts"),
+        lanczos_starts_a22=_starts(arrays, "lanczos_starts_a22"))
+
+
 def state_from_jax(arrays: dict, device, dtype):
     """Load a reference problem's setup arrays (NumPy) for a port problem's
     ``load_state``.
@@ -173,6 +244,20 @@ def state_from_jax(arrays: dict, device, dtype):
     (``lanczos_starts_a22``: its GMG levels, or the one vector of the
     off-lattice Chebyshev).
 
+    With ``problem`` set to ``"nitsche"`` this is the nitsche problem's
+    state (:class:`NitscheState`, for
+    :meth:`..models.nitsche_bcs.NitscheProblem.load_state`): ``rhs_f``,
+    ``rhs_g``, the coupling table with its quadrature ``points``, the
+    multiplier mass (``m_local`` per cell of ``imm_cell_dofs``) and
+    optionally the Lanczos start vectors of the bulk hierarchy
+    (``lanczos_starts``).  With ``problem`` set to ``"elasticity"`` it is the
+    elasticity interface problem's (:class:`ElasticityState`, for
+    :meth:`..models.elasticity.ElasticityInterfaceProblem.load_state`):
+    ``rhs_f1``, ``rhs_f2`` (component-major), ``free``, the scalar coupling
+    table, the scalar immersed mass and optionally the Lanczos start vectors
+    of the A11 and A22 hierarchies (``lanczos_starts``,
+    ``lanczos_starts_a22``, each of ``dim·n_level`` entries).
+
     Otherwise it is the immersed_laplace problem's (:class:`CarriedState`,
     for :meth:`..models.immersed_laplace.ImmersedLaplaceProblem.load_state`).
 
@@ -189,6 +274,8 @@ def state_from_jax(arrays: dict, device, dtype):
     ``imm_cell_dofs``, ``m_local`` and ``a_local`` (per-cell local matrices)
     the whole immersed mass and stiffness matrices are carried, as the
     rational mode needs them."""
+    if "problem" in arrays:
+        return _family_state(arrays, device, dtype)
     if "rhs_u" in arrays:
         return _stokes_state(arrays, device, dtype)
     if "rhs_f1" in arrays:

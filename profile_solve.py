@@ -9,6 +9,8 @@ time goes.
     python3 profile_solve.py --solver elliptic_refined --elliptic-cycle 6
     python3 profile_solve.py --solver stokes stokes_refined \
         --stokes-refinement 9:10
+    python3 profile_solve.py --solver explicit nitsche nitsche_refined \
+        elasticity elasticity_refined --nitsche-cycle 7 --elasticity-cycle 2
 
 For each solver mode: set up ``chip_smoke.py``'s configuration of it
 (``augmented_bf16`` is the flagship with ``use_bf16_multigrid``; ``refined``
@@ -18,7 +20,13 @@ the elliptic interface problem's ``solve()`` and
 ``solve_refined(tol_abs=1e-10)`` in ``chip_smoke.py``'s configuration at
 ``--elliptic-cycle``; ``stokes`` and ``stokes_refined`` the 2D Stokes
 problem's ``solve()`` and ``solve_refined(tol_abs=1e-8)`` in its
-configuration at ``--stokes-refinement``), run two unprofiled solves (the
+configuration at ``--stokes-refinement``; ``explicit`` the flagship in the
+explicit AL form with W = diag(M)² at refinement 11, or ``--refinement``
+if that is less; ``nitsche``/``nitsche_refined`` and
+``elasticity``/``elasticity_refined`` the nitsche and 3D elasticity
+problems in ``chip_smoke.py``'s configurations at ``--nitsche-cycle`` and
+``--elasticity-cycle``, ``solve()`` and ``solve_refined(tol_abs=1e-10)``),
+run two unprofiled solves (the
 first builds the solver), then one solve under ``torch.profiler`` (CPU and
 CUDA activities).  Prints one JSON line per mode: the unprofiled and profiled wall
 times, the device time summed over the device activities (kernels, copies,
@@ -59,21 +67,36 @@ def port_kernel(name):
 
 
 def profile_mode(solver, refinement, device, top, elliptic_cycle,
-                 stokes_pair):
+                 stokes_pair, nitsche_cycle=4, elasticity_cycle=2):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (REFINED_REFINEMENT, REFINED_TOL, STOKES_TOL,
-                            elliptic_config, flagship_config, mode_config,
+    from chip_smoke import (EXPLICIT_REFINEMENT, REFINED_REFINEMENT,
+                            REFINED_TOL, STOKES_TOL, al_form_config,
+                            elasticity_config, elliptic_config,
+                            flagship_config, mode_config, nitsche_config,
                             stokes_config)
     from fictitious_domain_al_preconditioners_torch.models import (
-        EllipticInterfaceProblem, ImmersedLaplaceProblem, StokesProblem)
+        ElasticityInterfaceProblem, EllipticInterfaceProblem,
+        ImmersedLaplaceProblem, NitscheProblem, StokesProblem)
 
     elliptic = solver.startswith("elliptic")
     stokes = solver.startswith("stokes")
+    nitsche = solver.startswith("nitsche")
+    elasticity = solver.startswith("elasticity")
     if solver == "refined":
         refinement = min(refinement, REFINED_REFINEMENT)
-    if stokes:
+    if solver == "explicit":
+        refinement = min(refinement, EXPLICIT_REFINEMENT)
+    if nitsche:
+        refinement = nitsche_cycle
+        prob = NitscheProblem(nitsche_config(),
+                              device=device).setup(nitsche_cycle)
+    elif elasticity:
+        refinement = elasticity_cycle
+        prob = ElasticityInterfaceProblem(
+            elasticity_config(), device=device).setup(elasticity_cycle)
+    elif stokes:
         refinement = stokes_pair
         prob = StokesProblem(stokes_config(stokes_pair),
                              device=device).setup()
@@ -82,13 +105,17 @@ def profile_mode(solver, refinement, device, top, elliptic_cycle,
         prob = EllipticInterfaceProblem(elliptic_config(),
                                         device=device).setup(elliptic_cycle)
     else:
-        cfg = (flagship_config(refinement, bf16=solver == "augmented_bf16")
-               if solver.startswith("augmented") or solver == "refined"
-               else mode_config(solver, refinement))
+        if solver == "explicit":
+            cfg = al_form_config(refinement, "explicit")
+        elif solver.startswith("augmented") or solver == "refined":
+            cfg = flagship_config(refinement,
+                                  bf16=solver == "augmented_bf16")
+        else:
+            cfg = mode_config(solver, refinement)
         prob = ImmersedLaplaceProblem(cfg, device=device).setup()
-    refined = solver in ("refined", "elliptic_refined", "stokes_refined")
-    seconds_key = "refined_seconds" if (elliptic or stokes) and refined \
-        else "solve_seconds"
+    refined = solver.endswith("refined")
+    seconds_key = ("refined_seconds"
+                   if refined and solver != "refined" else "solve_seconds")
 
     def solve():
         if refined:
@@ -121,9 +148,10 @@ def profile_mode(solver, refinement, device, top, elliptic_cycle,
             ours[key][1] += n
     return dict(
         solver=solver, refinement=refinement,
-        dofs_background=(prob.results["dofs_background"] if stokes
-                         else prob.space.n_dofs),
-        outer_iterations=prob.results["outer_iterations"],
+        dofs_background=(prob.results["dofs_background"]
+                         if stokes or elasticity else prob.space.n_dofs),
+        outer_iterations=prob.results.get("outer_iterations",
+                                          prob.results.get("outer_its")),
         refine_steps=prob.results.get("refine_steps"),
         converged=prob.results["converged"],
         host_syncs=prob.results["host_syncs"],
@@ -143,13 +171,19 @@ def main(argv=None) -> int:
                     choices=["augmented", "augmented_bf16", "refined",
                              "rational", "CG", "ELMAN_triang", "elliptic",
                              "elliptic_refined", "stokes",
-                             "stokes_refined"])
+                             "stokes_refined", "explicit", "nitsche",
+                             "nitsche_refined", "elasticity",
+                             "elasticity_refined"])
     ap.add_argument("--refinement", type=int, default=12)
     ap.add_argument("--elliptic-cycle", type=int, default=6,
                     help="cycle of the elliptic modes")
     ap.add_argument("--stokes-refinement", default="9:10",
                     help="background:immersed refinements of the Stokes "
                          "modes")
+    ap.add_argument("--nitsche-cycle", type=int, default=4,
+                    help="cycle of the nitsche modes")
+    ap.add_argument("--elasticity-cycle", type=int, default=2,
+                    help="cycle of the elasticity modes")
     ap.add_argument("--top", type=int, default=12,
                     help="device activities listed per mode")
     args = ap.parse_args(argv)
@@ -168,7 +202,9 @@ def main(argv=None) -> int:
     for solver in args.solver:
         print(json.dumps(profile_mode(solver, args.refinement, device,
                                       args.top, args.elliptic_cycle,
-                                      args.stokes_refinement)),
+                                      args.stokes_refinement,
+                                      args.nitsche_cycle,
+                                      args.elasticity_cycle)),
               flush=True)
         torch.cuda.empty_cache()
     return 0

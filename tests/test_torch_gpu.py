@@ -6,7 +6,9 @@ bf16 V-cycle and of the elliptic interface problem against the CPU, the
 elliptic path's band stencil and lattice mass inverse against the CPU, and
 its dense float32 A22 inverse against TF32; the Stokes problem at 4:5
 against the CPU, and its velocity hierarchy's level operators (the vector
-band stencil, the element form) and V-cycle against the CPU.
+band stencil, the element form) and V-cycle against the CPU; the exact-W
+and explicit AL forms of the augmented solver, the nitsche problem and the
+3D elasticity problem against the CPU.
 Marked ``gpu``; without a card every test skips.  On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py -q
@@ -610,3 +612,34 @@ def test_stokes_levels_and_vcycle_match_cpu(cuda, pair, spacedim):
     b = torch.as_tensor(rng.standard_normal(probs[1].layout.sizes[0]),
                         dtype=torch.float64) * probs[1].free
     assert _rel(gmgs[0].apply(b.to(cuda)).cpu(), gmgs[1].apply(b)) <= 1e-4
+
+
+@pytest.mark.parametrize("form", list(S.AL_FORMS))
+def test_small_al_forms_match_cpu(cuda, form):
+    """The augmented solver's exact-W operator form and its explicit forms
+    at refinement 6 on the card against the CPU (float32 on both): outer
+    counts within 1, u within 1e-3 of its max; the explicit forms launch K1
+    on the card, the exact-W form K1 and the patched K2."""
+    def make(dev):
+        prob = ImmersedLaplaceProblem(S.al_form_config(6, form), device=dev,
+                                      dtype=torch.float32).setup()
+        prob.solve()
+        return prob, (prob.u, prob.lam)
+
+    K.reset_launch_counts()
+    out = S._crosscheck(f"{form}@6", make, cuda)
+    assert all(out["converged"])
+    assert K.LAUNCHES.get("masked_laplace_2d", 0) > 0
+    assert (K.LAUNCHES.get(K.launch_key("op"), 0) > 0) == (form == "exactw")
+
+
+def test_small_nitsche_and_elasticity_match_cpu(cuda):
+    """The nitsche problem at cycle 0 and the 3D elasticity problem at
+    background refinement 2, immersed 1 (to a reduction of 1e-10), on the
+    card against the CPU (float32 V-cycles, float64 operators and Krylov
+    solvers): outer counts within 1, every block within 1e-3 of its max;
+    no kernel is launched on either path."""
+    K.reset_launch_counts()
+    outs = S.phase_family_crosscheck(cuda)
+    assert all(all(o["converged"]) for o in outs)
+    assert sum(K.LAUNCHES.values()) == 0, K.LAUNCHES

@@ -138,7 +138,7 @@ def test_smooth_solution_accuracy():
 
 def test_unported_options_raise():
     cfg = golden_config(TConfig, TControl, 4)
-    cfg.use_diagonal_inverse = False
+    cfg.delta_refinement = 1
     with pytest.raises(NotImplementedError, match="not ported"):
         TProblem(cfg, device="cpu").setup()
 

@@ -23,6 +23,7 @@ MODULES = [
     f"{PKG}.ops.sparse", f"{PKG}.ops.sparse_band", f"{PKG}.precond.weights",
     f"{PKG}.precond.al", f"{PKG}.utils.prm", f"{PKG}.utils.report",
     f"{PKG}.utils.timer", f"{PKG}.models.stokes",
+    f"{PKG}.models.nitsche_bcs", f"{PKG}.models.elasticity",
 ]
 
 
@@ -41,6 +42,21 @@ def test_port_imports_with_jax_blocked():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_models_export_every_family():
+    """The five families' problems are exported by ``models`` and every
+    entry point runs on the card unless asked otherwise."""
+    import inspect
+
+    from fictitious_domain_al_preconditioners_torch import models
+
+    names = ["ImmersedLaplaceProblem", "EllipticInterfaceProblem",
+             "StokesProblem", "NitscheProblem", "ElasticityInterfaceProblem"]
+    for name in names:
+        assert name in models.__all__
+        init = getattr(models, name).__init__
+        assert inspect.signature(init).parameters["device"].default == "cuda"
 
 
 def _imported_names(path):
