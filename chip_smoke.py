@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's immersed_laplace, elliptic interface, Stokes,
-nitsche and elasticity interface solves on one CUDA card.
+nitsche and elasticity interface solves on one CUDA card, on uniform and on
+locally refined backgrounds.
 
     python3 chip_smoke.py                  # all phases, refinement 12
     python3 chip_smoke.py --refinement 9   # the same at a quick size
@@ -9,6 +10,7 @@ nitsche and elasticity interface solves on one CUDA card.
         --stokes-only
     python3 chip_smoke.py --families-only
     python3 chip_smoke.py --elasticity-only --elasticity-cycle 3
+    python3 chip_smoke.py --adaptive-only  # phases 12 and 13
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -105,6 +107,26 @@ Phases (any failure exits non-zero before the last line is printed):
     residual must reach 1e-10, with the routes of both GMG hierarchies'
     levels.  Neither phase 10 nor 11 launches a kernel: their counts must
     stay 0;
+12. immersed_laplace with one local refinement step near Γ (the
+    element-form path: quadtree, compact AL block, flat GMG), read from
+    ``parameters/{circle/circle_f0_g1,flower/flower_f1_g1,square/
+    square_f1_g1}.prm`` by ``from_prm`` at the reference's (embedding 10,
+    embedded 11) (:data:`ADAPTIVE_PAIR`): a warm-up and a timed float32
+    solve under the flagship's rule, then a float64 solve at the file's
+    own 1e-10; the flower also at (11, 12) in float32, within 2 outer
+    iterations of its (10, 11) count; each file at its shipped size in
+    float64 on the card and on the CPU, counts within 1 of each other and
+    of the JAX package's CPU count (18, 16, 14); every row prints dofs,
+    GMG levels, the compact block's rows and MB, setup, build and solve
+    seconds, the constraint residual and peak GB;
+13. Stokes with one local refinement step (``delta_refinement = 1``), 2D
+    at 9 + 1:10 with ``solve()`` and ``solve_refined(tol_abs=1e-8)``, 3D
+    at 6 + 1 around a sphere of refinement 4 (the reference's
+    configuration) with ``solve_refined``; the true float64 residual must
+    reach 1e-8, the tree must hold fewer background dofs than the uniform
+    grid of its finest h, and every GMG level's route is printed (element
+    form).  Neither phase 12 nor 13 launches a kernel; ``--adaptive-only``
+    runs just them;
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
    versions) in float32 with the same Lanczos start vectors, for the
    flagship, the three modes and the flagship with the bf16 V-cycle; the
@@ -116,7 +138,7 @@ Phases (any failure exits non-zero before the last line is printed):
    at background refinement 2, immersed 1 (to a reduction of 1e-10).
 
 Launch counts are set to 0 just before each path (phases 3, 5, 6, 7, 8, 9,
-10 and 11) and read just after it. The three last lines are the card's name
+10, 11, 12 and 13) and read just after it. The three last lines are the card's name
 and power limit, a JSON object with one entry per kernel, and ``{"ok":
 true, "device": {...}}``.
 """
@@ -199,6 +221,29 @@ NITSCHE_SCALE_CYCLE = 7
 # (scripts/make_results_table.py:222-246), cycles 0 to this one; cycle 3
 # (1,039,497 dofs) ran past the script's time limit (PERF.md §4)
 ELASTICITY_CYCLE = 2
+# phase 12: immersed_laplace with one local refinement step near Γ, read
+# from the shipped parameter files; the reference's own scale (embedding
+# 10, embedded 11: parameters/flower/flower_f1_g1.prm:2-5), the flower also
+# at (11, 12), and each file at its shipped size, whose float64 outer count
+# must equal the CPU's within 1: the port's on the CPU, and the JAX
+# package's CLI in float64 on the CPU (18, 16, 14)
+ADAPTIVE_FILES = ("parameters/circle/circle_f0_g1.prm",
+                  "parameters/flower/flower_f1_g1.prm",
+                  "parameters/square/square_f1_g1.prm")
+ADAPTIVE_PAIR = "10:11"
+ADAPTIVE_SCALE_FILE = "parameters/flower/flower_f1_g1.prm"
+ADAPTIVE_JAX_CPU_COUNTS = {"circle_f0_g1": 18, "flower_f1_g1": 16,
+                           "square_f1_g1": 14}
+# phase 13: Stokes with one local refinement step: 2D parameters/
+# stokes_al.prm's functions and AL settings at background 9 + 1, embedded
+# 10 (phase 8's 9:10 row with the local step), and 3D the reference's
+# configuration, background 6 + 1 around a sphere of refinement 4
+# (scripts/make_results_table.py:317, :629); "ref:eref"
+ADAPTIVE_STOKES_2D = "9:10"
+ADAPTIVE_STOKES_3D = "6:4"
+# phase 8's uniform rows on this card (PERF.md §6): solve_refined's outer
+# iterations at 9:10 (2D) and 5:2 (3D), printed beside phase 13's
+UNIFORM_STOKES_OUTER = {2: ("9:10", 38), 3: ("5:2", 12)}
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 and float64 rates
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1279,11 +1324,13 @@ def phase_crosscheck(device, refinement=7):
     return outs
 
 
-def phase_stokes(pair, spacedim, device):
+def phase_stokes(pair, spacedim, device, delta_refinement=0):
     """The Stokes problem at ``pair``: set up, in 2D ``solve()``, then
     ``solve_refined(tol_abs=1e-8)`` (on the operators the solve built);
     launch counts over the whole path.  The true float64 residual must
-    reach the tolerance; the solution must be finite."""
+    reach the tolerance; the solution must be finite.  With
+    ``delta_refinement`` (phase 13) the background is refined that many
+    steps near Γ and no kernel may be launched."""
     import torch
     from fictitious_domain_al_preconditioners_torch.models import \
         StokesProblem
@@ -1292,13 +1339,18 @@ def phase_stokes(pair, spacedim, device):
         HostStokesSystem
 
     tag = f"stokes{'3d' if spacedim == 3 else ''}@{pair}"
+    phase = "phase 8"
+    cfg = stokes_config(pair, spacedim)
+    if delta_refinement:
+        tag = f"adaptive_{tag}+{delta_refinement}"
+        phase = "phase 13"
+        cfg.delta_refinement = delta_refinement
     gc.collect()        # an earlier problem's cycles hold device memory
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    prob = StokesProblem(stokes_config(pair, spacedim),
-                         device=device).setup()
+    prob = StokesProblem(cfg, device=device).setup()
     setup_s = time.perf_counter() - t0
     solve = {}
     if spacedim == 2:
@@ -1309,7 +1361,8 @@ def phase_stokes(pair, spacedim, device):
         solve["true_residual"] = float(np.sqrt(sum(float(r @ r)
                                                    for r in rs)))
     u, p, lam, history = prob.solve_refined(tol_abs=STOKES_TOL)
-    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    launches = ({k: v for k, v in K.LAUNCHES.items() if v}
+                if not delta_refinement else _no_launches(f"{phase} {tag}"))
     res = prob.results
     sizes = prob.layout.sizes
     out = dict(
@@ -1339,18 +1392,21 @@ def phase_stokes(pair, spacedim, device):
         gmg_routes=res["gmg_routes"],
         peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
         launches=launches)
-    print("phase 8: " + json.dumps(out), flush=True)
+    if delta_refinement:
+        out.update(cells=prob.grid.n_cells, max_level=prob.grid.max_level,
+                   constrained_cells=prob.vel_space.n_constrained_cells)
+    print(f"{phase}: " + json.dumps(out), flush=True)
     if spacedim == 2:
-        check(solve["converged"], f"phase 8 {tag}: solve did not converge "
+        check(solve["converged"], f"{phase} {tag}: solve did not converge "
               f"(residual {solve['residual']:.3e})")
     check(res["converged"] and history[-1] <= STOKES_TOL,
-          f"phase 8 {tag}: true residual {history[-1]:.3e} > {STOKES_TOL}")
+          f"{phase} {tag}: true residual {history[-1]:.3e} > {STOKES_TOL}")
     check(all(x.shape == (n,) and bool(np.isfinite(x).all())
               for x, n in zip((u, p, lam), sizes)),
-          f"phase 8 {tag}: non-finite or misshapen iterate")
+          f"{phase} {tag}: non-finite or misshapen iterate")
     check(math.isfinite(out["constraint_residual"])
           and math.isfinite(out["divergence_residual"]),
-          f"phase 8 {tag}: constraint or divergence residual not finite")
+          f"{phase} {tag}: constraint or divergence residual not finite")
     return out
 
 
@@ -1618,10 +1674,10 @@ def phase_elasticity(device, cycles):
     return rows
 
 
-def _crosscheck(tag, make, device):
+def _crosscheck(tag, make, device, rel_tol=1e-3):
     """``make(device)`` solved on the card and on the CPU (float32
     V-cycles on both; the operator and the Krylov solvers float64): outer
-    counts within 1, each solution block within 1e-3 of its max |CPU
+    counts within 1, each solution block within ``rel_tol`` of its max |CPU
     value|."""
     import torch
 
@@ -1641,8 +1697,8 @@ def _crosscheck(tag, make, device):
     check(cg_ and cc, f"phase 4 {tag}: a solve did not converge")
     check(abs(itg - itc) <= 1, f"phase 4 {tag}: outer counts {itg} vs {itc}")
     for i, (d, sc) in enumerate(zip(diffs, scales)):
-        check(d <= 1e-3 * sc, f"phase 4 {tag}: block {i}: |gpu - cpu| = "
-              f"{d:.3e} > 1e-3 * {sc:.3e}")
+        check(d <= rel_tol * sc, f"phase 4 {tag}: block {i}: |gpu - cpu| = "
+              f"{d:.3e} > {rel_tol:g} * {sc:.3e}")
     return out
 
 
@@ -1674,6 +1730,172 @@ def phase_family_crosscheck(device):
 
     return [_crosscheck("nitsche@0", nitsche, device),
             _crosscheck("elasticity@2:1", elasticity, device)]
+
+
+def adaptive_config(path, pair=None, flagship_rule=False):
+    """A shipped immersed_laplace parameter file read by the port's
+    ``from_prm``, its refinement pair overridden by ``pair`` (embedding,
+    embedded); ``flagship_rule`` replaces its Schur rule by the
+    flagship's float32 one (3e-5 absolute, 1e-6 reduction)."""
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceConfig
+
+    cfg = ImmersedLaplaceConfig.from_prm(path)
+    if pair is not None:
+        cfg.initial_refinement, cfg.initial_embedded_refinement = pair
+    if flagship_rule:
+        cfg.schur.tolerance, cfg.schur.reduction = 3e-5, 1e-6
+    return cfg
+
+
+def adaptive_row(path, pair, device, dtype, flagship_rule, warmup):
+    """One row of phase 12: set up (launch counts at 0 just before), an
+    optional warm-up solve, a timed solve, counts read just after (all must
+    stay 0); returns the row's JSON dict."""
+    import os
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    stem = os.path.splitext(os.path.basename(path))[0]
+    prec = "f32" if dtype == torch.float32 else "f64"
+    cfg = adaptive_config(path, pair, flagship_rule)
+    pair = (cfg.initial_refinement, cfg.initial_embedded_refinement)
+    tag = f"adaptive_{stem}@{pair[0]}:{pair[1]}:{prec}"
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    prob = ImmersedLaplaceProblem(cfg, device=device, dtype=dtype).setup()
+    setup_s = time.perf_counter() - t0
+    warm = {}
+    if warmup:
+        prob.solve()
+        warm = dict(prob.results)
+    u, lam, _ = prob.solve()
+    res = prob.results
+    launches = _no_launches(f"phase 12 {tag}") if device.type == "cuda" \
+        else {}
+    blocks = prob.compact_blocks
+    out = dict(
+        path=tag, file=path, pair=list(pair), dtype=prec,
+        rule="flagship" if flagship_rule else "file",
+        dofs_background=prob.space.n_dofs,
+        dofs_immersed=prob.imm_space.n_dofs,
+        cells=prob.grid.n_cells, max_level=prob.grid.max_level,
+        constrained_cells=prob.space.n_constrained_cells,
+        gmg_levels=len(prob._last_gmg.levels),
+        compact_rows=blocks[0]["rows"], compact_mb=blocks[0]["bytes"] / 1e6,
+        compact_seconds=blocks[0]["seconds"],
+        setup_seconds=setup_s,
+        build_seconds=res["build_seconds"],
+        warmup_solve_seconds=warm.get("solve_seconds"),
+        warmup_outer_iterations=warm.get("outer_iterations"),
+        outer_iterations=res["outer_iterations"],
+        converged=res["converged"], residual=res["residual"],
+        constraint_residual=prob.constraint_residual(),
+        solve_seconds=res["solve_seconds"], host_syncs=res["host_syncs"],
+        peak_memory_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                        if device.type == "cuda" else None),
+        launches=launches)
+    if device.type == "cuda":
+        print("phase 12: " + json.dumps(out), flush=True)
+    check(res["converged"], f"phase 12 {tag}: solve did not converge "
+          f"(residual {res['residual']:.3e})")
+    check(math.isfinite(out["constraint_residual"]),
+          f"phase 12 {tag}: constraint residual not finite")
+    check(tuple(u.shape) == (prob.space.n_dofs,)
+          and bool(torch.isfinite(u).all())
+          and bool(torch.isfinite(lam).all()),
+          f"phase 12 {tag}: non-finite or misshapen solution")
+    del prob
+    return out
+
+
+def phase_adaptive(device):
+    """Phase 12: immersed_laplace with one local refinement step near Γ on
+    the element-form path, no kernel launched.  Each shipped file of
+    :data:`ADAPTIVE_FILES` at :data:`ADAPTIVE_PAIR` ("embedding:embedded"):
+    a warm-up and a timed float32 solve under the flagship's rule, then a
+    float64 solve at the file's own rule; the flower one refinement above
+    that in float32, whose count must be within 2 of its count there; each
+    file at its shipped size in float64 at its own rule on the card and on
+    the CPU, counts within 1 of each other and of the JAX package's CPU
+    count.  Returns the rows."""
+    import os
+    import torch
+
+    pair = tuple(int(x) for x in ADAPTIVE_PAIR.split(":"))
+    scale_pair = (pair[0] + 1, pair[1] + 1)
+    rows = []
+    f32_counts = {}
+    for path in ADAPTIVE_FILES:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        out = adaptive_row(path, pair, device, torch.float32, True, True)
+        f32_counts[stem] = out["outer_iterations"]
+        rows.append(out)
+        rows.append(adaptive_row(path, pair, device, torch.float64, False,
+                                 False))
+    stem = os.path.splitext(os.path.basename(ADAPTIVE_SCALE_FILE))[0]
+    out = adaptive_row(ADAPTIVE_SCALE_FILE, scale_pair, device,
+                       torch.float32, True, True)
+    rows.append(out)
+    check(abs(out["outer_iterations"] - f32_counts[stem]) <= 2,
+          f"phase 12: {stem} takes {out['outer_iterations']} outer "
+          f"iterations at {scale_pair} against {f32_counts[stem]} at {pair}")
+    for path in ADAPTIVE_FILES:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        gpu = adaptive_row(path, None, device, torch.float64, False, False)
+        cpu = adaptive_row(path, None, torch.device("cpu"), torch.float64,
+                           False, False)
+        jax_cpu = ADAPTIVE_JAX_CPU_COUNTS[stem]
+        gpu.update(cpu_outer_iterations=cpu["outer_iterations"],
+                   jax_cpu_outer_iterations=jax_cpu)
+        print("phase 12: card against CPU " + json.dumps(gpu), flush=True)
+        for other, who in ((cpu["outer_iterations"], "the port's"),
+                           (jax_cpu, "the JAX package's")):
+            check(abs(gpu["outer_iterations"] - other) <= 1,
+                  f"phase 12 {stem}: {gpu['outer_iterations']} outer "
+                  f"iterations on the card against {other} on the CPU "
+                  f"({who})")
+        rows.append(gpu)
+    return rows
+
+
+def phase_adaptive_stokes(device):
+    """Phase 13: Stokes with one local refinement step near Γ (every GMG
+    level takes the element route, no kernel launched): 2D at
+    :data:`ADAPTIVE_STOKES_2D` with ``solve()`` and
+    ``solve_refined(tol_abs=1e-8)``, 3D at :data:`ADAPTIVE_STOKES_3D` with
+    ``solve_refined``; the true float64 residual must reach 1e-8 and
+    the tree must hold fewer background dofs than the uniform grid of its
+    finest h.  Returns the rows."""
+    rows = []
+    for pair, sd in ((ADAPTIVE_STOKES_2D, 2), (ADAPTIVE_STOKES_3D, 3)):
+        out = phase_stokes(pair, sd, device, delta_refinement=1)
+        ref = int(pair.split(":")[0]) + 1
+        uniform = (sd * (2 ** (ref + 1) + 1) ** sd      # Q2 velocity
+                   + (2 ** ref + 1) ** sd)               # Q1 pressure
+        out["uniform_dofs_same_h"] = uniform
+        check(out["dofs_velocity"] + out["dofs_pressure"] < uniform,
+              f"phase 13 {out['path']}: {out['dofs_velocity']} + "
+              f"{out['dofs_pressure']} background dofs, not fewer than the "
+              f"uniform grid's {uniform}")
+        check(all(r == "element" for r in out["gmg_routes"]),
+              f"phase 13 {out['path']}: a level is not element form: "
+              f"{out['gmg_routes']}")
+        upair, uouter = UNIFORM_STOKES_OUTER[sd]
+        print(f"phase 13: {out['path']}: {out['dofs_velocity']} + "
+              f"{out['dofs_pressure']} background dofs against "
+              f"{uniform} uniform, GMG routes {out['gmg_routes']}; "
+              f"{out['total_outer_iterations']} outer iterations in "
+              f"{out['refine_steps']} steps (uniform {upair}: {uouter})",
+              flush=True)
+        rows.append(out)
+    return rows
 
 
 def k1_resources(shape):
@@ -1731,9 +1953,9 @@ def k2_resources(shape, degree=4):
 def kernel_report(path_launches, errs, times, resources):
     """The kernels' JSON line: one entry per kernel (K1's bf16 form and K6's
     float64 form their own), K2's modes inside.  ``launches`` sums the
-    paths of phases 3, 5 (with its rational table rows), 6, 7, 8, 9, 10 and
-    11 (``launches_by_path`` lists them; 0 on the Stokes, nitsche and
-    elasticity paths)."""
+    paths of phases 3, 5 (with its rational table rows) and 6-13
+    (``launches_by_path`` lists them; 0 on the Stokes, nitsche, elasticity
+    and locally refined paths)."""
     from fictitious_domain_al_preconditioners_torch.ops.kernels import (
         MODES, launch_key)
 
@@ -1820,6 +2042,9 @@ def main(argv=None) -> int:
                          "their cross-checks (no kernels line)")
     ap.add_argument("--elasticity-only", action="store_true",
                     help="run only phase 11 (no kernels line)")
+    ap.add_argument("--adaptive-only", action="store_true",
+                    help="run only phases 12 and 13, local refinement near "
+                         "Γ (no kernels line)")
     args = ap.parse_args(argv)
     explicit_ref = min(EXPLICIT_REFINEMENT, args.refinement)
     nitsche_cycles = tuple(sorted(set(NITSCHE_CYCLES) | {
@@ -1881,6 +2106,12 @@ def main(argv=None) -> int:
                 phase_stokes(pair, sd, device)
             phase_stokes_crosscheck(device)
             print(f"chip_smoke: the Stokes phases passed in "
+                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            return 0
+        if args.adaptive_only:
+            phase_adaptive(device)
+            phase_adaptive_stokes(device)
+            print(f"chip_smoke: phases 12 and 13 passed in "
                   f"{time.perf_counter() - t_start:.1f} s", flush=True)
             return 0
         if args.elasticity_only:
@@ -1978,7 +2209,9 @@ def main(argv=None) -> int:
         for out in outs:
             path_launches[out["path"]] = out["launches"]
         for out in (phase_nitsche(device, nitsche_cycles)
-                    + phase_elasticity(device, elasticity_cycles)):
+                    + phase_elasticity(device, elasticity_cycles)
+                    + phase_adaptive(device)
+                    + phase_adaptive_stokes(device)):
             path_launches[out["path"]] = out["launches"]
 
         phase_crosscheck(device)

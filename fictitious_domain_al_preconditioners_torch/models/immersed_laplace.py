@@ -2,8 +2,7 @@
 an embedded curve Γ (the flagship DLM problem).
 
 Counterpart of
-``fictitious_domain_al_preconditioners_tpu.models.immersed_laplace`` on a
-uniform Q1 background with Dirichlet conditions on all four sides:
+``fictitious_domain_al_preconditioners_tpu.models.immersed_laplace``:
 
     -Δu = f in Ω,   u = g on Γ,   u = g_D on ∂Ω
     [ K   Cᵀ ] [u]   [f]
@@ -48,6 +47,21 @@ every level of the bf16 V-cycle; K6 (``laplace_stencil_2d``, through
 ``LatticeOps.laplace``) is the unconstrained stiffness that lifts the
 Dirichlet data.  On the CPU the same wrappers run their plain PyTorch
 versions.
+
+Those are the lattice path's: a uniform Q1 background with Dirichlet
+conditions on all four sides.  Every other background takes the element
+form (immersed_laplace.py:283-295, 1111-1138 of the reference), and no
+kernel of this repo is on it: local refinement near Γ (``delta_refinement >
+0``, a 2:1-balanced quadtree with hanging nodes folded into the cell dof
+lists, ``core.adaptive``), ``embedding_space_degree != 1``, and Dirichlet
+conditions on some sides only.  There the stiffness is a
+:class:`..ops.operators.CellMatrix` (a :class:`..ops.operators.CellMatrixSum`
+on a tree), the constrained operators are ``m*A(m*x) + (1-m)*x`` on flat
+vectors, the AL term is the compact dense block of
+:meth:`..ops.coupling.Coupling.compact_al` (particle or explicit) or, for
+the explicit form's outer operator with W = M², the matrix-free γ·CᵀW⁻¹C,
+and the GMG is :func:`..precond.gmg.build_gmg_flat` (a tree coarsens by
+truncation, the transfers tabulate the folded basis).
 """
 
 from __future__ import annotations
@@ -58,26 +72,29 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core.adaptive import AdaptiveGrid, AdaptiveSpace
 from ..core.grid import GridSpace, UniformGrid
 from ..core.immersed import parametrized_curve
 from ..ops.assembly import (imm_mass_matrix, imm_rhs, imm_stiffness_matrix,
-                            interpolate, rhs_vector)
+                            interpolate, laplace_matrix, rhs_vector)
 from ..ops.blocks import BlockLayout, block_operator
 from ..ops.coupling import build_coupling
 from ..ops.kernels import (AugmentedStencil2D, fused_augmented_2d,
                            masked_laplace_2d)
 from ..ops.krylov import cg, fgmres, gmres, minres
 from ..ops.linop import LinOp
-from ..ops.operators import dirichlet_rhs
+from ..ops.operators import constrain, dirichlet_rhs
 from ..ops.host_ref import HostAugmentedSystem
 from ..parallel.lattice import LatticeOps
 from ..precond.al import al_preconditioner
-from ..precond.gmg import FusedSmoother, build_gmg
+from ..precond.gmg import FusedSmoother, build_gmg, build_gmg_flat
 from ..precond.rational import rational_preconditioner
 from ..precond.weights import (inv_diag, inv_diag_squared, inv_exact,
                                inv_squared_exact)
 from ..utils.expressions import ParsedFunction
+from ..utils.prm import Params, parse_prm
 from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
+from ..utils.timer import TimerOutput
 
 __all__ = ["SolverControlConfig", "ImmersedLaplaceConfig",
            "ImmersedLaplaceProblem"]
@@ -127,6 +144,48 @@ class ImmersedLaplaceConfig:
     use_bf16_multigrid: bool = False
     gmg_smoother_degree: int = 4
 
+    @classmethod
+    def from_prm(cls, text_or_path) -> "ImmersedLaplaceConfig":
+        """The configuration of a reference parameter file (a path, or the
+        file's text), keys as in immersed_laplace.cc:70-233."""
+        text = text_or_path
+        if "\n" not in str(text_or_path):
+            with open(text_or_path) as fh:
+                text = fh.read()
+        p = Params(parse_prm(text)).enter("Distributed Lagrange<1,2>")
+        al = p.enter("AL preconditioner")
+        sc = p.enter("Schur solver control")
+
+        def fn(section, default_expr):
+            sub = p.enter(section)
+            return (sub.get_str("Function expression", default_expr),
+                    sub.get_str("Function constants", ""))
+
+        return cls(
+            initial_refinement=p.get_int("Initial embedding space refinement", 4),
+            delta_refinement=p.get_int("Local refinements steps near embedded domain", 0),
+            initial_embedded_refinement=p.get_int("Initial embedded space refinement", 5),
+            dirichlet_ids=tuple(p.get_int_list("Dirichlet boundary ids", (0, 1, 2, 3))),
+            embedding_space_degree=p.get_int("Embedding space finite element degree", 1),
+            embedded_space_degree=p.get_int("Embedded space finite element degree", 1),
+            embedded_configuration_degree=p.get_int("Embedded configuration finite element degree", 1),
+            coupling_quadrature_order=p.get_int("Coupling quadrature order", 3),
+            use_displacement=p.get_bool("Use displacement in embedded interface", False),
+            solver=p.get_str("Solver", "CG"),
+            use_operator_form=al.get_bool("Use operator version", False),
+            use_diagonal_inverse=al.get_bool("Use diagonal inverse", False),
+            schur=SolverControlConfig(
+                max_steps=sc.get_int("Max steps", 1000),
+                tolerance=sc.get_float("Tolerance", 1e-12),
+                reduction=sc.get_float("Reduction", 1e-12)),
+            embedded_configuration=fn("Embedded configuration",
+                                      "R*cos(2*pi*x)+Cx; R*sin(2*pi*x)+Cy"),
+            embedding_rhs=fn("Embedding rhs function", "0"),
+            embedded_value=fn("Embedded value", "1"),
+            dirichlet_boundary=fn("Embedding Dirichlet boundary conditions",
+                                  "0"),
+        )
+
 
 class ImmersedLaplaceProblem:
     """``ImmersedLaplaceProblem(cfg).setup()`` then ``.solve()``.  The
@@ -142,6 +201,7 @@ class ImmersedLaplaceProblem:
         self.device = torch.device(device)
         self.dtype = dtype or (torch.float64 if self.device.type == "cpu"
                                else torch.float32)
+        self.timer = TimerOutput()
         self.results = {}
         self.stats = {"host_syncs": 0}
         self.lanczos_start = None
@@ -149,20 +209,35 @@ class ImmersedLaplaceProblem:
         self._solvers = {}
         self._refine_cache = None
 
+    def _element_form_triggers(self) -> list:
+        """The settings that put the background in element form (no
+        kernel): a locally refined grid, a degree other than 1, Dirichlet
+        conditions on some sides only (immersed_laplace.py:298-300,
+        418-421 of the reference)."""
+        cfg = self.cfg
+        return [name for name, on in (
+            ("delta_refinement", cfg.delta_refinement > 0),
+            ("embedding_space_degree", cfg.embedding_space_degree != 1),
+            ("dirichlet_ids", set(cfg.dirichlet_ids) != {0, 1, 2, 3}))
+            if on]
+
+    @property
+    def element_form(self) -> bool:
+        """Whether the background takes the element form (no kernel)."""
+        return bool(self._element_form_triggers())
+
     def _check_supported(self):
         cfg = self.cfg
         if cfg.solver not in SOLVERS:
             raise ValueError(f"unknown solver {cfg.solver!r}; one of "
                              f"{SOLVERS}")
-        missing = []
-        if cfg.delta_refinement:
-            missing.append("delta_refinement")
-        if cfg.embedding_space_degree != 1 or cfg.embedded_space_degree != 1:
-            missing.append("element degrees other than 1")
-        if set(cfg.dirichlet_ids) != {0, 1, 2, 3}:
-            missing.append("partial Dirichlet boundaries")
-        if missing:
-            raise NotImplementedError("not ported yet: " + "; ".join(missing))
+        if cfg.embedded_space_degree != 1:
+            raise NotImplementedError(
+                "not ported yet: embedded_space_degree other than 1")
+        if cfg.use_bf16_multigrid and self.element_form:
+            raise NotImplementedError(
+                "not ported yet: the bf16 V-cycle on the element-form path "
+                f"({', '.join(self._element_form_triggers())})")
 
     # -- setup --------------------------------------------------------------
 
@@ -170,49 +245,71 @@ class ImmersedLaplaceProblem:
         self._check_supported()
         cfg = self.cfg
         dev, dt = self.device, self.dtype
-        conf = ParsedFunction(*cfg.embedded_configuration)
-        if cfg.use_displacement:
-            def conf_fn(pts):
-                return pts[:, :2] + np.asarray(conf(pts))
-        else:
-            def conf_fn(pts):
-                return np.asarray(conf(pts))
-        self.curve = parametrized_curve(
-            conf_fn, cfg.initial_embedded_refinement,
-            geom_degree=cfg.embedded_configuration_degree)
-        self.imm_space = self.curve.space(cfg.embedded_space_degree)
-        self.grid = UniformGrid.hyper_cube(2, 0.0, 1.0, cfg.initial_refinement)
-        self.space = GridSpace.q(self.grid, cfg.embedding_space_degree)
-        # mesh-compatibility guard (immersed_laplace.cc:364-369)
-        if self.curve.h_max >= self.grid.cell_diameter:
-            raise ValueError(
-                "The embedding grid is too refined (or the embedded grid "
-                "is too coarse): "
-                f"h_Gamma={self.curve.h_max:.3e} >= "
-                f"h_Omega={self.grid.cell_diameter:.3e}")
+        t0 = time.perf_counter()
+        with self.timer.scope("Setup grids and dofs"):
+            conf = ParsedFunction(*cfg.embedded_configuration)
+            if cfg.use_displacement:
+                def conf_fn(pts):
+                    return pts[:, :2] + np.asarray(conf(pts))
+            else:
+                def conf_fn(pts):
+                    return np.asarray(conf(pts))
+            self.curve = parametrized_curve(
+                conf_fn, cfg.initial_embedded_refinement,
+                geom_degree=cfg.embedded_configuration_degree)
+            kdeg = cfg.embedded_space_degree
+            self.imm_space = self.curve.space(kdeg)
+            if cfg.delta_refinement > 0:
+                # refine the cells holding the Γ support points and their
+                # face neighbours, delta times (immersed_laplace.cc:328-343)
+                grid = AdaptiveGrid.uniform(2, cfg.initial_refinement)
+                for _ in range(cfg.delta_refinement):
+                    grid = grid.refine_near(self.imm_space.dof_points)
+                self.grid = grid
+                self.space = AdaptiveSpace(grid, cfg.embedding_space_degree)
+                h_omega_min = grid.min_cell_diameter
+            else:
+                self.grid = UniformGrid.hyper_cube(2, 0.0, 1.0,
+                                                   cfg.initial_refinement)
+                self.space = GridSpace.q(self.grid,
+                                         cfg.embedding_space_degree)
+                h_omega_min = self.grid.cell_diameter
+            # mesh-compatibility guard (immersed_laplace.cc:364-369)
+            if self.curve.h_max >= h_omega_min:
+                raise ValueError(
+                    "The embedding grid is too refined (or the embedded grid "
+                    "is too coarse): "
+                    f"h_Gamma={self.curve.h_max:.3e} >= "
+                    f"h_Omega={h_omega_min:.3e}")
 
-        deg, kdeg = cfg.embedding_space_degree, cfg.embedded_space_degree
-        self.f_fn = ParsedFunction(*cfg.embedding_rhs)
-        self.g_fn = ParsedFunction(*cfg.embedded_value)
-        self.bc_fn = ParsedFunction(*cfg.dirichlet_boundary)
-        self.rhs_f = rhs_vector(self.space, self.f_fn, order=deg + 1,
-                                device=dev, dtype=dt)
-        self.M = imm_mass_matrix(self.imm_space, order=max(kdeg + 1, 2),
-                                 device=dev, dtype=dt)
-        self.A_imm = imm_stiffness_matrix(self.imm_space, order=deg + 1,
-                                          device=dev, dtype=dt)
-        self.rhs_g = imm_rhs(self.imm_space, self.g_fn,
-                             order=max(kdeg + 1, 2), device=dev, dtype=dt)
-        self.free = torch.as_tensor(
-            ~self.space.boundary_dof_mask(list(cfg.dirichlet_ids)), device=dev)
-        self.bc_values = interpolate(self.space, self.bc_fn, device=dev,
-                                     dtype=dt)
-        self.C = build_coupling(self.space, self.imm_space,
-                                cfg.coupling_quadrature_order, device=dev,
-                                dtype=dt)
+        with self.timer.scope("Assemble system"):
+            deg = cfg.embedding_space_degree
+            self.K = (laplace_matrix(self.space, order=deg + 1, device=dev,
+                                     dtype=dt) if self.element_form else None)
+            self.f_fn = ParsedFunction(*cfg.embedding_rhs)
+            self.g_fn = ParsedFunction(*cfg.embedded_value)
+            self.bc_fn = ParsedFunction(*cfg.dirichlet_boundary)
+            self.rhs_f = rhs_vector(self.space, self.f_fn, order=deg + 1,
+                                    device=dev, dtype=dt)
+            self.M = imm_mass_matrix(self.imm_space, order=max(kdeg + 1, 2),
+                                     device=dev, dtype=dt)
+            self.A_imm = imm_stiffness_matrix(self.imm_space, order=deg + 1,
+                                              device=dev, dtype=dt)
+            self.rhs_g = imm_rhs(self.imm_space, self.g_fn,
+                                 order=max(kdeg + 1, 2), device=dev, dtype=dt)
+            self.free = torch.as_tensor(
+                ~self.space.boundary_dof_mask(list(cfg.dirichlet_ids)),
+                device=dev)
+            self.bc_values = interpolate(self.space, self.bc_fn, device=dev,
+                                         dtype=dt)
+        with self.timer.scope("Setup coupling"):
+            self.C = build_coupling(self.space, self.imm_space,
+                                    cfg.coupling_quadrature_order, device=dev,
+                                    dtype=dt)
         self.layout = BlockLayout((self.space.n_dofs, self.imm_space.n_dofs))
         self._solvers = {}
         self._refine_cache = None
+        self.results["setup_seconds"] = time.perf_counter() - t0
         return self
 
     def load_state(self, state):
@@ -245,14 +342,16 @@ class ImmersedLaplaceProblem:
                        "ELMAN_triang": self._build_elman,
                        "rational": self._build_rational}[key]
             t0 = time.perf_counter()
-            self._solvers[key] = builder()
+            with self.timer.scope("Build solver"):
+                self._solvers[key] = builder()
             self.results["build_seconds"] = time.perf_counter() - t0
         self.stats["host_syncs"] = 0
         t0 = time.perf_counter()
-        u, lam, info = self._solvers[key](self.rhs_f, self.rhs_g,
-                                          self.bc_values)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self.timer.scope("Solve system"):
+            u, lam, info = self._solvers[key](self.rhs_f, self.rhs_g,
+                                              self.bc_values)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.u, self.lam = u, lam
         self.results.update(
             outer_iterations=int(info.iterations),
@@ -355,23 +454,63 @@ class ImmersedLaplaceProblem:
         outer steps (default ``cfg.schur.max_steps``, read when the solver is
         built)."""
         cfg = self.cfg
-        dev, dt = self.device, self.dtype
         C_lin = self.C.as_linop()
         Ct_lin = C_lin.T
         layout = self.layout
         free = self.free
-        shape = LatticeOps.for_space(self.space).shape
-        n = self.space.n_dofs
         if max_steps is None:
             max_steps = cfg.schur.max_steps
-        gmg_dt = torch.bfloat16 if cfg.use_bf16_multigrid else dt
         self.compact_blocks = []   # every compact AL block formed, in order
+        build = (self._augmented_flat if self.element_form
+                 else self._augmented_lattice)
+        Aug, aug_inv, gamma, inv_w = build()
+
+        AA = block_operator(layout, layout, [[Aug, Ct_lin], [C_lin, None]])
+        prec = al_preconditioner(layout, aug_inv, Ct_lin, inv_w, gamma)
+        # FGMRES keeps the V and Z bases, 2*restart+1 vectors: the restart is
+        # capped so that they fit about 6 GB on very large layouts (never
+        # engaged at the ~4-30 outer iterations of this method)
+        restart = min(cfg.fgmres_restart,
+                      max(12, int(6e9 / (8 * max(layout.total, 1)))))
+
+        def solve_core(b):
+            return fgmres(AA, b, prec, tol=cfg.schur.tolerance,
+                          reduction=cfg.schur.reduction, max_steps=max_steps,
+                          restart=restart, stats=self.stats)
+
+        if raw_rhs:
+            def run_raw(b0, b1):
+                x, info = solve_core(layout.concat((b0, b1)))
+                u, lam = layout.split(x)
+                return u, lam, info
+
+            return run_raw
+
+        k_mv = self._k_mv()
+
+        def run(rhs_f, rhs_g, bc_values):
+            b0 = dirichlet_rhs(k_mv, rhs_f, free, bc_values)
+            b0 = b0 + torch.where(free, gamma * Ct_lin(inv_w(rhs_g)), 0.0)
+            x, info = solve_core(layout.concat((b0, rhs_g)))
+            u, lam = layout.split(x)
+            return torch.where(free, u, bc_values), lam, info
+
+        return run
+
+    def _al_form(self):
+        """The AL form of ``cfg``: ``(gamma, inv_w, w_diag, coupling_for,
+        fine_coupling)``.  In operator form γ is scaled by 1/h_Γ, the AL term
+        is the particle mass on Γ from a coupling table of order 2k+1 on
+        every level, W = diag(M) or M, ``w_diag`` None.  In the explicit
+        form γ·CᵀW⁻¹C with W = diag(M)² or M² (γ not scaled); every GMG
+        level carries the diagonal surrogate γ·Cᵀdiag(w)C of its own
+        coupling, ``w_diag = diag(M)⁻²``, the fine level the problem's C."""
+        cfg = self.cfg
+        dev, dt = self.device, self.dtype
         if cfg.use_operator_form:
-            # γ scaled by 1/h_Γ; the AL term is the particle mass on Γ
             gamma = cfg.gamma / self.curve.h_max
             inv_w = (inv_diag(self.M) if cfg.use_diagonal_inverse
                      else inv_exact(self.M))
-            w_diag = None
 
             def coupling_for(sp):
                 return build_coupling(
@@ -379,24 +518,31 @@ class ImmersedLaplaceProblem:
                     order=2 * cfg.embedding_space_degree + 1, device=dev,
                     dtype=dt)
 
-            fine_coupling = coupling_for(self.space)
-        else:
-            # explicit γ·CᵀW⁻¹C with W = diag(M)² or M² (γ not scaled);
-            # every GMG level carries the diagonal surrogate γ·Cᵀdiag(w)C
-            # of its own coupling
-            gamma = cfg.gamma
-            m_diag = (self.M.diag_host() if hasattr(self.M, "diag_host")
-                      else self.M.diag().double().cpu().numpy())
-            w_diag = 1.0 / m_diag ** 2
-            inv_w = (inv_diag_squared(self.M) if cfg.use_diagonal_inverse
-                     else inv_squared_exact(self.M))
+            return gamma, inv_w, None, coupling_for, coupling_for(self.space)
+        m_diag = (self.M.diag_host() if hasattr(self.M, "diag_host")
+                  else self.M.diag().double().cpu().numpy())
+        inv_w = (inv_diag_squared(self.M) if cfg.use_diagonal_inverse
+                 else inv_squared_exact(self.M))
 
-            def coupling_for(sp):
-                return build_coupling(sp, self.imm_space,
-                                      cfg.coupling_quadrature_order,
-                                      device=dev, dtype=dt)
+        def coupling_for(sp):
+            return build_coupling(sp, self.imm_space,
+                                  cfg.coupling_quadrature_order, device=dev,
+                                  dtype=dt)
 
-            fine_coupling = self.C
+        return cfg.gamma, inv_w, 1.0 / m_diag ** 2, coupling_for, self.C
+
+    def _augmented_lattice(self):
+        """The lattice path's augmented operator ``Aug`` (flat LinOp), its
+        inner solve ``aug_inv`` (CG on lattice tensors, the lattice GMG
+        V-cycle), γ and W⁻¹: ``(Aug, aug_inv, gamma, inv_w)``."""
+        cfg = self.cfg
+        dev, dt = self.device, self.dtype
+        free = self.free
+        shape = LatticeOps.for_space(self.space).shape
+        n = self.space.n_dofs
+        gmg_dt = torch.bfloat16 if cfg.use_bf16_multigrid else dt
+
+        gamma, inv_w, w_diag, coupling_for, fine_coupling = self._al_form()
 
         # the fine augmented operator of the inner CG, in the working dtype
         fine_level, fine_stencil = self._level_operator(
@@ -440,37 +586,73 @@ class ImmersedLaplaceProblem:
                        stats=self.stats)
             return x2.reshape(-1)
 
-        AA = block_operator(layout, layout, [[Aug, Ct_lin], [C_lin, None]])
-        prec = al_preconditioner(layout, aug_inv, Ct_lin, inv_w, gamma)
-        # FGMRES keeps the V and Z bases, 2*restart+1 vectors: the restart is
-        # capped so that they fit about 6 GB on very large layouts (never
-        # engaged at the ~4-30 outer iterations of this method)
-        restart = min(cfg.fgmres_restart,
-                      max(12, int(6e9 / (8 * max(layout.total, 1)))))
+        return Aug, aug_inv, gamma, inv_w
 
-        def solve_core(b):
-            return fgmres(AA, b, prec, tol=cfg.schur.tolerance,
-                          reduction=cfg.schur.reduction, max_steps=max_steps,
-                          restart=restart, stats=self.stats)
+    def _augmented_flat(self):
+        """The element-form path's ``(Aug, aug_inv, gamma, inv_w)``
+        (immersed_laplace.py:952-1030, 1111-1138 of the reference without
+        its lattice branches): Aug = constrain(K + AL) on flat vectors with
+        the compact AL block (the particle form γ/h_Γ·Σ_q φφᵀ JxW in operator
+        form, γ·Cᵀdiag(M)⁻²C in the explicit form; with W = M² the outer
+        operator keeps the matrix-free γ·CᵀW⁻¹C and the GMG levels the
+        diagonal surrogate), inverted by CG on the flat GMG whose levels
+        re-discretize K and the AL term."""
+        cfg = self.cfg
+        dev, dt = self.device, self.dtype
+        free = self.free
+        order_k = cfg.embedding_space_degree + 1
+        gamma, inv_w, w_diag, coupling_for, fine_coupling = self._al_form()
 
-        if raw_rhs:
-            def run_raw(b0, b1):
-                x, info = solve_core(layout.concat((b0, b1)))
-                u, lam = layout.split(x)
-                return u, lam, info
+        def compact(coupling, shape):
+            t0 = time.perf_counter()
+            al, al_diag = coupling.compact_al(gamma, w_diag)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.compact_blocks.append(dict(
+                shape=shape, rows=al.rows, bytes=al.rows ** 2 * dt.itemsize,
+                seconds=time.perf_counter() - t0))
+            return al, al_diag
 
-            return run_raw
+        def level(sp):
+            fine = sp is self.space
+            K_l = self.K if fine else laplace_matrix(
+                sp, order=order_k, device=dev, dtype=dt)
+            al, al_diag = compact(fine_coupling if fine else coupling_for(sp),
+                                  [sp.n_dofs])
 
-        k_mv = self._k_mv()
+            def mv(x):
+                return K_l.mv(x) + al(x)
 
-        def run(rhs_f, rhs_g, bc_values):
-            b0 = dirichlet_rhs(k_mv, rhs_f, free, bc_values)
-            b0 = b0 + torch.where(free, gamma * Ct_lin(inv_w(rhs_g)), 0.0)
-            x, info = solve_core(layout.concat((b0, rhs_g)))
-            u, lam = layout.split(x)
-            return torch.where(free, u, bc_values), lam, info
+            return mv, K_l.diag_host() + al_diag
 
-        return run
+        levels = {}
+
+        def op_factory(sp):
+            levels[id(sp)] = level(sp)
+            return levels[id(sp)]
+
+        gmg = build_gmg_flat(self.space, op_factory, free_mask=free,
+                             smoother_degree=cfg.gmg_smoother_degree,
+                             lanczos_start=self.lanczos_start, dtype=dt,
+                             stats=self.stats)
+        self._last_gmg = gmg
+        if cfg.use_operator_form or cfg.use_diagonal_inverse:
+            aug_raw = levels[id(self.space)][0]
+        else:
+            al_op = self.C.al_term(inv_w, gamma)
+
+            def aug_raw(x):
+                return self.K.mv(x) + al_op(x)
+
+        n = self.space.n_dofs
+        Aug = constrain(LinOp(aug_raw, (n, n), aug_raw), free)
+
+        def aug_inv(v):
+            x, _ = cg(Aug, v, M=gmg.apply, tol=cfg.inner_tolerance,
+                      max_steps=cfg.inner_max_steps, stats=self.stats)
+            return x
+
+        return Aug, aug_inv, gamma, inv_w
 
     def _check_refinable(self):
         cfg = self.cfg
@@ -481,6 +663,12 @@ class ImmersedLaplaceProblem:
                 "W = diag(M) only; the host float64 reference "
                 "(ops.host_ref.HostAugmentedSystem) applies that system "
                 "alone, as the reference package's does")
+        if self.element_form:
+            raise NotImplementedError(
+                "solve_refined: the uniform Q1 lattice with Dirichlet "
+                "conditions on all sides only; the host float64 reference "
+                "applies the lattice stiffness, as the reference package's "
+                "does (host_ref.py:154-157)")
 
     def build_correction_solver(self):
         """``(b0, b1) -> (du, dlam, info)``: one AL-preconditioned FGMRES
@@ -553,7 +741,10 @@ class ImmersedLaplaceProblem:
 
     def _k_mv(self):
         """The unconstrained fine stiffness on flat vectors (kernel K6 on
-        CUDA), which lifts the Dirichlet data."""
+        CUDA; the element form off the lattice path), which lifts the
+        Dirichlet data."""
+        if self.element_form:
+            return self.K.mv
         lat = LatticeOps.for_space(self.space)
 
         def k_mv(x):
@@ -567,7 +758,11 @@ class ImmersedLaplaceProblem:
         of the JAX package, lattice branch).  Every level operator is K1, the
         smoother is K2 without patch, the level diagonal ``laplace_diag``.
         CG stops on its recurrence residual at ``reduction`` of the initial
-        one.  Returns ``(K_c, K_inv)`` on flat vectors."""
+        one.  Returns ``(K_c, K_inv)`` on flat vectors.  Off the lattice
+        path K is the element form and the GMG the flat one (the
+        reference's flat branch, :283-295)."""
+        if self.element_form:
+            return self._kg_inv_flat(reduction)
         dev, dt = self.device, self.dtype
         shape = LatticeOps.for_space(self.space).shape
         self.kinv_stencils = []   # per GMG level, fine first
@@ -606,6 +801,28 @@ class ImmersedLaplaceProblem:
             return x2.reshape(-1)
 
         return LinOp(k_c, (n, n), k_c, name="K_c"), K_inv
+
+    def _kg_inv_flat(self, reduction):
+        dev, dt = self.device, self.dtype
+        order = self.cfg.embedding_space_degree + 1
+
+        def factory(sp):
+            K_l = self.K if sp is self.space else laplace_matrix(
+                sp, order=order, device=dev, dtype=dt)
+            return K_l.mv, K_l.diag_host()
+
+        gmg = build_gmg_flat(self.space, factory, free_mask=self.free,
+                             lanczos_start=self.lanczos_start, dtype=dt,
+                             stats=self.stats)
+        self._kinv_gmg = gmg
+        K_c = constrain(self.K.as_linop(), self.free)
+
+        def K_inv(v):
+            x, _ = cg(K_c, v, M=gmg.apply, tol=0.0, reduction=reduction,
+                      max_steps=2000, stats=self.stats)
+            return x
+
+        return K_c, K_inv
 
     def _build_schur_cg(self):
         """Exact-Schur CG (immersed_laplace.cc:507-525)."""

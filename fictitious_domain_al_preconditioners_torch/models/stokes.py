@@ -29,6 +29,13 @@ a fine 2D level) than it allows, the element-form A_l and the coupling
 applies.  No kernel of this repo is
 on this path: every apply is PyTorch (gathers, ``index_add_``, the band's
 strided products).
+
+With ``delta_refinement > 0`` the background is a 2:1-balanced quadtree or
+octree refined near the multiplier's support points (``core.adaptive``,
+stokes_immersed_boundary.cc:468-483), the velocity a folded Q2 space, the
+pressure a folded Q1 or the cellwise P1disc space on the same tree; A, B
+and Mp are element form (:func:`..ops.assembly.adaptive_matrix`) and every
+GMG level takes the element route, the tree coarsening by truncation.
 """
 
 from __future__ import annotations
@@ -39,9 +46,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core.adaptive import AdaptiveDGPSpace, AdaptiveGrid, AdaptiveSpace
 from ..core.grid import GridSpace, UniformGrid
 from ..core.immersed import hyper_sphere, parametrized_curve
-from ..ops.assembly import (divergence_block_local, imm_mass_matrix, imm_rhs,
+from ..ops.assembly import (adaptive_mixed_cell_matrix,
+                            adaptive_vector_cell_matrix,
+                            divergence_block_local, imm_mass_matrix, imm_rhs,
                             mass_matrix, rhs_vector, vector_cell_dofs,
                             velocity_block_local)
 from ..ops.blocks import BlockLayout, block_operator
@@ -194,8 +204,6 @@ class StokesProblem:
         if cfg.solver not in SOLVERS:
             raise ValueError(f"unknown solver {cfg.solver!r}; one of "
                              f"{SOLVERS}")
-        if cfg.delta_refinement > 0:
-            raise NotImplementedError("not ported yet: delta_refinement")
 
     # -- setup --------------------------------------------------------------
 
@@ -220,16 +228,33 @@ class StokesProblem:
                 # (stokes_immersed_boundary.cc:427)
                 self.imm_mesh = hyper_sphere([0.5, 0.5, 0.5], 0.1,
                                              cfg.initial_embedded_refinement)
-            # background unit cube, colorized (stokes_immersed_boundary.cc:417)
-            self.grid = UniformGrid.hyper_cube(sd, 0.0, 1.0,
-                                               cfg.initial_refinement)
-            self.vel_space = GridSpace.q(self.grid, cfg.velocity_degree)
+            # background unit cube, colorized (stokes_immersed_boundary.cc:417);
+            # delta_refinement refines near the multiplier's support points
+            # whatever the pressure space (:468-483, 517-529)
             if cfg.use_disc_pressure:
                 assert cfg.velocity_degree == 2, "not a stable pair!"
-                self.p_space = GridSpace.dgp(self.grid, 1)
+            if cfg.delta_refinement > 0:
+                grid = AdaptiveGrid.uniform(sd, cfg.initial_refinement)
+                support = self.imm_mesh.space(
+                    max(cfg.embedded_space_degree, 1)).dof_points
+                for _ in range(cfg.delta_refinement):
+                    grid = grid.refine_near(support)
+                self.grid = grid
+                self.vel_space = AdaptiveSpace(grid, cfg.velocity_degree)
+                self.p_space = (AdaptiveDGPSpace(grid, 1)
+                                if cfg.use_disc_pressure else
+                                AdaptiveSpace(grid, cfg.velocity_degree - 1))
+                h_min_diam = grid.min_cell_diameter
             else:
-                self.p_space = GridSpace.q(self.grid, cfg.velocity_degree - 1)
-            if sd == 2 and self.imm_mesh.h_max >= self.grid.cell_diameter:
+                self.grid = UniformGrid.hyper_cube(sd, 0.0, 1.0,
+                                                   cfg.initial_refinement)
+                self.vel_space = GridSpace.q(self.grid, cfg.velocity_degree)
+                self.p_space = (GridSpace.dgp(self.grid, 1)
+                                if cfg.use_disc_pressure else
+                                GridSpace.q(self.grid,
+                                            cfg.velocity_degree - 1))
+                h_min_diam = self.grid.cell_diameter
+            if sd == 2 and self.imm_mesh.h_max >= h_min_diam:
                 raise ValueError("mesh-size compatibility violated "
                                  "(stokes_immersed_boundary.cc:497-503)")
             self.mult_space = self.imm_mesh.space(
@@ -305,15 +330,20 @@ class StokesProblem:
         al = self.cfg.al
         return al.gamma_grad_div if al.grad_div_stabilization else None
 
-    def _vel_local(self, sp) -> np.ndarray:
-        return velocity_block_local(sp.fe, sp.grid.h,
+    def _vel_local(self, sp, h=None) -> np.ndarray:
+        return velocity_block_local(sp.fe, sp.grid.h if h is None else h,
                                     self.cfg.velocity_degree + 2,
                                     self._gd_coef())
 
     def _vel_block(self, sp, dtype) -> CellMatrix:
         """The velocity block (grad-div-stabilized or symmetric gradient) on
-        a level space: one shared local matrix."""
+        a level space: one shared local matrix, or on a tree one a level
+        and the folded ones of the constrained cells."""
         sd = self.cfg.spacedim
+        if hasattr(sp, "fold_of"):
+            return adaptive_vector_cell_matrix(
+                sp, lambda h: self._vel_local(sp, h), sd, device=self.device,
+                dtype=dtype)
         vdofs = vector_cell_dofs(sp, sd)
         n = sp.n_dofs
         return CellMatrix(vdofs, vdofs, self._vel_local(sp),
@@ -322,9 +352,15 @@ class StokesProblem:
     def _div_block(self) -> CellMatrix:
         """B = -(div u, q) on the background pair."""
         sd = self.cfg.spacedim
+        order = self.cfg.velocity_degree + 2
+        if hasattr(self.vel_space, "fold_of"):
+            return adaptive_mixed_cell_matrix(
+                self.p_space, self.vel_space,
+                lambda h: divergence_block_local(self.p_space.fe,
+                                                 self.vel_space.fe, h, order),
+                sd, device=self.device, dtype=self.OP_DTYPE)
         b_local = divergence_block_local(self.p_space.fe, self.vel_space.fe,
-                                         self.grid.h,
-                                         self.cfg.velocity_degree + 2)
+                                         self.grid.h, order)
         return CellMatrix(self.p_space.cell_dofs,
                           vector_cell_dofs(self.vel_space, sd), b_local,
                           (self.p_space.n_dofs, self.vel_space.n_dofs * sd),
@@ -411,9 +447,10 @@ class StokesProblem:
                 Cl = (self.Cs if sp is self.vel_space else build_coupling(
                     sp, self.mult_space, self._coupling_order(),
                     device="cpu"))
+            local = None if hasattr(sp, "fold_of") else self._vel_local(sp)
             mv, diag, route = vector_al_level(
-                sp, A_l, self._vel_local(sp), sd, Cl, w_diag_scalar, gamma,
-                device=dev, dtype=dt)
+                sp, A_l, local, sd, Cl, w_diag_scalar, gamma, device=dev,
+                dtype=dt)
             routes.append(route)
             return mv, diag
 

@@ -8,7 +8,11 @@ functions), the immersed mass and stiffness matrices and load vector
 (scalar or vector), the reference local matrices of the vector blocks
 (the Stokes velocity block in its grad-div and symmetric-gradient forms,
 the elasticity block and the divergence block), nodal interpolation and
-the L2 and H1 errors.  Setup-time work runs in float64 NumPy on the host; results are handed over
+the L2 and H1 errors.  On a locally refined space (``core.adaptive``) the
+matrices are element form with the hanging-node fold applied
+(:func:`adaptive_matrix`: one shared local matrix per level for the cells
+without a hanging node, per-cell folded ones for the others), and the load
+vector and errors fold the same way.  Setup-time work runs in float64 NumPy on the host; results are handed over
 as tensors on the requested device (CUDA unless the caller asks for the
 CPU).
 """
@@ -19,13 +23,14 @@ import numpy as np
 import torch
 
 from ..core.quadrature import gauss
-from .operators import CellMatrix
+from .operators import CellMatrix, CellMatrixSum
 
 __all__ = ["mass_matrix", "laplace_matrix", "rhs_vector", "imm_mass_matrix",
            "imm_stiffness_matrix", "imm_rhs", "interpolate", "l2_error",
            "h1_error", "default_order", "vector_cell_dofs",
            "velocity_block_local", "elasticity_block_local",
-           "divergence_block_local"]
+           "divergence_block_local", "adaptive_matrix",
+           "adaptive_vector_cell_matrix", "adaptive_mixed_cell_matrix"]
 
 
 def default_order(space) -> int:
@@ -50,10 +55,19 @@ def _ref_laplace_local(fe, h, order) -> np.ndarray:
     return out
 
 
+def _adaptive(space) -> bool:
+    return hasattr(space, "fold_of")
+
+
 def mass_matrix(space, order=None, coef=None, *, device="cuda",
                 dtype=torch.float64) -> CellMatrix:
-    """Mass matrix of a uniform-grid space (one shared local matrix)."""
+    """Mass matrix of a uniform-grid space (one shared local matrix) or of
+    a locally refined one (:func:`adaptive_matrix`)."""
     order = order or space.fe.degree + 1
+    if _adaptive(space):
+        return adaptive_matrix(
+            space, space, lambda h: _ref_mass_local(space.fe, h, order),
+            coef=coef, device=device, dtype=dtype)
     local = _ref_mass_local(space.fe, space.grid.h, order)
     return CellMatrix(space.cell_dofs, space.cell_dofs, local,
                       (space.n_dofs, space.n_dofs), coef, device=device,
@@ -66,6 +80,10 @@ def laplace_matrix(space, order=None, coef=None, *, device="cuda",
     optional per-cell constant (the elliptic-interface β field,
     elliptic_interface.cc:638-675)."""
     order = order or space.fe.degree + 1
+    if _adaptive(space):
+        return adaptive_matrix(
+            space, space, lambda h: _ref_laplace_local(space.fe, h, order),
+            coef=coef, device=device, dtype=dtype)
     local = _ref_laplace_local(space.fe, space.grid.h, order)
     return CellMatrix(space.cell_dofs, space.cell_dofs, local,
                       (space.n_dofs, space.n_dofs), coef, device=device,
@@ -76,8 +94,12 @@ def rhs_vector(space, fn, order=None, *, device="cuda", dtype=torch.float64):
     """(f, φ_i) load vector of a background space: (n_dofs,) for a scalar
     ``fn``, (n_dofs, n_comp) for a vector one.  A scalar function on a
     Q1-continuous space takes the lattice form; every other case the
-    element form (per-cell quadrature, host scatter)."""
+    element form (per-cell quadrature, host scatter), folded on a locally
+    refined space."""
     order = order or default_order(space)
+    if _adaptive(space):
+        return torch.as_tensor(_adaptive_rhs(space, fn, order), dtype=dtype,
+                               device=device)
     if space.fe.degree == 1 and space.continuous:
         out = _lattice_rhs(space, fn, order)
         if out is not None:
@@ -103,6 +125,135 @@ def _element_rhs(space, fn, order: int) -> np.ndarray:
     return np.stack([np.bincount(dofs, weights=be[:, :, k].reshape(-1),
                                  minlength=space.n_dofs)
                      for k in range(be.shape[2])], axis=1)
+
+
+def _vector_dofs(cell_dofs, n, n_comp):
+    return np.concatenate([cell_dofs + c * n for c in range(n_comp)], axis=1)
+
+
+def _block_fold(W, n_comp):
+    """Block-diagonal fold of a component-major vector field."""
+    if n_comp == 1:
+        return W
+    nc, nloc, K = W.shape
+    Wv = np.zeros((nc, n_comp * nloc, n_comp * K))
+    for c in range(n_comp):
+        Wv[:, c * nloc:(c + 1) * nloc, c * K:(c + 1) * K] = W
+    return Wv
+
+
+def adaptive_matrix(row_space, col_space, local_fn, n_comp_row: int = 1,
+                    n_comp_col: int = 1, coef=None, *, device="cuda",
+                    dtype=torch.float64):
+    """Element-form matrix on a locally refined grid (both spaces on the
+    same tree): ``local_fn(h) -> (n_comp_row·nloc_row, n_comp_col·nloc_col)``
+    is the local matrix of a cell of size h, component-major.  The
+    reference folds every cell, ``W_rᵀ L W_c`` (``assembly.py:77-89,
+    416-460``), and holds one (K, K) matrix a cell; here a cell without a
+    hanging node in either space keeps its level's shared matrix on its
+    first ``nloc`` dofs, one :class:`CellMatrix` a level, and only the
+    constrained cells hold folded matrices: a :class:`CellMatrixSum` of the
+    parts, the same matrix."""
+    g = row_space.grid
+    nl_r, nl_c = row_space.fe.n_dofs_per_cell, col_space.fe.n_dofs_per_cell
+    n_r, n_c = row_space.n_dofs, col_space.n_dofs
+    shape = (n_r * n_comp_row, n_c * n_comp_col)
+    coef = None if coef is None else np.asarray(coef, dtype=np.float64)
+    per_level = {int(l): local_fn(g.h_of_level(int(l)))
+                 for l in np.unique(g.levels)}
+    plain = row_space.plain & col_space.plain
+    parts = []
+
+    def part(sel, rows, cols, local):
+        parts.append(CellMatrix(
+            rows, cols, local, shape, None if coef is None else coef[sel],
+            device=device, dtype=dtype))
+
+    for lv, local in per_level.items():
+        sel = np.flatnonzero(plain & (g.levels == lv))
+        if len(sel):
+            part(sel, _vector_dofs(row_space.cell_dofs[sel, :nl_r], n_r,
+                                   n_comp_row),
+                 _vector_dofs(col_space.cell_dofs[sel, :nl_c], n_c,
+                              n_comp_col), local)
+    constr = np.flatnonzero(~plain)
+    if len(constr):
+        L = np.stack([per_level[int(lv)] for lv in g.levels[constr]])
+        Wr = _block_fold(row_space.fold_of(constr), n_comp_row)
+        Wc = _block_fold(col_space.fold_of(constr), n_comp_col)
+        part(constr, _vector_dofs(row_space.cell_dofs[constr], n_r,
+                                  n_comp_row),
+             _vector_dofs(col_space.cell_dofs[constr], n_c, n_comp_col),
+             np.swapaxes(Wr, 1, 2) @ L @ Wc)
+    return parts[0] if len(parts) == 1 else CellMatrixSum(parts, shape)
+
+
+def adaptive_vector_cell_matrix(space, local_fn, n_comp: int, *,
+                                device="cuda", dtype=torch.float64):
+    """Vector operator on a locally refined space, ``local_fn(h) ->
+    (nloc·n_comp, nloc·n_comp)`` (the Stokes velocity block,
+    stokes_immersed_boundary.cc:472-483)."""
+    return adaptive_matrix(space, space, local_fn, n_comp, n_comp,
+                           device=device, dtype=dtype)
+
+
+def adaptive_mixed_cell_matrix(row_space, col_space, local_fn,
+                               n_comp_col: int, *, device="cuda",
+                               dtype=torch.float64):
+    """Scalar rows x vector columns on a locally refined pair (the Stokes
+    divergence B), ``local_fn(h) -> (nloc_row, nloc_col·n_comp_col)``."""
+    return adaptive_matrix(row_space, col_space, local_fn, 1, n_comp_col,
+                           device=device, dtype=dtype)
+
+
+def _adaptive_quad(space, order: int):
+    """(rule, physical points (nc, nq, dim), JxW (nc, nq)) on a locally
+    refined grid."""
+    g = space.grid
+    rule = gauss(g.dim, order)
+    h = g.cell_h
+    pts = g.cell_origins()[:, None, :] + rule.points[None, :, :] * h[:, None, :]
+    jxw = rule.weights[None, :] * np.prod(h, axis=1)[:, None]
+    return rule, pts, jxw
+
+
+def _fold_scatter(space, be) -> np.ndarray:
+    """Σ_c W_cᵀ be_c scattered to the free dofs: ``be`` is (nc, nloc) or
+    (nc, nloc, k)."""
+    nloc, K = space.fe.n_dofs_per_cell, space.cell_dofs.shape[1]
+    bf = np.zeros((be.shape[0], K) + be.shape[2:])
+    bf[:, :nloc] = be
+    c = space.constrained
+    if len(c):
+        bf[c] = np.einsum("ca...,caK->cK...", be[c], space.fold_constrained)
+    out = np.zeros((space.n_dofs,) + be.shape[2:])
+    np.add.at(out, space.cell_dofs, bf)
+    return out
+
+
+def _local_values(space, u) -> np.ndarray:
+    """(nc, nloc) local node values of a free-dof vector (the fold
+    applied)."""
+    nloc = space.fe.n_dofs_per_cell
+    u = _host_vector(u)
+    out = u[space.cell_dofs[:, :nloc]]
+    c = space.constrained
+    if len(c):
+        out[c] = np.einsum("caK,cK->ca", space.fold_constrained,
+                           u[space.cell_dofs[c]])
+    return out
+
+
+def _adaptive_rhs(space, fn, order: int) -> np.ndarray:
+    rule, pts, jxw = _adaptive_quad(space, order)
+    tab = space.fe.tabulate(rule.points)                 # (nq, nloc)
+    nc, nq, dim = pts.shape
+    fv = np.asarray(fn(pts.reshape(-1, dim)), dtype=np.float64)
+    if fv.ndim == 2:                                      # vector fn
+        be = np.einsum("cqk,qa,cq->cak", fv.reshape(nc, nq, -1), tab, jxw)
+    else:
+        be = np.einsum("cq,qa,cq->ca", fv.reshape(nc, nq), tab, jxw)
+    return _fold_scatter(space, be)
 
 
 def _lattice_rhs(space, fn, order: int):
@@ -212,6 +363,12 @@ def l2_error(space, u, exact_fn, order=None) -> float:
     """||u_h - u||_L2 by Gauss quadrature on every background cell
     (VectorTools::integrate_difference), float64 on the host."""
     order = order or (space.fe.degree + 2)
+    if _adaptive(space):
+        rule, pts, jxw = _adaptive_quad(space, order)
+        uh = _local_values(space, u) @ space.fe.tabulate(rule.points).T
+        nc, nq, dim = pts.shape
+        ex = np.asarray(exact_fn(pts.reshape(-1, dim))).reshape(nc, nq)
+        return float(np.sqrt(np.sum((uh - ex) ** 2 * jxw)))
     rule, pts, jxw = _cell_quad_points(space, order)
     tab = space.fe.tabulate(rule.points)
     uh = _host_vector(u)[space.cell_dofs] @ tab.T
@@ -224,6 +381,15 @@ def h1_error(space, u, exact_grad_fn, order=None) -> float:
     """H1-seminorm error ``||∇u_h - ∇u||_L2``; ``exact_grad_fn(points) ->
     (n, dim)``; float64 on the host."""
     order = order or (space.fe.degree + 2)
+    if _adaptive(space):
+        rule, pts, jxw = _adaptive_quad(space, order)
+        nc, nq, dim = pts.shape
+        gh = np.einsum("ca,qad->cqd", _local_values(space, u),
+                       space.fe.tabulate_grad(rule.points)) / \
+            space.grid.cell_h[:, None, :]
+        ge = np.asarray(exact_grad_fn(pts.reshape(-1, dim))).reshape(
+            nc, nq, dim)
+        return float(np.sqrt(np.sum(np.sum((gh - ge) ** 2, axis=-1) * jxw)))
     rule, pts, jxw = _cell_quad_points(space, order)
     grad = space.fe.tabulate_grad(rule.points) / space.grid.h[None, None, :]
     nc, nq, dim = pts.shape

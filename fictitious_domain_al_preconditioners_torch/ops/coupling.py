@@ -380,16 +380,21 @@ def _cell_dofs_of(space, cells):
 def build_coupling(bg_space, imm_space, order: int = 3, *,
                    device="cuda", dtype=torch.float64) -> Coupling:
     """Assemble the quad-point coupling table ('Coupling quadrature order'
-    in every reference prm) by NumPy point location on the uniform grid."""
+    in every reference prm) by NumPy point location on the uniform grid, or
+    through the folded tabulation of a locally refined background
+    (``tabulate_at``: the hanging-node constraints are in the table)."""
     mesh = imm_space.mesh
     rule = gauss(mesh.dim, order)
     X, _, jxw = mesh.quad_geometry(rule)
     nc, nq_pc, sd = X.shape
     flat_pts = X.reshape(-1, sd)
 
-    cells, refs = bg_space.grid.locate(flat_pts)
-    bg_phi = bg_space.fe.tabulate(refs)
-    bg_dofs = _cell_dofs_of(bg_space, cells)
+    if hasattr(bg_space, "tabulate_at"):
+        bg_dofs, bg_phi = bg_space.tabulate_at(flat_pts)
+    else:
+        cells, refs = bg_space.grid.locate(flat_pts)
+        bg_phi = bg_space.fe.tabulate(refs)
+        bg_dofs = _cell_dofs_of(bg_space, cells)
 
     psi = imm_space.fe.tabulate(rule.points)
     imm_psi = np.broadcast_to(psi[None], (nc, nq_pc, psi.shape[1])).reshape(

@@ -98,18 +98,25 @@ def _host_cg(mv, b, dinv, tol=1e-14, max_steps=2000):
 class _HostCellMat:
     """float64 host apply of an :class:`~.operators.CellMatrix` (element
     form): gather, local matvec, bincount scatter.  Exactly the assembled
-    matrix, in double precision, without materializing COO."""
+    matrix, in double precision, without materializing COO.  A
+    :class:`~.operators.CellMatrixSum` applies as the sum of its parts."""
 
     def __init__(self, cm, scale: float = 1.0):
+        self.shape = cm.shape
+        self.parts = None
+        if hasattr(cm, "parts"):
+            self.parts = [_HostCellMat(p, scale) for p in cm.parts]
+            return
         self.row = cm.row_dofs_host
         self.col = cm.col_dofs_host
         self.local = cm.local_host * scale
         self.coef = cm.coef_host
-        self.shape = cm.shape
         self.shared = self.local.ndim == 2
 
     def mv(self, x):
         """y = A x; ``x`` may be (n,) or (n, k) (small k, host mass CG)."""
+        if self.parts is not None:
+            return sum(p.mv(x) for p in self.parts)
         xe = x[self.col]                 # (c, b) or (c, b, k)
         eq = "ab,cb...->ca..." if self.shared else "cab,cb...->ca..."
         ye = np.einsum(eq, self.local, xe)
@@ -124,6 +131,8 @@ class _HostCellMat:
         return out
 
     def rmv(self, y):
+        if self.parts is not None:
+            return sum(p.rmv(y) for p in self.parts)
         ye = y[self.row]
         if self.coef is not None:
             ye = ye * self.coef[:, None]

@@ -3,7 +3,10 @@
 Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.operators``:
 ``constrain``, ``dirichlet_rhs`` and :class:`CellMatrix`, the element-form
 matrix (gather, batched local matvec, ``index_add_``), with a per-cell or a
-shared local matrix and an optional per-cell coefficient.
+shared local matrix and an optional per-cell coefficient, and
+:class:`CellMatrixSum`, a sum of such matrices (the element form of a
+locally refined grid: one shared local matrix per level for the cells
+without a hanging node, per-cell folded ones for the others).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 
 from .linop import LinOp
 
-__all__ = ["CellMatrix", "constrain", "dirichlet_rhs"]
+__all__ = ["CellMatrix", "CellMatrixSum", "constrain", "dirichlet_rhs"]
 
 
 class CellMatrix:
@@ -159,6 +162,48 @@ class CellMatrix:
         out = np.zeros(self.shape)
         np.add.at(out, (rows, cols), vals)
         return out
+
+
+class CellMatrixSum:
+    """``A = Σ_k parts[k]``, every part a :class:`CellMatrix` of the same
+    shape: ``mv``, ``rmv``, ``diag_host``, ``row_sums``, ``to_dense`` and
+    ``astype`` of :class:`CellMatrix`, summed over the parts."""
+
+    def __init__(self, parts, shape):
+        self.parts = list(parts)
+        self.shape = tuple(shape)
+        self.device = self.parts[0].device
+        self.dtype = self.parts[0].dtype
+
+    def astype(self, dtype) -> "CellMatrixSum":
+        if dtype == self.dtype:
+            return self
+        return CellMatrixSum([p.astype(dtype) for p in self.parts],
+                             self.shape)
+
+    def mv(self, x):
+        out = self.parts[0].mv(x)
+        for p in self.parts[1:]:
+            out = out + p.mv(x)
+        return out
+
+    def rmv(self, y):
+        out = self.parts[0].rmv(y)
+        for p in self.parts[1:]:
+            out = out + p.rmv(y)
+        return out
+
+    def as_linop(self) -> LinOp:
+        return LinOp(self.mv, self.shape, self.rmv)
+
+    def diag_host(self) -> np.ndarray:
+        return sum(p.diag_host() for p in self.parts)
+
+    def row_sums(self):
+        return sum(p.row_sums() for p in self.parts)
+
+    def to_dense(self) -> np.ndarray:
+        return sum(p.to_dense() for p in self.parts)
 
 
 def constrain(op, free_mask: torch.Tensor) -> LinOp:

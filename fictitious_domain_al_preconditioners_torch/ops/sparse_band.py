@@ -245,17 +245,22 @@ def vector_al_level(space, A_l, local, n_comp: int, coupling=None,
     when the coupling reaches past its half-width (:func:`al_reach`), and
     before ``A_l``'s triplets are formed when ``A_l`` (from its shared
     local matrix ``local``) and the AL term together need more weight
-    planes than it allows."""
-    keys = band_plane_keys_lower_bound(space.fe, local, n_comp)
+    planes than it allows.  A space off the lattice (a locally refined
+    one, ``local`` None) takes the element route."""
+    lattice = local is not None
+    keys = (band_plane_keys_lower_bound(space.fe, local, n_comp) if lattice
+            else set())
     al = None
-    if coupling is not None and al_reach(space, coupling) <= MAX_BAND:
+    if (lattice and coupling is not None
+            and al_reach(space, coupling) <= MAX_BAND):
         ns = space.n_dofs
         al_s = spgemm_ctwc(COO.from_coupling(coupling), np.asarray(w_diag))
         al = COO(np.concatenate([al_s.rows + k * ns for k in range(n_comp)]),
                  np.concatenate([al_s.cols + k * ns for k in range(n_comp)]),
                  np.concatenate([al_s.vals] * n_comp), (ns * n_comp,) * 2)
         keys = keys | band_plane_keys(space, al, n_comp)
-    if (coupling is None or al is not None) and len(keys) <= MAX_PLANES:
+    if (lattice and (coupling is None or al is not None)
+            and len(keys) <= MAX_PLANES):
         lvl = COO.from_cell_matrix(A_l)
         if al is not None:
             lvl = lvl.add(al, alpha=gamma)

@@ -11,8 +11,9 @@ preconditioner.  Two hierarchies share the cycle (:class:`GMG`):
 - :func:`build_gmg`, the lattice hierarchy of a 2D Q1 space: every level
   vector is an (ny, nx) lattice tensor and the transfers are the Q1 lattice
   interleaves;
-- :func:`build_gmg_flat`, the flat hierarchy of any continuous space
-  (``gmg.py:272-459`` of the reference without the lattice branch): level
+- :func:`build_gmg_flat`, the flat hierarchy of any continuous space,
+  uniform or locally refined (``gmg.py:272-459`` of the reference without
+  the lattice branch): level
   vectors are flat, of ``n_comp·n`` entries for a component-major vector
   field (the Stokes velocity), and the transfers are the FE embedding
   (:class:`Prolongation`, per component :class:`VectorProlongation`).
@@ -37,7 +38,7 @@ from .chebyshev import chebyshev
 
 __all__ = ["FusedSmoother", "LatticeTransfer2D", "Prolongation",
            "VectorProlongation", "make_prolongation", "GMG", "build_gmg",
-           "build_gmg_flat"]
+           "build_gmg_flat", "level_spaces"]
 
 
 class Prolongation:
@@ -66,11 +67,16 @@ class Prolongation:
 def make_prolongation(fine, coarse, *, device, dtype=torch.float64):
     """FE-embedding prolongation from ``coarse`` to ``fine`` (the same
     element on a 2:1 coarser grid): every fine dof point is located in its
-    coarse cell and the coarse basis is tabulated there."""
-    cells, refs = coarse.grid.locate(fine.dof_points)
-    return Prolongation(coarse.cell_dofs[cells], coarse.fe.tabulate(refs),
-                        (fine.n_dofs, coarse.n_dofs), device=device,
-                        dtype=dtype)
+    coarse cell and the coarse basis is tabulated there; a locally refined
+    space tabulates its folded basis (``tabulate_at``), so the transfer
+    carries the hanging-node constraints."""
+    if hasattr(coarse, "tabulate_at"):
+        dofs, phi = coarse.tabulate_at(fine.dof_points)
+    else:
+        cells, refs = coarse.grid.locate(fine.dof_points)
+        dofs, phi = coarse.cell_dofs[cells], coarse.fe.tabulate(refs)
+    return Prolongation(dofs, phi, (fine.n_dofs, coarse.n_dofs),
+                        device=device, dtype=dtype)
 
 
 class VectorProlongation:
@@ -190,10 +196,15 @@ EIG_RATIO = 30.0       # Chebyshev targets [lam_max / EIG_RATIO, 1.1 lam_max]
 LANCZOS_STEPS = 10
 
 
-def _level_spaces(fine_space):
+def level_spaces(fine_space):
     """The hierarchy's spaces, fine first: 2:1 coarsening while every axis
-    has an even number of cells and at least ``2 * MIN_CELLS``."""
+    has an even number of cells and at least ``2 * MIN_CELLS``; a locally
+    refined space clamps its deepest level while its finest level keeps at
+    least ``2 * MIN_CELLS`` cells per axis (``can_coarsen``, the tree
+    truncated down to the uniform base grid and below)."""
     def coarsenable(sp):
+        if hasattr(sp, "can_coarsen"):
+            return sp.can_coarsen(MIN_CELLS)
         g = sp.grid
         return not (any(n % 2 != 0 for n in g.ncells)
                     or min(g.ncells) // 2 < MIN_CELLS)
@@ -228,7 +239,7 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
     level's Lanczos start vector.  ``dtype`` is the cycle precision: the
     level ops take and return it; with bfloat16 the Lanczos runs in float32
     and the coarse inverse is float32."""
-    spaces = _level_spaces(fine_space)
+    spaces = level_spaces(fine_space)
     device = free_mask.device
     fine_mask = free_mask.cpu().numpy()
     constrained_ids = _constrained_faces(fine_space, fine_mask)
@@ -286,8 +297,8 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
 def build_gmg_flat(fine_space, op_factory, *, free_mask, n_comp: int = 1,
                    smoother_degree: int = 4, lanczos_start=None,
                    dtype=torch.float64, stats: dict | None = None) -> GMG:
-    """Build a flat GMG hierarchy on a continuous uniform-grid space of any
-    degree and dimension, for a scalar (``n_comp = 1``) or component-major
+    """Build a flat GMG hierarchy on a continuous space of any degree and
+    dimension, uniform or locally refined, for a scalar (``n_comp = 1``) or component-major
     vector field.
 
     ``op_factory(space) -> (mv, diag)``: ``mv`` applies the level's
@@ -299,7 +310,7 @@ def build_gmg_flat(fine_space, op_factory, *, free_mask, n_comp: int = 1,
     component.  ``lanczos_start(level_index, n) -> ndarray`` optionally
     supplies each level's Lanczos start vector (``n = n_comp·n_level``).
     ``dtype`` is the cycle precision, as in :func:`build_gmg`."""
-    spaces = _level_spaces(fine_space)
+    spaces = level_spaces(fine_space)
     device = free_mask.device
     fine_mask = free_mask.cpu().numpy()
     constrained_ids = _constrained_faces(fine_space, fine_mask)

@@ -22,7 +22,19 @@ from ..ops.coupling import Coupling
 from ..ops.operators import CellMatrix
 
 __all__ = ["CarriedState", "DiagonalMatrix", "ElasticityState",
-           "EllipticState", "NitscheState", "StokesState", "state_from_jax"]
+           "EllipticState", "NitscheState", "StokesState", "gmg_level_sizes",
+           "state_from_jax"]
+
+
+def gmg_level_sizes(space, n_comp: int = 1) -> list:
+    """Entries of every level vector of the flat GMG hierarchy on
+    ``space``, fine level first: the sizes of the Lanczos start vectors to
+    carry (``lanczos_starts``).  A locally refined space coarsens by
+    truncating its tree (``precond.gmg.level_spaces``), so its sizes are
+    not those of the uniform 2:1 hierarchy."""
+    from ..precond.gmg import level_spaces
+
+    return [n_comp * sp.n_dofs for sp in level_spaces(space)]
 
 
 class DiagonalMatrix:

@@ -11,6 +11,8 @@ time goes.
         --stokes-refinement 9:10
     python3 profile_solve.py --solver explicit nitsche nitsche_refined \
         elasticity elasticity_refined --nitsche-cycle 7 --elasticity-cycle 2
+    python3 profile_solve.py --solver adaptive adaptive_f64 \
+        adaptive_stokes_refined
 
 For each solver mode: set up ``chip_smoke.py``'s configuration of it
 (``augmented_bf16`` is the flagship with ``use_bf16_multigrid``; ``refined``
@@ -25,8 +27,12 @@ explicit AL form with W = diag(M)² at refinement 11, or ``--refinement``
 if that is less; ``nitsche``/``nitsche_refined`` and
 ``elasticity``/``elasticity_refined`` the nitsche and 3D elasticity
 problems in ``chip_smoke.py``'s configurations at ``--nitsche-cycle`` and
-``--elasticity-cycle``, ``solve()`` and ``solve_refined(tol_abs=1e-10)``),
-run two unprofiled solves (the
+``--elasticity-cycle``, ``solve()`` and ``solve_refined(tol_abs=1e-10)``;
+``adaptive`` and ``adaptive_f64`` ``chip_smoke.py`` phase 12's flower with
+one local refinement step at its pair (10, 11) (float32 under the
+flagship's rule, float64 at the file's), ``adaptive_stokes_refined`` the 2D
+Stokes problem's ``solve_refined`` at ``--stokes-refinement`` with one
+local step), run two unprofiled solves (the
 first builds the solver), then one solve under ``torch.profiler`` (CPU and
 CUDA activities).  Prints one JSON line per mode: the unprofiled and profiled wall
 times, the device time summed over the device activities (kernels, copies,
@@ -71,8 +77,10 @@ def profile_mode(solver, refinement, device, top, elliptic_cycle,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (EXPLICIT_REFINEMENT, REFINED_REFINEMENT,
-                            REFINED_TOL, STOKES_TOL, al_form_config,
+    from chip_smoke import (ADAPTIVE_PAIR, ADAPTIVE_SCALE_FILE,
+                            EXPLICIT_REFINEMENT, REFINED_REFINEMENT,
+                            REFINED_TOL, STOKES_TOL,
+                            adaptive_config, al_form_config,
                             elasticity_config, elliptic_config,
                             flagship_config, mode_config, nitsche_config,
                             stokes_config)
@@ -81,7 +89,7 @@ def profile_mode(solver, refinement, device, top, elliptic_cycle,
         ImmersedLaplaceProblem, NitscheProblem, StokesProblem)
 
     elliptic = solver.startswith("elliptic")
-    stokes = solver.startswith("stokes")
+    stokes = "stokes" in solver
     nitsche = solver.startswith("nitsche")
     elasticity = solver.startswith("elasticity")
     if solver == "refined":
@@ -98,8 +106,18 @@ def profile_mode(solver, refinement, device, top, elliptic_cycle,
             elasticity_config(), device=device).setup(elasticity_cycle)
     elif stokes:
         refinement = stokes_pair
-        prob = StokesProblem(stokes_config(stokes_pair),
-                             device=device).setup()
+        cfg = stokes_config(stokes_pair)
+        cfg.delta_refinement = int(solver.startswith("adaptive"))
+        prob = StokesProblem(cfg, device=device).setup()
+    elif solver.startswith("adaptive"):
+        refinement = ADAPTIVE_PAIR
+        f32 = solver == "adaptive"
+        prob = ImmersedLaplaceProblem(
+            adaptive_config(ADAPTIVE_SCALE_FILE,
+                            tuple(int(x) for x in ADAPTIVE_PAIR.split(":")),
+                            flagship_rule=f32),
+            device=device,
+            dtype=torch.float32 if f32 else torch.float64).setup()
     elif elliptic:
         refinement = elliptic_cycle
         prob = EllipticInterfaceProblem(elliptic_config(),
@@ -173,7 +191,8 @@ def main(argv=None) -> int:
                              "elliptic_refined", "stokes",
                              "stokes_refined", "explicit", "nitsche",
                              "nitsche_refined", "elasticity",
-                             "elasticity_refined"])
+                             "elasticity_refined", "adaptive",
+                             "adaptive_f64", "adaptive_stokes_refined"])
     ap.add_argument("--refinement", type=int, default=12)
     ap.add_argument("--elliptic-cycle", type=int, default=6,
                     help="cycle of the elliptic modes")

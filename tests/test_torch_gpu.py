@@ -8,7 +8,8 @@ its dense float32 A22 inverse against TF32; the Stokes problem at 4:5
 against the CPU, and its velocity hierarchy's level operators (the vector
 band stencil, the element form) and V-cycle against the CPU; the exact-W
 and explicit AL forms of the augmented solver, the nitsche problem and the
-3D elasticity problem against the CPU.
+3D elasticity problem against the CPU; immersed_laplace and Stokes with local
+refinement near Γ (the element-form path) against the CPU.
 Marked ``gpu``; without a card every test skips.  On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py -q
@@ -642,4 +643,48 @@ def test_small_nitsche_and_elasticity_match_cpu(cuda):
     K.reset_launch_counts()
     outs = S.phase_family_crosscheck(cuda)
     assert all(all(o["converged"]) for o in outs)
+    assert sum(K.LAUNCHES.values()) == 0, K.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_adaptive_flagship_matches_cpu(cuda, dtype):
+    """flower_f1_g1.prm with one local refinement step at (6, 7), float32
+    under the flagship's rule and float64 at the file's 1e-10, on the card
+    against the CPU: outer counts within 1, u and λ within 1e-3 of their
+    max in float32 and within 1e-7 in float64 (which a float32 solve would
+    not meet); the element-form path launches no kernel."""
+    def make(dev):
+        prob = ImmersedLaplaceProblem(
+            S.adaptive_config(S.ADAPTIVE_SCALE_FILE, (6, 7),
+                              dtype == torch.float32), device=dev,
+            dtype=dtype).setup()
+        prob.solve()
+        return prob, (prob.u, prob.lam)
+
+    K.reset_launch_counts()
+    out = S._crosscheck(f"adaptive_flower@6:7:{dtype}", make, cuda,
+                        1e-3 if dtype == torch.float32 else 1e-7)
+    assert all(out["converged"])
+    assert sum(K.LAUNCHES.values()) == 0, K.LAUNCHES
+
+
+def test_adaptive_stokes_matches_cpu(cuda):
+    """The Stokes problem at 4:5 with one local refinement step (float32
+    V-cycle, float64 operator and Krylov solvers) on the card against the
+    CPU; every level is element form, no kernel is launched."""
+    from fictitious_domain_al_preconditioners_torch.models import \
+        StokesProblem
+
+    def make(dev):
+        cfg = S.stokes_config("4:5")
+        cfg.delta_refinement = 1
+        prob = StokesProblem(cfg, device=dev, dtype=torch.float32).setup()
+        prob.solve()
+        assert set(prob.results["gmg_routes"]) == {"element"}
+        return prob, (prob.u, prob.p, prob.lam)
+
+    K.reset_launch_counts()
+    out = S._crosscheck("adaptive_stokes@4:5+1", make, cuda)
+    assert all(out["converged"])
     assert sum(K.LAUNCHES.values()) == 0, K.LAUNCHES

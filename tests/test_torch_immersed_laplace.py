@@ -137,10 +137,26 @@ def test_smooth_solution_accuracy():
 
 
 def test_unported_options_raise():
+    """``delta_refinement`` sets up on the element-form path; what is still
+    unported there raises: ``solve_refined`` (the host float64 reference
+    applies the lattice stiffness only), the bf16 V-cycle and a multiplier
+    degree other than 1."""
     cfg = golden_config(TConfig, TControl, 4)
     cfg.delta_refinement = 1
+    cfg.initial_embedded_refinement = 6
+    prob = TProblem(cfg, device="cpu").setup()
+    assert prob.element_form and prob.grid.max_level == 5
+    with pytest.raises(NotImplementedError, match="uniform Q1 lattice"):
+        prob.solve_refined()
+    cfg.use_bf16_multigrid = True
     with pytest.raises(NotImplementedError, match="not ported"):
         TProblem(cfg, device="cpu").setup()
+    for kdeg in (0, 2):
+        other = golden_config(TConfig, TControl, 4)
+        other.embedded_space_degree = kdeg
+        with pytest.raises(NotImplementedError,
+                           match="embedded_space_degree"):
+            TProblem(other, device="cpu").setup()
 
 
 def test_entry_points_default_to_the_card():

@@ -24,6 +24,7 @@ MODULES = [
     f"{PKG}.precond.al", f"{PKG}.utils.prm", f"{PKG}.utils.report",
     f"{PKG}.utils.timer", f"{PKG}.models.stokes",
     f"{PKG}.models.nitsche_bcs", f"{PKG}.models.elasticity",
+    f"{PKG}.core.adaptive", f"{PKG}.utils.vtu", f"{PKG}.cli",
 ]
 
 

@@ -234,8 +234,14 @@ def test_entry_point_defaults_to_the_card():
 
 
 def test_delta_refinement_raises():
+    """``delta_refinement`` sets up on the locally refined tree, and its
+    mesh-size guard raises where the refined cells are smaller than the
+    immersed mesh's (stokes_immersed_boundary.cc:497-503)."""
     prob = tstokes.StokesProblem(make_config(tstokes, delta_refinement=1),
-                                 device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet: delta_refinement"):
-        prob.setup()
+                                 device="cpu").setup()
+    assert prob.grid.max_level == 5 and hasattr(prob.vel_space, "fold_of")
+    coarse = tstokes.StokesProblem(
+        make_config(tstokes, delta_refinement=1,
+                    initial_embedded_refinement=3), device="cpu")
+    with pytest.raises(ValueError, match="mesh-size compatibility"):
+        coarse.setup()
