@@ -11,6 +11,7 @@ locally refined backgrounds.
     python3 chip_smoke.py --families-only
     python3 chip_smoke.py --elasticity-only --elasticity-cycle 3
     python3 chip_smoke.py --adaptive-only  # phases 12 and 13
+    python3 chip_smoke.py --options-only   # phase 14
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -127,6 +128,20 @@ Phases (any failure exits non-zero before the last line is printed):
     grid of its finest h, and every GMG level's route is printed (element
     form).  Neither phase 12 nor 13 launches a kernel; ``--adaptive-only``
     runs just them;
+14. the options of the JAX package that the port took last: the flagship
+    with a DG0 and a Q2 multiplier (``embedded_space_degree`` 0 and 2;
+    16,785,409 + 4,096 and + 8,193 dofs at refinement 12) in operator form,
+    K1, K6 and K2 ``op``/``pre``/``post`` launched and compared with their
+    plain versions at the path's level shapes, and in the explicit form at
+    refinement 11 (K1; the compact block's rows and MB); the element-form
+    flower at (10, 11) + 1 with both degrees in float32 and with the bf16
+    V-cycle at degree 1 (within 2 outer iterations of its float32 count);
+    elliptic at cycle 5 with a Q2 background (4,198,401 + 66,049 dofs) and
+    with a Q2 immersed space (1,050,625 + 263,169), and elasticity with a
+    Q2 background at cycle 1 (107,811 + 2,187 + 2,187), each ``solve()``
+    then ``solve_refined(tol_abs=1e-10)`` to a true float64 residual of at
+    most 1e-10, K6's launches printed on the elliptic rows;
+    ``--options-only`` runs just it and its cross-checks;
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
    versions) in float32 with the same Lanczos start vectors, for the
    flagship, the three modes and the flagship with the bf16 V-cycle; the
@@ -135,10 +150,13 @@ Phases (any failure exits non-zero before the last line is printed):
    counts must agree within 1 and whose three solution blocks within 1e-3
    of each block's max; likewise the three AL forms of phase 9 at
    refinement 7, the nitsche problem at cycle 0 and the elasticity problem
-   at background refinement 2, immersed 1 (to a reduction of 1e-10).
+   at background refinement 2, immersed 1 (to a reduction of 1e-10); and
+   phase 14's paths at a small size (the DG0 and Q2 flagship at refinement
+   7, the flower at its shipped size, elliptic at cycle 0, elasticity at
+   2, 1).
 
 Launch counts are set to 0 just before each path (phases 3, 5, 6, 7, 8, 9,
-10, 11, 12 and 13) and read just after it. The three last lines are the card's name
+10, 11, 12, 13 and 14) and read just after it. The three last lines are the card's name
 and power limit, a JSON object with one entry per kernel, and ``{"ok":
 true, "device": {...}}``.
 """
@@ -244,6 +262,20 @@ ADAPTIVE_STOKES_3D = "6:4"
 # phase 8's uniform rows on this card (PERF.md §6): solve_refined's outer
 # iterations at 9:10 (2D) and 5:2 (3D), printed beside phase 13's
 UNIFORM_STOKES_OUTER = {2: ("9:10", 38), 3: ("5:2", 12)}
+# phase 14: the options the port refused before: a multiplier of degree 0
+# (DG0) or 2 (Q2) on the flagship's lattice path at the refinement and in
+# the explicit form at EXPLICIT_REFINEMENT; on the element-form flower
+# (ADAPTIVE_SCALE_FILE at ADAPTIVE_PAIR) both degrees and the bf16 V-cycle
+# at degree 1; elliptic with a Q2 background and with a Q2 immersed space at
+# OPTIONS_ELLIPTIC_CYCLE (4,198,401 + 66,049 and 1,050,625 + 263,169 dofs);
+# elasticity with a Q2 background at OPTIONS_ELASTICITY_CYCLE (107,811 +
+# 2,187 + 2,187 dofs, the dofs of the Q1 table's cycle 2); their
+# card-against-CPU checks at OPTIONS_CROSSCHECK_REFINEMENT and cycle 0
+OPTION_DEGREES = (0, 2)
+OPTION_SUFFIX = {0: "_dg0", 1: "", 2: "_q2"}
+OPTIONS_ELLIPTIC_CYCLE = 5
+OPTIONS_ELASTICITY_CYCLE = 1
+OPTIONS_CROSSCHECK_REFINEMENT = 7
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 and float64 rates
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -818,7 +850,7 @@ def phase_flagship(refinement, device):
     return prob, out
 
 
-def phase_flagship_shapes(prob, device):
+def phase_flagship_shapes(prob, device, phase="phase 3"):
     """Every kernel against its plain version at the shapes the flagship
     path gave it, with that path's planes and Lanczos bounds."""
     errs = []
@@ -831,7 +863,7 @@ def phase_flagship_shapes(prob, device):
         if st is not None:
             compare_fused(st, device, level.lam_max, seed=200 + i,
                           tag=f"flagship level {i} {lat}", errs=errs)
-    print(f"phase 3: kernels agree with plain at all {len(errs)} "
+    print(f"{phase}: kernels agree with plain at all {len(errs)} "
           "path comparisons", flush=True)
     return errs
 
@@ -1128,12 +1160,15 @@ def phase_refined(refinement, device, bf16):
     return out
 
 
-def phase_elliptic(cycle, device):
+def phase_elliptic(cycle, device, phase="phase 7", degrees=(1, 1)):
     """The elliptic interface problem at ``cycle``: set up, ``solve()``,
     then ``solve_refined(tol_abs=1e-10)`` on the operators the solve built;
     launch counts over the whole path.  The true float64 residual must
     reach the tolerance and K6 must have been launched; K6 is then compared
-    with its plain version at every level shape of both hierarchies."""
+    with its plain version at every level shape of both hierarchies that
+    is a Q1 lattice.  ``degrees`` are the background and immersed element
+    degrees (phase 14: a Q2 side takes the element form and its flat
+    GMG)."""
     import torch
     from fictitious_domain_al_preconditioners_torch.models import \
         EllipticInterfaceProblem
@@ -1141,12 +1176,16 @@ def phase_elliptic(cycle, device):
     from fictitious_domain_al_preconditioners_torch.ops.host_ref import \
         HostEllipticSystem
 
-    tag = f"elliptic@{cycle}"
+    tag = f"elliptic@{cycle}" + {(1, 1): "", (2, 1): "_q2_background",
+                                 (1, 2): "_q2_immersed"}[tuple(degrees)]
+    cfg = elliptic_config()
+    cfg.background_space_degree, cfg.immersed_space_degree = degrees
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    prob = EllipticInterfaceProblem(elliptic_config(),
-                                    device=device).setup(cycle)
+    prob = EllipticInterfaceProblem(cfg, device=device).setup(cycle)
     setup_s = time.perf_counter() - t0
     its = prob.solve()
     solve = dict(prob.results)
@@ -1160,7 +1199,8 @@ def phase_elliptic(cycle, device):
     res = prob.results
     parts = prob._last_parts
     out = dict(
-        path=tag, cycle=cycle, dofs_background=prob.space.n_dofs,
+        path=tag, cycle=cycle, degrees=list(degrees),
+        dofs_background=prob.space.n_dofs,
         dofs_immersed=prob.fg_space.n_dofs,
         dofs_total=prob.layout.total, outer_iterations=its,
         converged=solve["converged"], residual=solve["residual"],
@@ -1181,24 +1221,27 @@ def phase_elliptic(cycle, device):
         gmg_levels=[len(parts["gmg11"].levels), len(parts["gmg22"].levels)],
         peak_memory_bytes=torch.cuda.max_memory_allocated(device),
         launches=launches)
-    print("phase 7: " + json.dumps(out), flush=True)
-    check(solve["converged"], f"phase 7 {tag}: solve did not converge "
+    print(f"{phase}: " + json.dumps(out), flush=True)
+    check(solve["converged"], f"{phase} {tag}: solve did not converge "
           f"(residual {solve['residual']:.3e})")
     check(res["converged"] and history[-1] <= REFINED_TOL,
-          f"phase 7 {tag}: true residual {history[-1]:.3e} > {REFINED_TOL}")
+          f"{phase} {tag}: true residual {history[-1]:.3e} > {REFINED_TOL}")
     check(all(x.shape == (n,) and bool(np.isfinite(x).all())
               for x, n in zip((u, u2, lam), prob.layout.sizes)),
-          f"phase 7 {tag}: non-finite or misshapen iterate")
-    check(math.isfinite(constraint), f"phase 7 {tag}: constraint residual "
+          f"{phase} {tag}: non-finite or misshapen iterate")
+    check(math.isfinite(constraint), f"{phase} {tag}: constraint residual "
           "not finite")
     require_launches(out, ["laplace_stencil_2d", "laplace_stencil_2d:f64"],
-                     f"phase 7 {tag}")
-    print(f"phase 7: K6 launched {launches['laplace_stencil_2d']} times in "
-          f"float32 and {launches['laplace_stencil_2d:f64']} in float64 on "
-          "the elliptic path", flush=True)
+                     f"{phase} {tag}")
+    print(f"{phase}: K6 launched {launches.get('laplace_stencil_2d', 0)} "
+          f"times in float32 and {launches.get('laplace_stencil_2d:f64', 0)} "
+          f"in float64 on "
+          f"the {tag} path", flush=True)
     errs = []
     for name in ("gmg11", "gmg22"):
         for i, level in enumerate(parts[name].levels):
+            if level.space.fe.degree != 1:
+                continue              # a Q2 level: element form, no K6
             lat = tuple(reversed(level.space.n_points_1d))
             h = tuple(float(x) for x in reversed(level.space.grid.h))
             v = torch.as_tensor(
@@ -1206,7 +1249,7 @@ def phase_elliptic(cycle, device):
                 dtype=torch.float64, device=device)
             for x in (v.float(), v):
                 compare_k6(x, h, f"elliptic {name} level {i} {lat}", errs)
-    print(f"phase 7: K6 float32 and float64 agree with plain at all "
+    print(f"{phase}: K6 float32 and float64 agree with plain at all "
           f"{len(errs)} level comparisons", flush=True)
     return out, errs, prob.space
 
@@ -1454,7 +1497,6 @@ def phase_al_forms(refinement, explicit_refinement, device):
     import torch
     from fictitious_domain_al_preconditioners_torch.models import \
         ImmersedLaplaceProblem
-    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
     from fictitious_domain_al_preconditioners_torch.ops.kernels import \
         launch_key
 
@@ -1485,15 +1527,7 @@ def phase_al_forms(refinement, explicit_refinement, device):
             require_launches(out, ["masked_laplace_2d"], f"phase 9 {form}")
             check(all(st is None for st in prob.level_stencils),
                   f"phase 9 {form}: a level has patch planes")
-            for i, level in enumerate(prob._last_gmg.levels):
-                lat = tuple(reversed(level.space.n_points_1d))
-                h = tuple(1.0 / (n - 1) for n in lat)
-                u = torch.as_tensor(
-                    np.random.default_rng(700 + i).standard_normal(lat),
-                    dtype=torch.float32, device=device)
-                record(errs, "masked_laplace_2d", "-",
-                       f"{form} level {i} {lat}", K.masked_laplace_2d(u, h),
-                       K.masked_laplace_2d_plain(u, h))
+            compare_k1_levels(prob, device, form, errs)
         print(f"phase 9: {form}: kernels agree with plain at all "
               f"{len(errs)} path comparisons so far", flush=True)
         outs.append(out)
@@ -1501,6 +1535,22 @@ def phase_al_forms(refinement, explicit_refinement, device):
     gc.collect()
     torch.cuda.empty_cache()
     return outs, errs
+
+
+def compare_k1_levels(prob, device, tag, errs):
+    """K1 (float32) against its plain version at every level shape of
+    ``prob``'s augmented V-cycle (the explicit form's levels)."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
+
+    for i, level in enumerate(prob._last_gmg.levels):
+        lat = tuple(reversed(level.space.n_points_1d))
+        h = tuple(1.0 / (n - 1) for n in lat)
+        u = torch.as_tensor(
+            np.random.default_rng(700 + i).standard_normal(lat),
+            dtype=torch.float32, device=device)
+        record(errs, "masked_laplace_2d", "-", f"{tag} level {i} {lat}",
+               K.masked_laplace_2d(u, h), K.masked_laplace_2d_plain(u, h))
 
 
 def phase_rational_table(device):
@@ -1600,13 +1650,14 @@ def phase_nitsche(device, cycles):
     return rows
 
 
-def phase_elasticity(device, cycles):
+def phase_elasticity(device, cycles, phase="phase 11", degree=1):
     """Phase 11: the 3D elasticity interface problem in the results table's
     configuration, one ``solve()`` (printed first) and one
     ``solve_refined(tol_abs=1e-10)`` a cycle on the operators the solve
     built, the true float64 residual to 1e-10 on every row, the GMG
     levels' routes (band or element) of both hierarchies.  No kernel is on
-    this path: its launch counts must stay 0.  Returns the rows."""
+    this path: its launch counts must stay 0.  ``degree`` is the
+    background's element degree (phase 14: 2).  Returns the rows."""
     import torch
     from fictitious_domain_al_preconditioners_torch.models import \
         ElasticityInterfaceProblem
@@ -1614,23 +1665,25 @@ def phase_elasticity(device, cycles):
 
     rows = []
     for cycle in cycles:
-        tag = f"elasticity@{cycle}"
+        tag = f"elasticity@{cycle}" + ("_q2_background" if degree == 2
+                                       else "")
+        cfg = elasticity_config()
+        cfg.background_space_degree = degree
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        prob = ElasticityInterfaceProblem(elasticity_config(),
-                                          device=device).setup(cycle)
+        prob = ElasticityInterfaceProblem(cfg, device=device).setup(cycle)
         setup_s = time.perf_counter() - t0
         prob.solve()
         solve = dict(prob.results)
-        print(f"phase 11: {tag} solve(): {solve['outer_iterations']} outer "
+        print(f"{phase}: {tag} solve(): {solve['outer_iterations']} outer "
               f"iterations, converged {solve['converged']}, "
               f"{solve['solve_seconds']:.2f} s after "
               f"{solve['build_seconds']:.2f} s of build", flush=True)
         u, u2, lam, history = prob.solve_refined(tol_abs=REFINED_TOL)
-        launches = _no_launches(f"phase 11 {tag}")
+        launches = _no_launches(f"{phase} {tag}")
         res = prob.results
         parts = prob._last_parts
         sizes = prob.layout.sizes
@@ -1659,16 +1712,16 @@ def phase_elasticity(device, cycles):
             gmg_routes=res["gmg_routes"],
             peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
             launches=launches)
-        print("phase 11: " + json.dumps(out), flush=True)
-        check(solve["converged"], f"phase 11 {tag}: solve did not converge")
+        print(f"{phase}: " + json.dumps(out), flush=True)
+        check(solve["converged"], f"{phase} {tag}: solve did not converge")
         check(res["converged"] and history[-1] <= REFINED_TOL,
-              f"phase 11 {tag}: true residual {history[-1]:.3e} > "
+              f"{phase} {tag}: true residual {history[-1]:.3e} > "
               f"{REFINED_TOL}")
         check(all(x.shape == (n,) and bool(np.isfinite(x).all())
                   for x, n in zip((u, u2, lam), sizes)),
-              f"phase 11 {tag}: non-finite or misshapen iterate")
+              f"{phase} {tag}: non-finite or misshapen iterate")
         check(math.isfinite(out["constraint_residual"]),
-              f"phase 11 {tag}: constraint residual not finite")
+              f"{phase} {tag}: constraint residual not finite")
         rows.append(out)
         del prob, parts
     return rows
@@ -1748,10 +1801,13 @@ def adaptive_config(path, pair=None, flagship_rule=False):
     return cfg
 
 
-def adaptive_row(path, pair, device, dtype, flagship_rule, warmup):
+def adaptive_row(path, pair, device, dtype, flagship_rule, warmup,
+                 phase="phase 12", degree=1, bf16=False):
     """One row of phase 12: set up (launch counts at 0 just before), an
     optional warm-up solve, a timed solve, counts read just after (all must
-    stay 0); returns the row's JSON dict."""
+    stay 0); returns the row's JSON dict.  ``degree`` is the multiplier's
+    (``embedded_space_degree``), ``bf16`` runs the V-cycle in bfloat16
+    (phase 14)."""
     import os
     import torch
     from fictitious_domain_al_preconditioners_torch.models import \
@@ -1761,8 +1817,10 @@ def adaptive_row(path, pair, device, dtype, flagship_rule, warmup):
     stem = os.path.splitext(os.path.basename(path))[0]
     prec = "f32" if dtype == torch.float32 else "f64"
     cfg = adaptive_config(path, pair, flagship_rule)
+    cfg.embedded_space_degree, cfg.use_bf16_multigrid = degree, bf16
     pair = (cfg.initial_refinement, cfg.initial_embedded_refinement)
-    tag = f"adaptive_{stem}@{pair[0]}:{pair[1]}:{prec}"
+    tag = (f"adaptive_{stem}@{pair[0]}:{pair[1]}:{prec}"
+           + OPTION_SUFFIX[degree] + ("_bf16" if bf16 else ""))
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -1777,11 +1835,12 @@ def adaptive_row(path, pair, device, dtype, flagship_rule, warmup):
         warm = dict(prob.results)
     u, lam, _ = prob.solve()
     res = prob.results
-    launches = _no_launches(f"phase 12 {tag}") if device.type == "cuda" \
+    launches = _no_launches(f"{phase} {tag}") if device.type == "cuda" \
         else {}
     blocks = prob.compact_blocks
     out = dict(
         path=tag, file=path, pair=list(pair), dtype=prec,
+        multiplier_degree=degree, gmg_dtype=str(prob._last_gmg.dtype),
         rule="flagship" if flagship_rule else "file",
         dofs_background=prob.space.n_dofs,
         dofs_immersed=prob.imm_space.n_dofs,
@@ -1802,15 +1861,15 @@ def adaptive_row(path, pair, device, dtype, flagship_rule, warmup):
                         if device.type == "cuda" else None),
         launches=launches)
     if device.type == "cuda":
-        print("phase 12: " + json.dumps(out), flush=True)
-    check(res["converged"], f"phase 12 {tag}: solve did not converge "
+        print(f"{phase}: " + json.dumps(out), flush=True)
+    check(res["converged"], f"{phase} {tag}: solve did not converge "
           f"(residual {res['residual']:.3e})")
     check(math.isfinite(out["constraint_residual"]),
-          f"phase 12 {tag}: constraint residual not finite")
+          f"{phase} {tag}: constraint residual not finite")
     check(tuple(u.shape) == (prob.space.n_dofs,)
           and bool(torch.isfinite(u).all())
           and bool(torch.isfinite(lam).all()),
-          f"phase 12 {tag}: non-finite or misshapen solution")
+          f"{phase} {tag}: non-finite or misshapen solution")
     del prob
     return out
 
@@ -1898,6 +1957,182 @@ def phase_adaptive_stokes(device):
     return rows
 
 
+def phase_options(device, refinement, explicit_ref):
+    """Phase 14: the options the port refused before, each through the
+    problems' entry points, launch counts set to 0 just before each path
+    and read just after.
+
+    - The flagship (data and rule of phase 3) with a DG0 and a Q2
+      multiplier at ``refinement``, operator form, W = diag(M): a warm-up
+      and a timed solve; K1, K6 and K2 ``op``/``pre``/``post`` must be
+      launched, and each is compared with its plain version at the path's
+      level shapes with its planes.  The explicit form (W = diag(M)²) at
+      ``explicit_ref`` with both degrees: K1 must be launched and agree with
+      its plain version at every level shape; the fine compact block's
+      rows, MB and seconds are printed.
+    - The element-form flower (``ADAPTIVE_SCALE_FILE`` at
+      :data:`ADAPTIVE_PAIR` with its one local step) under the flagship's
+      rule in float32 with both degrees, and at degree 1 with the float32
+      and the bf16 V-cycle, the bf16 count within 2 of the float32 one
+      (phase 6's rule).
+    - Elliptic (phase 7's configuration) at :data:`OPTIONS_ELLIPTIC_CYCLE`
+      with a Q2 background and with a Q2 immersed space, ``solve()`` then
+      ``solve_refined(tol_abs=1e-10)``; K6's launches by form are printed.
+    - Elasticity with a Q2 background at :data:`OPTIONS_ELASTICITY_CYCLE`,
+      ``solve()`` then ``solve_refined(tol_abs=1e-10)``.
+
+    Returns ``(rows, errs)``."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops.kernels import \
+        launch_key
+
+    rows, errs = [], []
+    for form, ref in (("operator", refinement), ("explicit", explicit_ref)):
+        for kdeg in OPTION_DEGREES:
+            cfg = (flagship_config(ref) if form == "operator"
+                   else al_form_config(ref, "explicit"))
+            cfg.embedded_space_degree = kdeg
+            tag = (f"{'augmented' if form == 'operator' else 'explicit'}"
+                   f"{OPTION_SUFFIX[kdeg]}@{ref}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            prob, out = drive(lambda: ImmersedLaplaceProblem(
+                cfg, device=device), device)
+            out.update(path=tag, multiplier_degree=kdeg,
+                       gmg_levels=len(prob._last_gmg.levels),
+                       peak_memory_gb=out["peak_memory_bytes"] / 1e9)
+            check(not prob.element_form, f"phase 14 {tag}: not the lattice "
+                  "path")
+            if form == "operator":
+                print("phase 14: " + json.dumps(out), flush=True)
+                check(prob.level_stencils[0] is not None,
+                      f"phase 14 {tag}: the fine level has no patch planes")
+                require_launches(out, ["masked_laplace_2d",
+                                       "laplace_stencil_2d"]
+                                 + [launch_key(m)
+                                    for m in ("op", "pre", "post")],
+                                 f"phase 14 {tag}")
+                errs += phase_flagship_shapes(prob, device, "phase 14")
+            else:
+                fine = prob.compact_blocks[0]
+                out.update(compact_rows=fine["rows"],
+                           compact_mb=fine["bytes"] / 1e6,
+                           compact_seconds=fine["seconds"])
+                print("phase 14: " + json.dumps(out), flush=True)
+                check(fine["seconds"] <= COMPACT_SETUP_LIMIT_S,
+                      f"phase 14 {tag}: the fine compact block took "
+                      f"{fine['seconds']} s > {COMPACT_SETUP_LIMIT_S} s")
+                require_launches(out, ["masked_laplace_2d"],
+                                 f"phase 14 {tag}")
+                compare_k1_levels(prob, device, tag, errs)
+                print(f"phase 14: {tag}: K1 agrees with plain at every "
+                      "level shape", flush=True)
+            rows.append(out)
+            del prob
+
+    pr = tuple(int(x) for x in ADAPTIVE_PAIR.split(":"))
+    for kdeg in OPTION_DEGREES:
+        rows.append(adaptive_row(ADAPTIVE_SCALE_FILE, pr, device,
+                                 torch.float32, True, True, "phase 14",
+                                 degree=kdeg))
+    f32, b16 = (adaptive_row(ADAPTIVE_SCALE_FILE, pr, device, torch.float32,
+                             True, True, "phase 14", bf16=bf16)
+                for bf16 in (False, True))
+    check(b16["gmg_dtype"] == str(torch.bfloat16),
+          "phase 14: the element-form V-cycle is not bf16")
+    check(b16["outer_iterations"] <= f32["outer_iterations"] + 2,
+          f"phase 14: the bf16 element-form V-cycle takes "
+          f"{b16['outer_iterations']} outer iterations against "
+          f"{f32['outer_iterations']} in float32")
+    rows += [f32, b16]
+
+    for degrees in ((2, 1), (1, 2)):
+        out, ell_errs, _ = phase_elliptic(OPTIONS_ELLIPTIC_CYCLE, device,
+                                          "phase 14", degrees)
+        rows.append(out)
+        errs += ell_errs
+    rows += phase_elasticity(device, (OPTIONS_ELASTICITY_CYCLE,), "phase 14",
+                             degree=2)
+    return rows, errs
+
+
+def options_crosscheck_cases():
+    """``[(tag, make)]`` of :func:`phase_options_crosscheck`: ``make(dev)``
+    solves one of phase 14's paths at a small size on ``dev`` and returns
+    ``(prob, solution blocks)``."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.models import (
+        ElasticityInterfaceProblem, EllipticInterfaceProblem,
+        ImmersedLaplaceProblem)
+
+    def laplace(cfg, dtype=torch.float32):
+        def make(dev):
+            prob = ImmersedLaplaceProblem(cfg, device=dev,
+                                          dtype=dtype).setup()
+            prob.solve()
+            return prob, (prob.u, prob.lam)
+
+        return make
+
+    def elliptic(degrees):
+        def make(dev):
+            cfg = elliptic_config()
+            cfg.background_space_degree, cfg.immersed_space_degree = degrees
+            prob = EllipticInterfaceProblem(cfg, device=dev,
+                                            dtype=torch.float32).setup(0)
+            prob.solve()
+            return prob, (prob.u, prob.u2, prob.lam)
+
+        return make
+
+    def elasticity(dev):
+        cfg = elasticity_config(small=True)
+        cfg.background_space_degree = 2
+        cfg.outer.tolerance, cfg.outer.reduction = 1e-14, 1e-10
+        prob = ElasticityInterfaceProblem(cfg, device=dev,
+                                          dtype=torch.float32)
+        prob.setup(0).solve()
+        return prob, (prob.u, prob.u2, prob.lam)
+
+    cases = []
+    for kdeg in OPTION_DEGREES:
+        cfg = flagship_config(OPTIONS_CROSSCHECK_REFINEMENT)
+        cfg.embedded_space_degree = kdeg
+        cases.append((f"augmented{OPTION_SUFFIX[kdeg]}@"
+                      f"{OPTIONS_CROSSCHECK_REFINEMENT}", laplace(cfg)))
+    for kdeg, bf16 in ((0, False), (2, False), (1, True)):
+        # the bf16 V-cycle under a float64 outer solve at the file's 1e-10:
+        # at the flagship's float32 rule the iterate is defined only to the
+        # stop (λ differed by 2e-2 of its max between card and CPU), and
+        # the two bf16 cycles round differently
+        cfg = adaptive_config(ADAPTIVE_SCALE_FILE, None, not bf16)
+        cfg.embedded_space_degree, cfg.use_bf16_multigrid = kdeg, bf16
+        cases.append((f"adaptive_flower{OPTION_SUFFIX[kdeg]}"
+                      f"{'_bf16' if bf16 else ''}",
+                      laplace(cfg, torch.float64 if bf16 else torch.float32)))
+    cases += [("elliptic@0_q2_background", elliptic((2, 1))),
+              ("elliptic@0_q2_immersed", elliptic((1, 2))),
+              ("elasticity@2:1_q2_background", elasticity)]
+    return cases
+
+
+def phase_options_crosscheck(device):
+    """Phase 14's paths on the card against the CPU at a small size (float32
+    V-cycles on both; elliptic and elasticity keep their float64 operators
+    and Krylov solvers): the flagship with a DG0 and a Q2 multiplier at
+    :data:`OPTIONS_CROSSCHECK_REFINEMENT`, the element-form flower at its
+    shipped size with both degrees and with the bf16 V-cycle (float64
+    outer solve at the file's rule), elliptic with
+    a Q2 background and a Q2 immersed space at cycle 0, elasticity with a
+    Q2 background at background refinement 2, immersed 1 (to a reduction of
+    1e-10, as phase 4 holds it): counts within 1, blocks within 1e-3 of
+    each block's max."""
+    return [_crosscheck(tag, make, device)
+            for tag, make in options_crosscheck_cases()]
+
+
 def k1_resources(shape):
     """Resources of K1's two forms, keyed as in the kernels line: of the
     instantiation a launch on ``shape`` takes, with every instantiation's
@@ -1953,7 +2188,7 @@ def k2_resources(shape, degree=4):
 def kernel_report(path_launches, errs, times, resources):
     """The kernels' JSON line: one entry per kernel (K1's bf16 form and K6's
     float64 form their own), K2's modes inside.  ``launches`` sums the
-    paths of phases 3, 5 (with its rational table rows) and 6-13
+    paths of phases 3, 5 (with its rational table rows) and 6-14
     (``launches_by_path`` lists them; 0 on the Stokes, nitsche, elasticity
     and locally refined paths)."""
     from fictitious_domain_al_preconditioners_torch.ops.kernels import (
@@ -2045,6 +2280,11 @@ def main(argv=None) -> int:
     ap.add_argument("--adaptive-only", action="store_true",
                     help="run only phases 12 and 13, local refinement near "
                          "Γ (no kernels line)")
+    ap.add_argument("--options-only", action="store_true",
+                    help="run only phase 14 (multiplier degrees 0 and 2, "
+                         "the bf16 element-form V-cycle, Q2 elliptic and "
+                         "elasticity) and its cross-checks (no kernels "
+                         "line)")
     args = ap.parse_args(argv)
     explicit_ref = min(EXPLICIT_REFINEMENT, args.refinement)
     nitsche_cycles = tuple(sorted(set(NITSCHE_CYCLES) | {
@@ -2112,6 +2352,12 @@ def main(argv=None) -> int:
             phase_adaptive(device)
             phase_adaptive_stokes(device)
             print(f"chip_smoke: phases 12 and 13 passed in "
+                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            return 0
+        if args.options_only:
+            phase_options(device, args.refinement, explicit_ref)
+            phase_options_crosscheck(device)
+            print(f"chip_smoke: phase 14 passed in "
                   f"{time.perf_counter() - t_start:.1f} s", flush=True)
             return 0
         if args.elasticity_only:
@@ -2213,11 +2459,16 @@ def main(argv=None) -> int:
                     + phase_adaptive(device)
                     + phase_adaptive_stokes(device)):
             path_launches[out["path"]] = out["launches"]
+        rows, opt_errs = phase_options(device, args.refinement, explicit_ref)
+        errs += opt_errs
+        for out in rows:
+            path_launches[out["path"]] = out["launches"]
 
         phase_crosscheck(device)
         phase_elliptic_crosscheck(device)
         phase_stokes_crosscheck(device)
         phase_family_crosscheck(device)
+        phase_options_crosscheck(device)
         report = kernel_report(path_launches, errs, times, resources)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)

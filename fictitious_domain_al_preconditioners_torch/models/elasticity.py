@@ -193,16 +193,9 @@ class ElasticityInterfaceProblem:
         self._parts = {}
         self._refine_cache = None
 
-    def _check_supported(self):
-        cfg = self.cfg
-        if cfg.background_space_degree != 1 or cfg.immersed_space_degree != 1:
-            raise NotImplementedError("not ported yet: element degrees other "
-                                      "than 1")
-
     # -- setup --------------------------------------------------------------
 
     def setup(self, cycle: int = 0):
-        self._check_supported()
         cfg = self.cfg
         dim = cfg.dim
         dev, dt = self.device, self.OP_DTYPE
@@ -308,8 +301,9 @@ class ElasticityInterfaceProblem:
 
     def _inv_w(self):
         """W⁻¹ = M⁻² componentwise by the tensor-product lattice inverse of
-        the immersed box's grid, or diag(M)⁻²; and the scalar diagonal
-        weights 1/diag(M)² of the GMG levels' AL term (float64 NumPy)."""
+        the immersed box's Q1 grid (two Jacobi-CGs on a Q2 one), or
+        diag(M)⁻²; and the scalar diagonal weights 1/diag(M)² of the GMG
+        levels' AL term (float64 NumPy)."""
         dim = self.cfg.dim
         n = self.fg_gridspace.n_dofs
         d = self.M.diag_host()
@@ -324,6 +318,20 @@ class ElasticityInterfaceProblem:
             lat2 = lattice_mass_inverse(self.fg_gridspace, squared=True,
                                         device=self.device,
                                         dtype=self.OP_DTYPE)
+            if lat2 is None:
+                # a Q2 immersed box: M⁻¹ twice by Jacobi-CG on every
+                # component at once (elasticity.py:264-273 of the reference)
+                dinv = torch.as_tensor(1.0 / d, dtype=self.OP_DTYPE,
+                                       device=self.device)[:, None]
+
+                def m_inv(v):
+                    x, _ = cg(self.M.mv, v, M=lambda r: dinv * r, tol=0.0,
+                              reduction=1e-14, max_steps=1000,
+                              stats=self.stats)
+                    return x
+
+                def lat2(v):
+                    return m_inv(m_inv(v))
 
             def inv_w(lam):
                 return lat2(lam.reshape(dim, n).T).T.reshape(-1)

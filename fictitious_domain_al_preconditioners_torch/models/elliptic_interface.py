@@ -24,6 +24,13 @@ whose levels carry the AL term as the band stencil of the diag-weighted
 particle patch; A22 is solved by CG on GMG over the immersed box's lattice
 twin, or, off-lattice, on a dense inverse or a Chebyshev smoother.
 
+A degree-2 background or immersed space (``background_space_degree``,
+``immersed_space_degree``) leaves the lattice on that side, as the
+reference does: its stiffness and mass apply in element form, W⁻¹ = M⁻²
+off the lattice is a nested Jacobi-CG (``precond.weights``), and its block's
+V-cycle is the flat hierarchy of ``precond.gmg.build_gmg_flat``; the Q1
+side keeps its lattice applies and K6.
+
 Every block vector is flat; the blocks on a lattice go to their (ny, nx)
 views inside the lattice applies.  The operator and every Krylov solver run
 in float64; the V-cycles run in the problem's ``dtype`` (float32 on CUDA).
@@ -48,7 +55,7 @@ from ..core.grid import GridSpace
 from ..core.immersed import ImmersedSpace
 from ..ops.assembly import (h1_error, imm_mass_matrix, imm_rhs,
                             imm_stiffness_matrix, interpolate, l2_error,
-                            laplace_matrix, rhs_vector)
+                            laplace_matrix, mass_matrix, rhs_vector)
 from ..ops.blocks import BlockLayout, block_operator
 from ..ops.coupling import build_coupling
 from ..ops.host_ref import HostEllipticSystem
@@ -60,7 +67,7 @@ from ..ops.sparse_band import lattice_band_linop
 from ..parallel.lattice import LatticeOps
 from ..precond.al import al_preconditioner_ideal, al_preconditioner_modified
 from ..precond.chebyshev import chebyshev
-from ..precond.gmg import build_gmg
+from ..precond.gmg import build_gmg, build_gmg_flat
 from ..precond.weights import (diag_of_m_squared, inv_diag,
                                inv_diag_of_m_squared, inv_exact,
                                inv_squared_exact)
@@ -256,20 +263,9 @@ class EllipticInterfaceProblem:
         self._particle_coupling = None
         self._refine_cache = None
 
-    def _check_supported(self):
-        cfg = self.cfg
-        missing = []
-        if cfg.background_space_degree != 1:
-            missing.append("background element degrees other than 1")
-        if cfg.immersed_space_degree != 1:
-            missing.append("immersed element degrees other than 1")
-        if missing:
-            raise NotImplementedError("not ported yet: " + "; ".join(missing))
-
     # -- per-cycle setup ----------------------------------------------------
 
     def setup(self, cycle: int = 0):
-        self._check_supported()
         cfg = self.cfg
         # the problem's arrays are float64, like the outer solve; the
         # preconditioner takes copies in self.dtype
@@ -451,6 +447,34 @@ class EllipticInterfaceProblem:
 
         return mask
 
+    def _gmg(self, space, factory, free, lanczos_start):
+        """The V-cycle of an augmented block over ``space`` in ``self.dtype``,
+        ``(gmg, apply)`` with ``apply`` on flat vectors.  ``factory(sp) ->
+        (mv, diag)`` gives a level's unconstrained operator on flat vectors
+        and its assembled diagonal.  A Q1 lattice takes the lattice
+        hierarchy (its levels masked here, K6 inside ``mv``), any other
+        space the flat one of :func:`..precond.gmg.build_gmg_flat`, as the
+        reference's ``build_gmg`` routes a degree-2 space
+        (elliptic_interface.py:474, :505)."""
+        kw = dict(free_mask=free, lanczos_start=lanczos_start,
+                  dtype=self.dtype, stats=self.stats)
+        if not _is_lattice(space):
+            gmg = build_gmg_flat(space, factory, **kw)
+            return gmg, gmg.apply
+        masks = self._level_masks(space, free)
+
+        def lattice_factory(sp):
+            mv, diag = factory(sp)
+            return self._level_op(sp, mv, masks(sp)), diag, None
+
+        gmg = build_gmg(space, lattice_factory, **kw)
+        lat = tuple(reversed(space.n_points_1d))
+
+        def apply(v):
+            return gmg.apply(v.reshape(lat)).reshape(-1)
+
+        return gmg, apply
+
     def _gammas(self):
         """(γ₁, γ₂) of the system: the current γ's, divided by h_imm² in the
         h-scaled and operator forms."""
@@ -601,25 +625,25 @@ class EllipticInterfaceProblem:
 
                 return mv, Cl.al_term_diag(w_diag, gamma_1)
 
-        lat11 = tuple(reversed(self.space.n_points_1d))
-        mask11 = self._level_masks(self.space, free)
-
         def a11_factory(sp):
-            k_mv = self._lap_apply(sp, None)
+            # a Q1 lattice level: K6 (flat vectors, viewed as the lattice);
+            # else the element form (a Q2 background, elliptic_interface.py:
+            # 465 of the reference)
+            K_l = None if _is_lattice(sp) else (
+                self.A1 if sp is self.space else laplace_matrix(
+                    sp, order=deg + 1, device=dev, dtype=dt)).astype(dt)
+            k_mv = self._lap_apply(sp, K_l)
             al_mv, al_diag = al_factory(sp)
 
             def mv(x):
                 return beta_1 * k_mv(x) + al_mv(x)
 
-            diag = beta_1 * LatticeOps.for_space(sp).laplace_diag() + al_diag
-            return self._level_op(sp, mv, mask11(sp)), diag, None
+            k_diag = (LatticeOps.for_space(sp).laplace_diag() if K_l is None
+                      else K_l.diag_host())
+            return mv, beta_1 * k_diag + al_diag
 
-        gmg11 = build_gmg(self.space, a11_factory, free_mask=free,
-                          lanczos_start=self.lanczos_start, dtype=dt,
-                          stats=self.stats)
-
-        def gmg11_apply(v):
-            return gmg11.apply(v.reshape(lat11)).reshape(-1)
+        gmg11, gmg11_apply = self._gmg(self.space, a11_factory, free,
+                                       self.lanczos_start)
 
         # A22's preconditioner: the reference builds AMG on the surrogate
         # A2 + γ₂(h-scaled M | I) (elliptic_interface.cc:838-851); GMG on
@@ -628,33 +652,37 @@ class EllipticInterfaceProblem:
         use_mass_surrogate = cfg.use_h_scaled_mass or cfg.use_operator_form
         gmg22 = None
         if self.fg_gridspace is not None:
+            ideg = cfg.immersed_space_degree
+
             def a22_factory(sp):
-                lat = LatticeOps.for_space(sp)
-                k_mv = self._lap_apply(sp, None)
-                k_diag = a2_scale * lat.laplace_diag()
+                lattice = _is_lattice(sp)
+                K_l = None if lattice else laplace_matrix(
+                    sp, order=ideg + 1, device=dev, dtype=dt)
+                k_mv = self._lap_apply(sp, K_l)
+                k_diag = a2_scale * (LatticeOps.for_space(sp).laplace_diag()
+                                     if lattice else K_l.diag_host())
                 if use_mass_surrogate:
-                    m_mv_l = self._mass_apply(sp, None)
+                    M_l = None if lattice else mass_matrix(
+                        sp, order=ideg + 1, device=dev, dtype=dt)
+                    m_mv_l = self._mass_apply(sp, M_l)
 
                     def mv(x):
                         return a2_scale * k_mv(x) + gamma_2 * m_mv_l(x)
 
-                    diag = k_diag + gamma_2 * lat.mass_diag()
+                    diag = k_diag + gamma_2 * (
+                        LatticeOps.for_space(sp).mass_diag() if lattice
+                        else M_l.diag_host())
                 else:
                     def mv(x):
                         return a2_scale * k_mv(x) + gamma_2 * x
 
                     diag = k_diag + gamma_2
-                return self._level_op(sp, mv, None), diag, None
+                return mv, diag
 
-            gmg22 = build_gmg(self.fg_gridspace, a22_factory,
-                              free_mask=torch.ones(n_fg, dtype=torch.bool,
-                                                   device=dev),
-                              lanczos_start=self.lanczos_start_a22, dtype=dt,
-                              stats=self.stats)
-            lat22 = tuple(reversed(self.fg_gridspace.n_points_1d))
-
-            def A22_prec(v):
-                return gmg22.apply(v.reshape(lat22)).reshape(-1)
+            gmg22, A22_prec = self._gmg(
+                self.fg_gridspace, a22_factory,
+                torch.ones(n_fg, dtype=torch.bool, device=dev),
+                self.lanczos_start_a22)
         else:
             A2, M = self.A2.astype(dt), self.M.astype(dt)
             a2d = A2.diag_host()

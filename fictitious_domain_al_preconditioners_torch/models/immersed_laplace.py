@@ -29,9 +29,14 @@ constrained stiffness.  Every inner vector is an (ny, nx) lattice tensor; the
 flat dof vector is a view of the same buffer.
 
 With ``use_bf16_multigrid`` the augmented solver's V-cycle runs in
-bfloat16: every level operator is K1 in its bf16-storage form plus the
-masked Γ-band AL term in bf16, smoothed by the unfused Chebyshev, while the
-inner CG and the outer FGMRES stay in the working dtype.
+bfloat16: on the lattice every level operator is K1 in its bf16-storage
+form plus the masked Γ-band AL term in bf16, smoothed by the unfused
+Chebyshev, on the element form every level holds its stiffness and compact
+AL block in bf16, while the inner CG and the outer FGMRES stay in the
+working dtype.  The multiplier is continuous of ``embedded_space_degree``
+1 or 2, or DG0 for 0; on the lattice its degree changes C, W and the
+right-hand side, not K2's particle planes, which depend on the Γ
+quadrature only.
 :meth:`ImmersedLaplaceProblem.solve_refined` drives the augmented system to
 a true float64 residual (``ops.host_ref``) by iterative refinement over
 correction solves in the working dtype (``utils.refine``).
@@ -81,7 +86,7 @@ from ..ops.blocks import BlockLayout, block_operator
 from ..ops.coupling import build_coupling
 from ..ops.kernels import (AugmentedStencil2D, fused_augmented_2d,
                            masked_laplace_2d)
-from ..ops.krylov import cg, fgmres, gmres, minres
+from ..ops.krylov import cg, cg_condition_number, fgmres, gmres, minres
 from ..ops.linop import LinOp
 from ..ops.operators import constrain, dirichlet_rhs
 from ..ops.host_ref import HostAugmentedSystem
@@ -231,13 +236,6 @@ class ImmersedLaplaceProblem:
         if cfg.solver not in SOLVERS:
             raise ValueError(f"unknown solver {cfg.solver!r}; one of "
                              f"{SOLVERS}")
-        if cfg.embedded_space_degree != 1:
-            raise NotImplementedError(
-                "not ported yet: embedded_space_degree other than 1")
-        if cfg.use_bf16_multigrid and self.element_form:
-            raise NotImplementedError(
-                "not ported yet: the bf16 V-cycle on the element-form path "
-                f"({', '.join(self._element_form_triggers())})")
 
     # -- setup --------------------------------------------------------------
 
@@ -258,7 +256,10 @@ class ImmersedLaplaceProblem:
                 conf_fn, cfg.initial_embedded_refinement,
                 geom_degree=cfg.embedded_configuration_degree)
             kdeg = cfg.embedded_space_degree
-            self.imm_space = self.curve.space(kdeg)
+            # a DG0 multiplier for degree 0 (immersed_laplace.py:175-178 of
+            # the reference)
+            self.imm_space = (self.curve.space(kdeg) if kdeg > 0 else
+                              self.curve.space(0, continuous=False))
             if cfg.delta_refinement > 0:
                 # refine the cells holding the Γ support points and their
                 # face neighbours, delta times (immersed_laplace.cc:328-343)
@@ -603,22 +604,28 @@ class ImmersedLaplaceProblem:
         order_k = cfg.embedding_space_degree + 1
         gamma, inv_w, w_diag, coupling_for, fine_coupling = self._al_form()
 
-        def compact(coupling, shape):
+        gmg_dt = torch.bfloat16 if cfg.use_bf16_multigrid else dt
+
+        def compact(coupling, shape, dtype):
             t0 = time.perf_counter()
-            al, al_diag = coupling.compact_al(gamma, w_diag)
+            al, al_diag = coupling.compact_al(gamma, w_diag, dtype=dtype)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             self.compact_blocks.append(dict(
-                shape=shape, rows=al.rows, bytes=al.rows ** 2 * dt.itemsize,
+                shape=shape, rows=al.rows, bytes=al.rows ** 2 * dtype.itemsize,
                 seconds=time.perf_counter() - t0))
             return al, al_diag
 
-        def level(sp):
+        def level(sp, dtype):
+            # K and the AL block held in the level's dtype: the bf16
+            # V-cycle's levels take and return bf16 (the reference passes
+            # dtype=bfloat16 to build_gmg on this path too,
+            # immersed_laplace.py:1192-1198)
             fine = sp is self.space
-            K_l = self.K if fine else laplace_matrix(
-                sp, order=order_k, device=dev, dtype=dt)
+            K_l = (self.K if fine else laplace_matrix(
+                sp, order=order_k, device=dev, dtype=dt)).astype(dtype)
             al, al_diag = compact(fine_coupling if fine else coupling_for(sp),
-                                  [sp.n_dofs])
+                                  [sp.n_dofs], dtype)
 
             def mv(x):
                 return K_l.mv(x) + al(x)
@@ -628,16 +635,17 @@ class ImmersedLaplaceProblem:
         levels = {}
 
         def op_factory(sp):
-            levels[id(sp)] = level(sp)
+            levels[id(sp)] = level(sp, gmg_dt)
             return levels[id(sp)]
 
         gmg = build_gmg_flat(self.space, op_factory, free_mask=free,
                              smoother_degree=cfg.gmg_smoother_degree,
-                             lanczos_start=self.lanczos_start, dtype=dt,
+                             lanczos_start=self.lanczos_start, dtype=gmg_dt,
                              stats=self.stats)
         self._last_gmg = gmg
         if cfg.use_operator_form or cfg.use_diagonal_inverse:
-            aug_raw = levels[id(self.space)][0]
+            aug_raw = (levels[id(self.space)] if gmg_dt == dt
+                       else level(self.space, dt))[0]
         else:
             al_op = self.C.al_term(inv_w, gamma)
 
@@ -942,3 +950,20 @@ class ImmersedLaplaceProblem:
     def constraint_residual(self) -> float:
         """||C u - (g, ψ)||_inf: residual of the constraint block equation."""
         return float(torch.max(torch.abs(self.C.mv(self.u) - self.rhs_g)))
+
+    def cct_condition_estimate(self, max_steps: int = 100) -> float:
+        """cond(CCᵀ) from the tridiagonal of a CG solve on CCᵀ with a
+        standard normal right-hand side (``default_rng(0)``), as
+        immersed_laplace.cc:987-1010 reads it off the CG."""
+        b = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            self.imm_space.n_dofs), dtype=torch.float64, device=self.device)
+        _, info, (al, be) = cg(lambda v: self.C.mv(self.C.rmv(v)), b,
+                               tol=1e-12, max_steps=max_steps,
+                               track_tridiag=True)
+        return cg_condition_number(al, be, info.iterations)
+
+    def run(self):
+        """``setup()`` then ``solve()``; returns ``results``."""
+        self.setup()
+        self.solve()
+        return self.results

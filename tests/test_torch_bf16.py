@@ -105,12 +105,22 @@ def bf16_carried_arrays(jp):
 
 def test_bf16_option_is_supported():
     """``use_bf16_multigrid`` sets up (it raised ``NotImplementedError``
-    before this port); an option that is still unported still raises."""
+    before this port), on the lattice path and, since the element-form path
+    took it too, with ``delta_refinement``: there the flat V-cycle is built
+    in bf16 and returns a float64 input in float64 (the whole solve against
+    the reference is tests/test_torch_multiplier_degree.py)."""
     cfg = bf16_config(TConfig, TControl, 4)
     TProblem(cfg, device="cpu").setup()
     cfg.delta_refinement = 1
-    with pytest.raises(NotImplementedError, match="delta_refinement"):
-        TProblem(cfg, device="cpu").setup()
+    cfg.initial_embedded_refinement = 6
+    prob = TProblem(cfg, device="cpu").setup()
+    assert prob.element_form
+    prob._augmented_run()
+    gmg = prob._last_gmg
+    assert gmg.dtype == BF16
+    b = torch.ones(prob.space.n_dofs, dtype=torch.float64) * prob.free
+    x = gmg.apply(b)
+    assert x.dtype == torch.float64 and bool(torch.isfinite(x).all())
 
 
 def test_coupling_and_transfers_keep_bf16():

@@ -257,8 +257,9 @@ def test_from_prm_matches_reference():
 
 def test_entry_point_defaults_to_the_card():
     """The problem runs on CUDA unless the caller asks for the CPU; without
-    a card, setup raises instead of falling back to the CPU; degrees other
-    than 1 are not ported."""
+    a card, setup raises instead of falling back to the CPU; a Q2
+    background sets up (it raised "not ported yet" before the port took
+    it)."""
     sig = inspect.signature(tel.ElasticityInterfaceProblem.__init__)
     assert sig.parameters["device"].default == "cuda"
     prob = tel.ElasticityInterfaceProblem(small(tel))
@@ -268,5 +269,5 @@ def test_entry_point_defaults_to_the_card():
             prob.setup()
     cfg = small(tel)
     cfg.background_space_degree = 2
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tel.ElasticityInterfaceProblem(cfg, device="cpu").setup()
+    prob = tel.ElasticityInterfaceProblem(cfg, device="cpu").setup()
+    assert prob.layout.sizes[0] == 3 * 9 ** 3

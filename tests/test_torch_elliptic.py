@@ -240,6 +240,15 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("kw", [dict(background_space_degree=2),
                                 dict(immersed_space_degree=2)])
 def test_unported_option_raises(kw):
-    prob = TProblem(base_config(TConfig, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        prob.setup(0)
+    """A degree-2 background or immersed space raised "not ported yet"
+    before the port took it: it now sets up, and the Q2 side's V-cycle is
+    the flat hierarchy in element form while the Q1 side keeps the
+    lattice (the parity against the reference is
+    tests/test_torch_degree2.py)."""
+    prob = TProblem(base_config(TConfig, **kw), device="cpu").setup(0)
+    parts = prob._solver_parts()
+    for gmg, sp in ((parts["gmg11"], prob.space),
+                    (parts["gmg22"], prob.fg_gridspace)):
+        assert gmg.levels[0].space is sp
+        flat = sp.fe.degree == 2
+        assert gmg.levels[0].mask.dim() == (1 if flat else 2)

@@ -688,3 +688,35 @@ def test_adaptive_stokes_matches_cpu(cuda):
     out = S._crosscheck("adaptive_stokes@4:5+1", make, cuda)
     assert all(out["converged"])
     assert sum(K.LAUNCHES.values()) == 0, K.LAUNCHES
+
+
+@pytest.mark.parametrize("kdeg", [0, 2], ids=["dg0", "q2"])
+def test_multiplier_degree_kernels_match_plain(cuda, kdeg):
+    """The flagship with a DG0 and a Q2 multiplier at refinement 9 on the
+    card: K1, K6 and K2 ``op``/``pre``/``post`` launched on its path, and
+    each against its plain version at every level shape of that path with
+    its patch planes and Lanczos bounds (chip_smoke's tolerances)."""
+    cfg = S.flagship_config(9)
+    cfg.embedded_space_degree = kdeg
+    K.reset_launch_counts()
+    prob = ImmersedLaplaceProblem(cfg, device=cuda).setup()
+    _, _, info = prob.solve()
+    launches = dict(K.LAUNCHES)
+    assert info.converged and not prob.element_form
+    for key in ["masked_laplace_2d", "laplace_stencil_2d"] + [
+            K.launch_key(m) for m in ("op", "pre", "post")]:
+        assert launches.get(key, 0) > 0, key
+    errs = S.phase_flagship_shapes(prob, cuda, "test")
+    assert len(errs) > 0
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_option_paths_match_cpu(cuda, case):
+    """chip_smoke's phase 14 card-against-CPU checks, one case each (the
+    DG0 and Q2 flagship at refinement 7, the element-form flower with both
+    degrees and the bf16 V-cycle, elliptic with a Q2 background and a Q2
+    immersed space, elasticity with a Q2 background): counts within 1,
+    blocks within 1e-3 of their max."""
+    tag, make = S.options_crosscheck_cases()[case]
+    out = S._crosscheck(tag, make, cuda)
+    assert all(out["converged"])

@@ -137,10 +137,12 @@ def test_smooth_solution_accuracy():
 
 
 def test_unported_options_raise():
-    """``delta_refinement`` sets up on the element-form path; what is still
-    unported there raises: ``solve_refined`` (the host float64 reference
-    applies the lattice stiffness only), the bf16 V-cycle and a multiplier
-    degree other than 1."""
+    """``delta_refinement`` sets up on the element-form path, with the
+    bf16 V-cycle too, and a DG0 or Q2 multiplier sets up on the lattice
+    path (they raised "not ported yet" before the port took them); what is
+    still unported raises: ``solve_refined`` on the element form (the host
+    float64 reference applies the lattice stiffness only, as the reference
+    package's does)."""
     cfg = golden_config(TConfig, TControl, 4)
     cfg.delta_refinement = 1
     cfg.initial_embedded_refinement = 6
@@ -149,14 +151,14 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="uniform Q1 lattice"):
         prob.solve_refined()
     cfg.use_bf16_multigrid = True
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TProblem(cfg, device="cpu").setup()
-    for kdeg in (0, 2):
+    assert TProblem(cfg, device="cpu").setup().element_form
+    for kdeg, n_imm in ((0, 16), (2, 33)):
         other = golden_config(TConfig, TControl, 4)
         other.embedded_space_degree = kdeg
-        with pytest.raises(NotImplementedError,
-                           match="embedded_space_degree"):
-            TProblem(other, device="cpu").setup()
+        prob = TProblem(other, device="cpu").setup()
+        assert not prob.element_form
+        assert prob.imm_space.n_dofs == n_imm
+        assert prob.imm_space.fe.continuous == (kdeg > 0)
 
 
 def test_entry_points_default_to_the_card():
