@@ -12,6 +12,7 @@ locally refined backgrounds.
     python3 chip_smoke.py --elasticity-only --elasticity-cycle 3
     python3 chip_smoke.py --adaptive-only  # phases 12 and 13
     python3 chip_smoke.py --options-only   # phase 14
+    python3 chip_smoke.py --table-only     # phase 15
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -142,6 +143,20 @@ Phases (any failure exits non-zero before the last line is printed):
     then ``solve_refined(tol_abs=1e-10)`` to a true float64 residual of at
     most 1e-10, K6's launches printed on the elliptic rows;
     ``--options-only`` runs just it and its cross-checks;
+15. the host setup and the H100 results table's scripts: the C++ setup
+    routines (``native.py``, built with ``g++`` from ``csrc/fdal_setup.cpp``)
+    must be in use; point location, tabulation and COO deduplication on the
+    coupling quadrature points of elliptic cycle 6 and the compact-AL
+    accumulation on the fine block of the flower at (11, 12) + 1 must equal
+    their NumPy forms (cells, rows and columns exactly; values within
+    1e-14, 1e-13 and 1e-12 of their max), each form's seconds printed; then
+    ``scripts/measure_family_torch.py`` measures the smallest row of each
+    family of the table (one process a family, all at once, ``jax``
+    blocked) into a temporary cache, ``make_results_table_torch.py``
+    renders it, and every row must have converged with finite numbers; the
+    rows' launch counts (set to 0 before each row, read after it) must show
+    K1 and K2 on laplace@7 and both forms of K6 on elliptic@0;
+    ``--table-only`` runs just it;
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
    versions) in float32 with the same Lanczos start vectors, for the
    flagship, the three modes and the flagship with the bf16 V-cycle; the
@@ -156,8 +171,9 @@ Phases (any failure exits non-zero before the last line is printed):
    2, 1).
 
 Launch counts are set to 0 just before each path (phases 3, 5, 6, 7, 8, 9,
-10, 11, 12, 13 and 14) and read just after it. The three last lines are the card's name
-and power limit, a JSON object with one entry per kernel, and ``{"ok":
+10, 11, 12, 13, 14 and the rows of 15) and read just after it. The three
+last lines are the card's name and power limit, a JSON object with one
+entry per kernel, and ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -167,9 +183,11 @@ import argparse
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -276,6 +294,20 @@ OPTION_SUFFIX = {0: "_dg0", 1: "", 2: "_q2"}
 OPTIONS_ELLIPTIC_CYCLE = 5
 OPTIONS_ELASTICITY_CYCLE = 1
 OPTIONS_CROSSCHECK_REFINEMENT = 7
+# phase 15: the host setup routines at elliptic cycle 6's coupling points
+# and the flower's (11, 12) + 1 compact AL block; the smallest row of each
+# family of the results table (scripts/make_results_table_torch.py), and
+# the kernels each row must launch
+NATIVE_ELLIPTIC_CYCLE = 6
+NATIVE_FLOWER_PAIR = (11, 12)
+TABLE_SMOKE_ROWS = {"laplace": "7", "refined": "9", "rational": "5",
+                    "elliptic": "0", "stokes": "4:5", "stokes3d": "3:0",
+                    "nitsche": "0", "elasticity": "0"}
+TABLE_SMOKE_LAUNCHES = {
+    "laplace:7": ("masked_laplace_2d", "fused_augmented_2d:op",
+                  "fused_augmented_2d:pre", "fused_augmented_2d:post"),
+    "elliptic:0": ("laplace_stencil_2d", "laplace_stencil_2d:f64")}
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 and float64 rates
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -2133,6 +2165,203 @@ def phase_options_crosscheck(device):
             for tag, make in options_crosscheck_cases()]
 
 
+def _forms(fn, *args):
+    """``fn(*args)`` with the C++ routines and with their NumPy forms:
+    ``((native result, seconds), (numpy result, seconds))``."""
+    import contextlib
+    from unittest import mock
+
+    from fictitious_domain_al_preconditioners_torch import native
+
+    out = []
+    for numpy_form in (False, True):
+        with (mock.patch.object(native, "available", lambda: False)
+              if numpy_form else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            res = fn(*args)
+            out.append((res, time.perf_counter() - t0))
+    return out
+
+
+def _close(a, b, tol, what):
+    a, b = np.asarray(a), np.asarray(b)
+    check(a.shape == b.shape, f"phase 15 {what}: shapes {a.shape} vs "
+          f"{b.shape}")
+    err = float(np.abs(a - b).max()) if a.size else 0.0
+    scale = max(float(np.abs(b).max()), 1e-300) if b.size else 1.0
+    check(err <= tol * scale, f"phase 15 {what}: |native - numpy| = {err:.3e}"
+          f" > {tol} x {scale:.3e}")
+    return err / scale
+
+
+def phase_native(device):
+    """Phase 15, first part: the C++ setup routines are in use and equal
+    their NumPy forms at elliptic cycle 6's coupling quadrature points and
+    on the flower's (11, 12) + 1 compact AL block; returns the line."""
+    from fictitious_domain_al_preconditioners_torch import native
+    from fictitious_domain_al_preconditioners_torch.core import (
+        GridSpace, ImmersedSpace, gauss)
+    from fictitious_domain_al_preconditioners_torch.core.generators import (
+        background_grid_from_name, immersed_mesh_from_name)
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ImmersedLaplaceProblem
+    from fictitious_domain_al_preconditioners_torch.ops.coupling import \
+        build_coupling
+
+    check(native.available(), "phase 15: the C++ setup library is not in "
+          "use (no C++ compiler?)")
+    out = dict(path="native", library=os.path.relpath(native.build(), ROOT))
+    cfg, cyc = elliptic_config(), NATIVE_ELLIPTIC_CYCLE
+    grid = background_grid_from_name(
+        cfg.name_of_background_grid, cfg.arguments_for_background_grid, 2,
+        cfg.initial_background_refinement + cyc)
+    box = background_grid_from_name(
+        cfg.name_of_immersed_grid, cfg.arguments_for_immersed_grid, 2,
+        cfg.initial_immersed_refinement + cyc)
+    mesh = immersed_mesh_from_name(
+        cfg.name_of_immersed_grid, cfg.arguments_for_immersed_grid, 2,
+        cfg.initial_immersed_refinement + cyc)
+    X, _, _ = mesh.quad_geometry(gauss(2, cfg.background_space_degree + 1))
+    pts = X.reshape(-1, 2)
+    space = GridSpace.q(grid, 1)
+    (loc, t_loc), (loc_np, t_loc_np) = _forms(
+        native.locate_points, pts, np.asarray(grid.origin), grid.h,
+        np.asarray(grid.ncells))
+    check(np.array_equal(loc[0], loc_np[0]), "phase 15: located cells "
+          "differ")
+    _close(loc[1], loc_np[1], 1e-14, "reference points")
+    (tab, t_tab), (tab_np, t_tab_np) = _forms(
+        native.tabulate, loc[1], space.fe.nodes_1d, 2)
+    _close(tab, tab_np, 1e-14, "tabulation")
+    twin = GridSpace.q(box, 1)
+    C = build_coupling(space, ImmersedSpace(mesh, twin.fe, twin.cell_dofs,
+                                            twin.n_dofs),
+                       cfg.background_space_degree + 1, device="cpu")
+    rows, cols, vals = C.to_coo()
+    ((r, c, v), t_dd), ((r_np, c_np, v_np), t_dd_np) = _forms(
+        native.coo_dedup, rows, cols, vals, C.shape[1])
+    check(np.array_equal(r, r_np) and np.array_equal(c, c_np),
+          "phase 15: deduplicated COO indices differ")
+    _close(v, v_np, 1e-13, "deduplicated COO values")
+    out.update(elliptic_cycle=cyc, quadrature_points=len(pts),
+               coo_triplets=len(vals), coo_unique=len(v),
+               locate_seconds=t_loc, locate_numpy_seconds=t_loc_np,
+               tabulate_seconds=t_tab, tabulate_numpy_seconds=t_tab_np,
+               coo_dedup_seconds=t_dd, coo_dedup_numpy_seconds=t_dd_np)
+    del C, rows, cols, vals
+
+    acfg = adaptive_config(os.path.join(ROOT, ADAPTIVE_SCALE_FILE),
+                           NATIVE_FLOWER_PAIR, True)
+    t0 = time.perf_counter()
+    prob = ImmersedLaplaceProblem(acfg, device=device).setup()
+    setup_s = time.perf_counter() - t0
+    h = prob.C.host
+    uniq, inv = np.unique(h["bg_dofs"].reshape(-1), return_inverse=True)
+    idx = inv.reshape(h["bg_dofs"].shape)
+    (A, t_acc), (A_np, t_acc_np) = _forms(
+        native.accumulate_al, idx, h["bg_phi"], h["jxw"], len(uniq))
+    err = _close(A, A_np, 1e-12, "compact AL block")
+    out.update(flower_pair=list(NATIVE_FLOWER_PAIR),
+               flower_setup_seconds=setup_s, block_rows=len(uniq),
+               block_quadrature_points=idx.shape[0],
+               accumulate_seconds=t_acc, accumulate_numpy_seconds=t_acc_np,
+               accumulate_rel_err=err)
+    del prob, A, A_np
+    print("phase 15: " + json.dumps(out), flush=True)
+    return out
+
+
+def _script_cmd(script, *args):
+    """A command that runs ``scripts/<script>`` with ``jax`` blocked and
+    fails if it loaded jax or the JAX package."""
+    path = os.path.join(ROOT, "scripts", script)
+    code = ("import runpy, sys\nsys.modules['jax'] = None\n"
+            f"sys.argv = {[path, *args]!r}\n"
+            f"try:\n    runpy.run_path({path!r}, run_name='__main__')\n"
+            "finally:\n    assert sys.modules['jax'] is None\n"
+            "    assert 'fictitious_domain_al_preconditioners_tpu' not in "
+            "sys.modules\n")
+    return [sys.executable, "-c", code]
+
+
+def phase_table(device):
+    """Phase 15, second part: ``scripts/measure_family_torch.py`` on the
+    smallest row of each family (one process a family, all at once, jax
+    blocked) into a temporary cache, the table rendered from it, every row
+    converged with finite numbers; the kernels each row must launch.
+    Returns the rows' entries by key."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cache, table = (os.path.join(tmp, f) for f in ("rows.json",
+                                                        "results.md"))
+        t0 = time.perf_counter()
+        procs = {kind: subprocess.Popen(
+            _script_cmd("measure_family_torch.py", kind, arg, "--cache",
+                        cache, "--device", device.type), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for kind, arg in TABLE_SMOKE_ROWS.items()}
+        logs = {}
+        try:
+            for kind, proc in procs.items():
+                logs[kind], _ = proc.communicate(timeout=900)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for kind, proc in procs.items():
+            check(proc.returncode == 0, f"phase 15: measure_family_torch.py "
+                  f"{kind} exited {proc.returncode}:\n{logs[kind][-2000:]}")
+        res = subprocess.run(_script_cmd(
+            "make_results_table_torch.py", "--render", "--cache", cache,
+            "--out", table), cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        check(res.returncode == 0, "phase 15: rendering failed:\n"
+              + res.stdout[-1000:] + res.stderr[-2000:])
+        with open(cache) as fh:
+            entries = json.load(fh)
+        with open(table) as fh:
+            text = fh.read()
+    seconds = time.perf_counter() - t0
+    for kind, arg in TABLE_SMOKE_ROWS.items():
+        key = f"{kind}:{arg}"
+        ent = entries.get(key)
+        check(ent is not None and ent.get("row") is not None,
+              f"phase 15: no row for {key}: {ent}")
+        row = ent["row"]
+        print("phase 15: table row " + json.dumps(dict(
+            key=key, row=row, setup_seconds=ent.get("setup_seconds"),
+            build_seconds=ent.get("build_seconds"), peak_gb=ent["peak_gb"],
+            launches=ent["launches"], card=ent["card"])), flush=True)
+        check(all(math.isfinite(x) for x in row
+                  if isinstance(x, (int, float))),
+              f"phase 15: {key}: a number is not finite: {row}")
+        if len(row) >= 7:           # refined rows end in their flag
+            check(bool(row[6]), f"phase 15: {key} did not converge: {row}")
+        check(f"| {row[0]:,} | {row[1]:,} | {row[2]} |" in text,
+              f"phase 15: {key} is not in the rendered table")
+        for name in TABLE_SMOKE_LAUNCHES.get(key, ()):
+            check(ent["launches"].get(name, 0) > 0,
+                  f"phase 15: {key}: {name} never launched")
+    for mark in ("**diverged**", "**(unconverged)**", "**cut**", "failed:",
+                 " †"):
+        check(mark not in text, f"phase 15: the table holds '{mark}'")
+    print(f"phase 15: the smallest row of {len(TABLE_SMOKE_ROWS)} families "
+          f"measured and rendered in {seconds:.1f} s", flush=True)
+    return {f"{k}:{a}": entries[f"{k}:{a}"]
+            for k, a in TABLE_SMOKE_ROWS.items()}
+
+
+def phase_host_and_table(device, path_launches):
+    """Phase 15: :func:`phase_native`, then :func:`phase_table`, whose rows'
+    launches join ``path_launches`` as ``table_<key>``."""
+    t0 = time.perf_counter()
+    phase_native(device)
+    for key, ent in phase_table(device).items():
+        path_launches[f"table_{key}"] = ent["launches"]
+    print(f"phase 15: passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def k1_resources(shape):
     """Resources of K1's two forms, keyed as in the kernels line: of the
     instantiation a launch on ``shape`` takes, with every instantiation's
@@ -2188,9 +2417,10 @@ def k2_resources(shape, degree=4):
 def kernel_report(path_launches, errs, times, resources):
     """The kernels' JSON line: one entry per kernel (K1's bf16 form and K6's
     float64 form their own), K2's modes inside.  ``launches`` sums the
-    paths of phases 3, 5 (with its rational table rows) and 6-14
-    (``launches_by_path`` lists them; 0 on the Stokes, nitsche, elasticity
-    and locally refined paths)."""
+    paths of phases 3, 5 (with its rational table rows), 6-14 and the
+    table rows of phase 15 (``table_<key>``; ``launches_by_path`` lists
+    them; 0 on the Stokes, nitsche, elasticity and locally refined
+    paths)."""
     from fictitious_domain_al_preconditioners_torch.ops.kernels import (
         MODES, launch_key)
 
@@ -2280,6 +2510,10 @@ def main(argv=None) -> int:
     ap.add_argument("--adaptive-only", action="store_true",
                     help="run only phases 12 and 13, local refinement near "
                          "Γ (no kernels line)")
+    ap.add_argument("--table-only", action="store_true",
+                    help="run only phase 15 (the C++ host setup routines "
+                         "and the results table's scripts on the smallest "
+                         "row of each family; no kernels line)")
     ap.add_argument("--options-only", action="store_true",
                     help="run only phase 14 (multiplier degrees 0 and 2, "
                          "the bf16 element-form V-cycle, Q2 elliptic and "
@@ -2352,6 +2586,11 @@ def main(argv=None) -> int:
             phase_adaptive(device)
             phase_adaptive_stokes(device)
             print(f"chip_smoke: phases 12 and 13 passed in "
+                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            return 0
+        if args.table_only:
+            phase_host_and_table(device, {})
+            print(f"chip_smoke: phase 15 passed in "
                   f"{time.perf_counter() - t_start:.1f} s", flush=True)
             return 0
         if args.options_only:
@@ -2463,6 +2702,9 @@ def main(argv=None) -> int:
         errs += opt_errs
         for out in rows:
             path_launches[out["path"]] = out["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_host_and_table(device, path_launches)
 
         phase_crosscheck(device)
         phase_elliptic_crosscheck(device)

@@ -7,7 +7,8 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.coupling``:
 
 Setup builds a quad-point table: every immersed quadrature point is located
 in its background cell by index arithmetic and both bases are tabulated there
-(NumPy, host).  ``C u`` is a gather and a row sum; ``Cᵀ λ`` is an
+(on the host, by the C++ routines of :mod:`..native`, or their NumPy forms
+without a C++ compiler).  ``C u`` is a gather and a row sum; ``Cᵀ λ`` is an
 ``index_add_``; both also take (n, k) column blocks (the Stokes vector
 coupling applies the scalar table to every component at once).  The AL
 term γ·CᵀW⁻¹C applies matrix-free (:meth:`Coupling.al_term`); the particle
@@ -24,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..core.quadrature import gauss
 from .linop import LinOp
 
@@ -32,7 +34,7 @@ __all__ = ["Coupling", "VectorCoupling", "build_coupling", "accumulate_al"]
 
 def accumulate_al(idx, phi, w, m):
     """Dense compact-AL accumulation ``A[idx_a, idx_b] += phi_a phi_b w``
-    (the NumPy form of the reference package's native ``accumulate_al``)."""
+    (the NumPy form of :func:`..native.accumulate_al`)."""
     A = np.zeros((m, m))
     contrib = np.einsum("qa,qb,q->qab", phi, phi, w)
     np.add.at(A, (idx[:, :, None], idx[:, None, :]), contrib)
@@ -216,7 +218,7 @@ class Coupling:
         uniq, inv = np.unique(dofs.reshape(-1), return_inverse=True)
         m = len(uniq)
         if w_diag is None:
-            A = torch.as_tensor(accumulate_al(
+            A = torch.as_tensor(native.accumulate_al(
                 inv.reshape(dofs.shape), self.host["bg_phi"],
                 self.host["jxw"], m), device=self.device)
         else:
@@ -380,9 +382,11 @@ def _cell_dofs_of(space, cells):
 def build_coupling(bg_space, imm_space, order: int = 3, *,
                    device="cuda", dtype=torch.float64) -> Coupling:
     """Assemble the quad-point coupling table ('Coupling quadrature order'
-    in every reference prm) by NumPy point location on the uniform grid, or
-    through the folded tabulation of a locally refined background
-    (``tabulate_at``: the hanging-node constraints are in the table)."""
+    in every reference prm) by point location on the uniform grid and
+    tabulation there (the C++ routines of :mod:`..native` when the library
+    is available, NumPy otherwise: the same table), or through the folded
+    tabulation of a locally refined background (``tabulate_at``: the
+    hanging-node constraints are in the table)."""
     mesh = imm_space.mesh
     rule = gauss(mesh.dim, order)
     X, _, jxw = mesh.quad_geometry(rule)
@@ -392,8 +396,13 @@ def build_coupling(bg_space, imm_space, order: int = 3, *,
     if hasattr(bg_space, "tabulate_at"):
         bg_dofs, bg_phi = bg_space.tabulate_at(flat_pts)
     else:
-        cells, refs = bg_space.grid.locate(flat_pts)
-        bg_phi = bg_space.fe.tabulate(refs)
+        grid = bg_space.grid
+        cells, refs = native.locate_points(flat_pts, np.asarray(grid.origin),
+                                           grid.h, np.asarray(grid.ncells))
+        if hasattr(bg_space.fe, "nodes_1d"):
+            bg_phi = native.tabulate(refs, bg_space.fe.nodes_1d, grid.dim)
+        else:                                   # a DGP element
+            bg_phi = bg_space.fe.tabulate(refs)
         bg_dofs = _cell_dofs_of(bg_space, cells)
 
     psi = imm_space.fe.tabulate(rule.points)
