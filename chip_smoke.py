@@ -13,6 +13,7 @@ locally refined backgrounds.
     python3 chip_smoke.py --adaptive-only  # phases 12 and 13
     python3 chip_smoke.py --options-only   # phase 14
     python3 chip_smoke.py --table-only     # phase 15
+    python3 chip_smoke.py --sharded-only   # phase 16
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -101,10 +102,10 @@ Phases (any failure exits non-zero before the last line is printed):
     iteration and the L2/H1 errors and rates (the last L2 rate of the study
     above 1.6);
 11. the 3D elasticity interface problem (``ElasticityInterfaceProblem``,
-    the results table's configuration) at cycles 0 to 2
-    (``--elasticity-cycle``; cycle 2 is 107,811 + 14,739 + 14,739 dofs;
-    the scale row at cycle 3, 823,875 + 107,811 + 107,811, is cut from the
-    default run for its time): ``solve()``, then
+    the results table's configuration) at cycles 0 and 1
+    (``--elasticity-cycle``; cycle 2, 107,811 + 14,739 + 14,739 dofs, and
+    the scale row at cycle 3, 823,875 + 107,811 + 107,811, are cut from the
+    default run for their time): ``solve()``, then
     ``solve_refined(tol_abs=1e-10)`` on every row, whose true float64
     residual must reach 1e-10, with the routes of both GMG hierarchies'
     levels.  Neither phase 10 nor 11 launches a kernel: their counts must
@@ -137,8 +138,8 @@ Phases (any failure exits non-zero before the last line is printed):
     refinement 11 (K1; the compact block's rows and MB); the element-form
     flower at (10, 11) + 1 with both degrees in float32 and with the bf16
     V-cycle at degree 1 (within 2 outer iterations of its float32 count);
-    elliptic at cycle 5 with a Q2 background (4,198,401 + 66,049 dofs) and
-    with a Q2 immersed space (1,050,625 + 263,169), and elasticity with a
+    elliptic at cycle 4 with a Q2 background (1,050,625 + 16,641 dofs) and
+    with a Q2 immersed space (263,169 + 66,049), and elasticity with a
     Q2 background at cycle 1 (107,811 + 2,187 + 2,187), each ``solve()``
     then ``solve_refined(tol_abs=1e-10)`` to a true float64 residual of at
     most 1e-10, K6's launches printed on the elliptic rows;
@@ -157,6 +158,29 @@ Phases (any failure exits non-zero before the last line is printed):
     rows' launch counts (set to 0 before each row, read after it) must show
     K1 and K2 on laplace@7 and both forms of K6 on elliptic@0;
     ``--table-only`` runs just it;
+16. the row-block sharded flagship (``build_sharded_solver``, run after
+    phase 3), held to a serial solve of phase 3's configuration
+    (``parallel.dryrun.serial_reference``; a second serial solve with
+    deterministic algorithms off prints the serial path's own spread):
+    ``parallel.mesh.launch`` runs the sharded solve on one rank over NCCL
+    and on two ranks sharing the card (gloo, halos staged through the
+    host), and ``parallel.dryrun.compare_to_serial`` holds each within
+    ``parallel.dryrun.SERIAL_LIMITS``: the outer count (equal on one rank,
+    within 1 on two), u (relative max-norm 1e-5 on one rank, 5e-4 on two:
+    float32 solves stopped by this rule differ by about 1e-4 with no
+    fault), and one application of the fine level's operator and of the
+    V-cycle to a seeded vector (1e-6 and 1e-6 on one rank, 1e-6 and 1e-5
+    on two: no inner stop, so a halo or reduction fault shows); every
+    rank's launch counts must show K6 and K2 ``op``/``pre``/``post`` (K1
+    where its replicated tail has a compact level), and on every rank each
+    kernel is compared with its plain version at the rank's shapes (the
+    extended blocks with their clipped patch boxes, the tail's lattices);
+    one JSON line a run (world size, backend, transport, outer iterations,
+    the drifts and their limits, setup/build/solve seconds, collectives and
+    halo bytes a solve, peak GB and launches per rank, the card); then
+    ``dryrun_multichip(2)`` (two gloo ranks on the CPU with one card);
+    NCCL with one rank a card runs only where two or more cards are seen;
+    ``--sharded-only`` runs just it;
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
    versions) in float32 with the same Lanczos start vectors, for the
    flagship, the three modes and the flagship with the bf16 V-cycle; the
@@ -171,7 +195,8 @@ Phases (any failure exits non-zero before the last line is printed):
    2, 1).
 
 Launch counts are set to 0 just before each path (phases 3, 5, 6, 7, 8, 9,
-10, 11, 12, 13, 14 and the rows of 15) and read just after it. The three
+10, 11, 12, 13, 14, the rows of 15 and each rank of 16) and read just
+after it. The three
 last lines are the card's name and power limit, a JSON object with one
 entry per kernel, and ``{"ok":
 true, "device": {...}}``.
@@ -255,8 +280,11 @@ NITSCHE_CYCLES = (0, 1, 2, 3, 4)
 NITSCHE_SCALE_CYCLE = 7
 # phase 11: elasticity 3D in the results table's configuration
 # (scripts/make_results_table.py:222-246), cycles 0 to this one; cycle 3
-# (1,039,497 dofs) ran past the script's time limit (PERF.md §4)
-ELASTICITY_CYCLE = 2
+# (1,039,497 dofs) ran past the script's time limit (PERF.md §4), and
+# with cycle 2 and phase 14's elliptic rows at cycle 5 the whole script took
+# 1,340.8 s of its 1,200 (PERF.md §6, PR 13); ``--elasticity-cycle 2`` runs
+# it
+ELASTICITY_CYCLE = 1
 # phase 12: immersed_laplace with one local refinement step near Γ, read
 # from the shipped parameter files; the reference's own scale (embedding
 # 10, embedded 11: parameters/flower/flower_f1_g1.prm:2-5), the flower also
@@ -285,13 +313,14 @@ UNIFORM_STOKES_OUTER = {2: ("9:10", 38), 3: ("5:2", 12)}
 # the explicit form at EXPLICIT_REFINEMENT; on the element-form flower
 # (ADAPTIVE_SCALE_FILE at ADAPTIVE_PAIR) both degrees and the bf16 V-cycle
 # at degree 1; elliptic with a Q2 background and with a Q2 immersed space at
-# OPTIONS_ELLIPTIC_CYCLE (4,198,401 + 66,049 and 1,050,625 + 263,169 dofs);
+# OPTIONS_ELLIPTIC_CYCLE (1,050,625 + 16,641 and 263,169 + 66,049 dofs;
+# cycle 5 took about 250 s of the script's time, see ELASTICITY_CYCLE);
 # elasticity with a Q2 background at OPTIONS_ELASTICITY_CYCLE (107,811 +
 # 2,187 + 2,187 dofs, the dofs of the Q1 table's cycle 2); their
 # card-against-CPU checks at OPTIONS_CROSSCHECK_REFINEMENT and cycle 0
 OPTION_DEGREES = (0, 2)
 OPTION_SUFFIX = {0: "_dg0", 1: "", 2: "_q2"}
-OPTIONS_ELLIPTIC_CYCLE = 5
+OPTIONS_ELLIPTIC_CYCLE = 4
 OPTIONS_ELASTICITY_CYCLE = 1
 OPTIONS_CROSSCHECK_REFINEMENT = 7
 # phase 15: the host setup routines at elliptic cycle 6's coupling points
@@ -307,6 +336,12 @@ TABLE_SMOKE_LAUNCHES = {
     "laplace:7": ("masked_laplace_2d", "fused_augmented_2d:op",
                   "fused_augmented_2d:pre", "fused_augmented_2d:post"),
     "elliptic:0": ("laplace_stencil_2d", "laplace_stencil_2d:f64")}
+# phase 16: the row-block sharded flagship at the refinement, on one rank
+# over NCCL and on SHARDED_RANKS ranks sharing the one card (gloo, halos
+# staged through the host); how far each may lie from the serial solve is
+# parallel.dryrun.SERIAL_LIMITS
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT_S = 600
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 and float64 rates
 # outside the tensor cores
@@ -2362,6 +2397,136 @@ def phase_host_and_table(device, path_launches):
           flush=True)
 
 
+def sharded_kernel_checks(prob, run, out):
+    """On a rank of phase 16, after its solve: every kernel of its path
+    against its plain version at this rank's shapes: K1 and K6 at the
+    fine extended block of the Dirichlet lift, K2 in all four modes with
+    each distributed level's block stencils (the halo of ``op`` and of the
+    sweeps, the patch box clipped to the block, no patch where none of it
+    is left) and that level's Lanczos bound, and the replicated tail's
+    levels (K2 and K1 on whole coarse lattices).  Adds ``errs`` (the
+    comparisons), ``kernel_checks`` and ``block_shapes`` to ``out``."""
+    from fictitious_domain_al_preconditioners_torch.parallel.mesh import (
+        HALO, ext_rows)
+
+    dev, errs, shapes = prob.device, [], []
+    fine = run.blocks[0]
+    a, b = ext_rows(run.mesh, fine, HALO["laplace"])
+    tag = f"rank {run.mesh.rank} fine block rows {a}:{b}"
+    h = tuple(1.0 / (n - 1) for n in (fine.ny, fine.nx))
+    compare_stencils(h, (b - a, fine.nx), dev, seed=1600, tag=tag, errs=errs)
+    for i, lv in enumerate(prob.sharded_levels):
+        for depth, st in lv["stencils"].items():
+            shapes.append(dict(level=i, halo=depth, shape=list(st.shape),
+                               box=list(st.box)))
+            compare_fused(st, dev, lv["lam_max"], seed=1610 + i,
+                          tag=f"rank {run.mesh.rank} level {i} halo {depth} "
+                          f"{st.shape} box {st.box}", errs=errs)
+    first = len(prob.sharded_levels)
+    for j, (level, st) in enumerate(zip(run.gmg.tail.levels,
+                                        prob.level_stencils)):
+        lat = tuple(reversed(level.space.n_points_1d))
+        tag = f"rank {run.mesh.rank} tail level {first + j} {lat}"
+        compare_stencils(tuple(1.0 / (n - 1) for n in lat), lat, dev,
+                         seed=1630 + j, tag=tag, errs=errs)
+        if st is not None:
+            compare_fused(st, dev, level.lam_max, seed=1640 + j, tag=tag,
+                          errs=errs)
+    out.update(errs=errs, kernel_checks=len(errs), block_shapes=shapes)
+
+
+def _sharded_line(res, ranks, backend, wall, serial, cmp, smi):
+    """Phase 16's JSON line of one sharded run (``res``: every rank's
+    result; ``cmp``: ``compare_to_serial``'s)."""
+    r0 = res[0]
+    keys = ("rows", "setup_seconds", "build_seconds", "solve_seconds",
+            "host_syncs", "counts", "peak_gb", "launches", "kernel_checks",
+            "distributed_levels", "levels", "compact_levels")
+    return dict(
+        path=f"sharded_ws{ranks}", world_size=ranks, backend=backend,
+        transport=r0["transport"], refinement=r0["refinement"],
+        dofs_background=r0["dofs_background"],
+        dofs_immersed=r0["dofs_immersed"], dtype=r0["dtype"],
+        outer_iterations=r0["iterations"],
+        serial_outer_iterations=serial["outer_iterations"],
+        converged=r0["converged"], residual=r0["residual"],
+        drifts=cmp["drifts"], limits=cmp["limits"],
+        serial_spread=serial["spread"],
+        halo_bytes_a_solve=sum(r["counts"]["halo_bytes"] for r in res),
+        wall_seconds=wall, card=smi,
+        ranks=[{k: r[k] for k in keys} for r in res])
+
+
+def phase_sharded(refinement, device, smi):
+    """Phase 16: the row-block sharded flagship (``build_sharded_solver``
+    through ``parallel.dryrun.sharded_flagship_rank``) at the refinement,
+    on one rank over NCCL and on ``SHARDED_RANKS`` ranks sharing the card
+    (gloo, host-staged halos), each held to the serial solve
+    (``parallel.dryrun.serial_reference``; both with deterministic
+    algorithms) by ``parallel.dryrun.compare_to_serial``: outer count, u
+    and the seeded probe through the fine operator and the V-cycle.  Every
+    rank's launch counts (set to 0 before its setup, read after its solve)
+    must show K6, K2 ``op``/``pre``/``post`` and K1 where its tail has a
+    compact level, and every kernel is compared with its plain version at
+    the rank's shapes (:func:`sharded_kernel_checks`); then
+    ``dryrun_multichip(2)``; then NCCL with one rank a card when two or
+    more are visible.  Returns ``(errs, path_launches)``."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops.kernels import \
+        launch_key
+    from fictitious_domain_al_preconditioners_torch.parallel.dryrun import (
+        compare_to_serial, dryrun_multichip, serial_reference,
+        sharded_flagship_rank)
+    from fictitious_domain_al_preconditioners_torch.parallel.mesh import \
+        launch
+
+    t_phase = time.perf_counter()
+    cfg = flagship_config(refinement)
+    serial = serial_reference(cfg, device, spread=True)
+    print("phase 16: serial " + json.dumps(
+        {k: v for k, v in serial.items() if k not in ("u", "probe")}),
+        flush=True)
+    check(serial["converged"], "phase 16: the serial solve did not converge")
+    torch.cuda.empty_cache()
+    errs, path_launches = [], {}
+    cards = torch.cuda.device_count()
+    runs = [(1, "nccl", f"cuda:{device.index}"),
+            (SHARDED_RANKS, "gloo", f"cuda:{device.index}")]
+    if cards >= 2:
+        runs.append((cards, "nccl", "cuda"))
+    for ranks, backend, where in runs:
+        t0 = time.perf_counter()
+        res = launch(sharded_flagship_rank, ranks, backend=backend,
+                     device=where, args=(cfg, None, False,
+                                         sharded_kernel_checks),
+                     timeout=SHARDED_TIMEOUT_S)
+        cmp = compare_to_serial(res, serial)
+        line = _sharded_line(res, ranks, backend, time.perf_counter() - t0,
+                             serial, cmp, smi)
+        print("phase 16: " + json.dumps(line), flush=True)
+        tag = f"phase 16 {line['path']} ({backend}, {line['transport']})"
+        check(not cmp["failures"], f"{tag}: " + "; ".join(cmp["failures"]))
+        for r in res:
+            keys = ["laplace_stencil_2d"] + [launch_key(m) for m in
+                                             ("op", "pre", "post")]
+            if r["compact_levels"]:
+                keys.append("masked_laplace_2d")
+            require_launches(r, keys, f"{tag} rank {r['rank']}")
+            errs += r["errs"]
+            path_launches[f"{line['path']}_{backend}_rank{r['rank']}"] = \
+                r["launches"]
+    if cards < 2:
+        print(f"phase 16: NCCL with one rank a card skipped: {cards} card "
+              "visible", flush=True)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2)
+    print("phase 16: dryrun_multichip(2) " + json.dumps(dict(
+        seconds=time.perf_counter() - t0, ranks=dry)), flush=True)
+    print(f"phase 16: passed in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return errs, path_launches
+
+
 def k1_resources(shape):
     """Resources of K1's two forms, keyed as in the kernels line: of the
     instantiation a launch on ``shape`` takes, with every instantiation's
@@ -2417,10 +2582,10 @@ def k2_resources(shape, degree=4):
 def kernel_report(path_launches, errs, times, resources):
     """The kernels' JSON line: one entry per kernel (K1's bf16 form and K6's
     float64 form their own), K2's modes inside.  ``launches`` sums the
-    paths of phases 3, 5 (with its rational table rows), 6-14 and the
-    table rows of phase 15 (``table_<key>``; ``launches_by_path`` lists
-    them; 0 on the Stokes, nitsche, elasticity and locally refined
-    paths)."""
+    paths of phases 3, 5 (with its rational table rows), 6-14, the table
+    rows of phase 15 (``table_<key>``) and the ranks of phase 16
+    (``sharded_ws<n>_<backend>_rank<r>``; ``launches_by_path`` lists them;
+    0 on the Stokes, nitsche, elasticity and locally refined paths)."""
     from fictitious_domain_al_preconditioners_torch.ops.kernels import (
         MODES, launch_key)
 
@@ -2519,6 +2684,11 @@ def main(argv=None) -> int:
                          "the bf16 element-form V-cycle, Q2 elliptic and "
                          "elasticity) and its cross-checks (no kernels "
                          "line)")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run only phase 16, the row-block sharded flagship "
+                         "(one rank over NCCL, two ranks on the card, "
+                         "dryrun_multichip(2)), held to a serial solve (no "
+                         "kernels line)")
     args = ap.parse_args(argv)
     explicit_ref = min(EXPLICIT_REFINEMENT, args.refinement)
     nitsche_cycles = tuple(sorted(set(NITSCHE_CYCLES) | {
@@ -2574,6 +2744,11 @@ def main(argv=None) -> int:
                 check(rc["local_bytes"] == 0, f"{name} chunk {chunk} spills "
                       f"{rc['local_bytes']} bytes a thread")
 
+        if args.sharded_only:
+            phase_sharded(args.refinement, device, smi)
+            print(f"chip_smoke: phase 16 passed in "
+                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            return 0
         if args.stokes_only:
             for pair, sd in ((args.stokes_refinement, 2),
                              (args.stokes3d_refinement, 3)):
@@ -2634,6 +2809,10 @@ def main(argv=None) -> int:
         time_window_levels(level_shapes, prob.level_stencils, device, times)
         del prob
         torch.cuda.empty_cache()
+        sharded_errs, sharded_launches = phase_sharded(args.refinement,
+                                                       device, smi)
+        errs += sharded_errs
+        path_launches.update(sharded_launches)
 
         for solver in MODE_SOLVERS:
             ref = (min(ELMAN_REFINEMENT, args.refinement)

@@ -53,6 +53,11 @@ every level of the bf16 V-cycle; K6 (``laplace_stencil_2d``, through
 Dirichlet data.  On the CPU the same wrappers run their plain PyTorch
 versions.
 
+:meth:`ImmersedLaplaceProblem.build_sharded_solver` runs the flagship solve
+over several ranks: the lattice cut into row blocks (``parallel.mesh``), the
+kernels on each rank's block, the coarse levels and the multiplier
+replicated.
+
 Those are the lattice path's: a uniform Q1 background with Dirichlet
 conditions on all four sides.  Every other background takes the element
 form (immersed_laplace.py:283-295, 1111-1138 of the reference), and no
@@ -92,7 +97,8 @@ from ..ops.operators import constrain, dirichlet_rhs
 from ..ops.host_ref import HostAugmentedSystem
 from ..parallel.lattice import LatticeOps
 from ..precond.al import al_preconditioner
-from ..precond.gmg import FusedSmoother, build_gmg, build_gmg_flat
+from ..precond.gmg import (FusedSmoother, build_gmg, build_gmg_flat,
+                           build_gmg_sharded, level_spaces)
 from ..precond.rational import rational_preconditioner
 from ..precond.weights import (inv_diag, inv_diag_squared, inv_exact,
                                inv_squared_exact)
@@ -389,13 +395,7 @@ class ImmersedLaplaceProblem:
         explicit = w_diag is not None
         pw = None if bf16 or explicit else coupling.patch_w9(sp, gamma)
         if pw is not None:
-            box, w9 = pw
-            r0, c0, pr, pc = box
-            planes = torch.as_tensor(np.stack([w9[a, b] for a, b in _PLANES]),
-                                     dtype=dt, device=dev)
-            st = AugmentedStencil2D(lat.h, lat.shape, planes, box)
-            al_diag = np.zeros((ny, nx))
-            al_diag[r0:r0 + pr, c0:c0 + pc] = w9[1, 1]
+            st, al_diag = self._patch_stencil(sp, pw)
 
             def op(x2):
                 return fused_augmented_2d("op", st, x2)
@@ -408,7 +408,7 @@ class ImmersedLaplaceProblem:
                     post=lambda b, x0: fused_augmented_2d("post", st, b, x0,
                                                           **kw))
 
-            return (op, k_diag + al_diag.reshape(-1), smoother_builder), st
+            return (op, k_diag + al_diag, smoother_builder), st
 
         al = (coupling.patch_al_lattice(sp, gamma, free=free, dtype=dtype)
               if bf16 and not explicit else None)
@@ -431,6 +431,19 @@ class ImmersedLaplaceProblem:
             bytes=al.rows ** 2 * (dtype or dt).itemsize,
             seconds=time.perf_counter() - t0))
         return self._masked_aug_level(lat, free, al, k_diag + al_diag), None
+
+    def _patch_stencil(self, sp, pw):
+        """K2's stencil of a lattice level from its Γ-band patch ``pw`` =
+        ``(box, w9)`` (:meth:`..ops.coupling.Coupling.patch_w9`), and the
+        patch's assembled diagonal (flat)."""
+        lat = LatticeOps.for_space(sp)
+        (r0, c0, pr, pc), w9 = pw
+        planes = torch.as_tensor(np.stack([w9[a, b] for a, b in _PLANES]),
+                                 dtype=self.dtype, device=self.device)
+        st = AugmentedStencil2D(lat.h, lat.shape, planes, pw[0])
+        al_diag = np.zeros(lat.shape)
+        al_diag[r0:r0 + pr, c0:c0 + pc] = w9[1, 1]
+        return st, al_diag.reshape(-1)
 
     def _masked_aug_level(self, lat, free, al, diag):
         """``(op, diag, None)`` of a level whose operator is K1 plus the
@@ -661,6 +674,181 @@ class ImmersedLaplaceProblem:
             return x
 
         return Aug, aug_inv, gamma, inv_w
+
+    def _check_shardable(self):
+        cfg = self.cfg
+        refused = [why for why, on in (
+            ("the explicit AL form (its operator and every GMG level carry "
+             "the compact block γ·CᵀW⁻¹C, which no row block splits)",
+             not cfg.use_operator_form),
+            ("the exact W = M (its inverse is a solve on the multiplier)",
+             not cfg.use_diagonal_inverse),
+            ("the bf16 V-cycle (K1's bf16 form and the unfused patch)",
+             cfg.use_bf16_multigrid),
+            (f"the element form ({', '.join(self._element_form_triggers())})",
+             self.element_form)) if on]
+        if refused:
+            raise NotImplementedError(
+                "build_sharded_solver: the row-block sharded solve is the "
+                "lattice path in operator form with W = diag(M) and a "
+                "float32 or float64 V-cycle; not in this port: "
+                + "; ".join(refused))
+
+    def build_sharded_solver(self, mesh):
+        """The flagship augmented solve over the row blocks of ``mesh``
+        (:func:`..parallel.mesh.make_mesh`, this process's rank): returns
+        ``run(rhs_f, rhs_g, bc_values) -> (u, lam, info)`` on global
+        inputs, as the JAX package's method does, to be called on every
+        rank at once.
+
+        The same solve as ``solver='augmented'`` (outer FGMRES, the AL
+        preconditioner, inner CG, the GMG V-cycle) with the background cut
+        into row blocks (``parallel.mesh.plan_levels``) and the immersed
+        side replicated: K2 (``op``, ``pre``/``post``) runs on each rank's
+        extended block of every distributed level, with its patch box
+        clipped to the block (``AugmentedStencil2D.row_block``); the coarse
+        levels whose blocks would be thinner than the sweeps' halo, and
+        every level with a compact AL block (K1), form the replicated tail
+        (:class:`..precond.gmg.ShardedGMG`); K6 lifts the Dirichlet data on
+        the blocks; C sums each rank's share over the ranks, Cᵀ scatters
+        into each rank's rows; the Krylov inner products all-reduce the
+        background part and add the multiplier part once.  ``u`` comes back
+        whole on every rank, ``lam`` is replicated, and ``info`` is checked
+        equal on every rank.  The serial hierarchy is not built.  The
+        lattice path in operator form with W = diag(M) only, float32 or
+        float64 V-cycle (else ``NotImplementedError``)."""
+        from ..parallel.mesh import (HALO, block_laplace, ext_rows,
+                                     inner_product, on_block, plan_levels,
+                                     replicated, sweep_halo)
+
+        self._check_shardable()
+        if mesh.device != self.device:
+            raise ValueError(f"build_sharded_solver: the mesh's device "
+                             f"{mesh.device} is not the problem's "
+                             f"{self.device}")
+        cfg = self.cfg
+        degree = cfg.gmg_smoother_degree
+        gamma, inv_w, _, coupling_for, fine_coupling = self._al_form()
+        spaces = level_spaces(self.space)
+        # by level size: build_gmg_sharded makes its own level spaces
+        couplings = {sp.n_dofs: fine_coupling if i == 0 else coupling_for(sp)
+                     for i, sp in enumerate(spaces)}
+        patches = []                 # the levels before the first compact one
+        for sp in spaces:
+            pw = couplings[sp.n_dofs].patch_w9(sp, gamma)
+            if pw is None:
+                break
+            patches.append(pw)
+        if not patches:
+            raise NotImplementedError(
+                "build_sharded_solver: the fine level's Γ-band touches ∂Ω "
+                "(a compact AL block, which no row block splits)")
+        lat = LatticeOps.for_space(self.space)
+        nx = lat.shape[1]
+        depth = sweep_halo(degree)
+        blocks = plan_levels(*lat.shape, mesh.size, n_levels=len(spaces),
+                             depth=depth, max_distributed=len(patches))
+        self.sharded_levels = []     # per distributed level, fine first
+        self.level_stencils = []     # per tail level
+
+        def k2(mode, st, **kw):
+            return lambda *ext: fused_augmented_2d(mode, st, *ext, **kw)
+
+        def block_factory(i, sp, bl):
+            st, al_diag = self._patch_stencil(sp, patches[i])
+            sts = {d: st.row_block(*ext_rows(mesh, bl, d))
+                   for d in (HALO["op"], depth)}
+            self.sharded_levels.append(dict(rows=bl.rows(mesh.rank),
+                                            stencils=sts))
+
+            def op(x2):
+                return on_block(mesh, bl, HALO["op"],
+                                k2("op", sts[HALO["op"]]), x2)
+
+            def smoother_builder(lam, degree, eig_ratio):
+                if degree + 1 > depth:
+                    raise ValueError(f"a degree-{degree} sweep needs a halo "
+                                     f"of {degree + 1} rows, not {depth}")
+                kw = dict(lam_max=lam, degree=degree, eig_ratio=eig_ratio)
+                self.sharded_levels[i]["lam_max"] = lam
+                return FusedSmoother(
+                    lambda b: on_block(mesh, bl, depth,
+                                       k2("smooth", sts[depth], **kw), b),
+                    pre=lambda b: on_block(mesh, bl, depth,
+                                           k2("pre", sts[depth], **kw), b),
+                    post=lambda b, x0: on_block(
+                        mesh, bl, depth, k2("post", sts[depth], **kw), b,
+                        x0))
+
+            return (op, LatticeOps.for_space(sp).laplace_diag() + al_diag,
+                    smoother_builder)
+
+        def op_factory(sp):
+            level, st = self._level_operator(sp, couplings[sp.n_dofs], gamma)
+            self.level_stencils.append(st)
+            return level
+
+        self.compact_blocks = []
+        gmg = build_gmg_sharded(self.space, block_factory, op_factory,
+                                mesh=mesh, blocks=blocks, free_mask=self.free,
+                                smoother_degree=degree,
+                                lanczos_start=self.lanczos_start,
+                                dtype=self.dtype, stats=self.stats)
+        lo, hi = blocks[0].rows(mesh.rank)
+        rows, n_own = hi - lo, (hi - lo) * nx
+        own = slice(lo * nx, hi * nx)
+        aug_blk = gmg.levels[0].op
+        table = self.C.row_block(lo, hi, nx)
+        n_imm = self.imm_space.n_dofs
+        C_lin = LinOp(lambda u: mesh.all_reduce(table.mv(u)), (n_imm, n_own),
+                      table.rmv, name="C")
+        Ct_lin = C_lin.T
+
+        def aug_mv(x):
+            return aug_blk(x.reshape(rows, nx)).reshape(-1)
+
+        def aug_inv(v):
+            x2, _ = cg(aug_blk, v.reshape(rows, nx), M=gmg.apply,
+                       tol=cfg.inner_tolerance, max_steps=cfg.inner_max_steps,
+                       stats=self.stats, inner=inner_product(mesh))
+            return x2.reshape(-1)
+
+        def k_mv(x):
+            return block_laplace(mesh, blocks[0], lat.h,
+                                 x.reshape(rows, nx)).reshape(-1)
+
+        layout = BlockLayout((n_own, n_imm))
+        AA = block_operator(layout, layout, [
+            [LinOp(aug_mv, (n_own, n_own), aug_mv, name="Aug"), Ct_lin],
+            [C_lin, None]])
+        prec = al_preconditioner(layout, aug_inv, Ct_lin, inv_w, gamma)
+        # the serial solve's restart, from the whole layout
+        restart = min(cfg.fgmres_restart,
+                      max(12, int(6e9 / (8 * max(self.layout.total, 1)))))
+        inner = inner_product(mesh, n_own)
+
+        def run(rhs_f, rhs_g, bc_values):
+            dev = self.device
+            free = self.free[own]
+            bc = bc_values[own].to(dev)
+            rhs_g = replicated(mesh, rhs_g)
+            b0 = dirichlet_rhs(k_mv, rhs_f[own].to(dev), free, bc)
+            b0 = b0 + torch.where(free, gamma * Ct_lin(inv_w(rhs_g)), 0.0)
+            x, info = fgmres(AA, layout.concat((b0, rhs_g)), prec,
+                             tol=cfg.schur.tolerance,
+                             reduction=cfg.schur.reduction,
+                             max_steps=cfg.schur.max_steps, restart=restart,
+                             stats=self.stats, inner=inner)
+            u, lam = layout.split(x)
+            mesh.same_on_every_rank([info.iterations, info.residual,
+                                     info.res0, info.converged],
+                                    "the outer solve's info")
+            u = mesh.all_gather_rows(torch.where(free, u, bc).reshape(rows, nx),
+                                     blocks[0].counts)
+            return u.reshape(-1), lam, info
+
+        run.gmg, run.blocks, run.mesh = gmg, blocks, mesh
+        return run
 
     def _check_refinable(self):
         cfg = self.cfg

@@ -79,6 +79,25 @@ class Coupling:
                         h["imm_psi"], h["jxw"], self.shape, device=device,
                         dtype=dtype, points=self.points)
 
+    def row_block(self, lo: int, hi: int, nx: int) -> "Coupling":
+        """This rank's part of a lattice background's table for the row
+        block ``[lo, hi)`` of an ``nx``-column lattice: every quadrature
+        point, its dofs shifted to the block's flat numbering, and a zero
+        basis value on every dof outside the block (that entry adds
+        nothing).  Its ``interp_bg`` and ``mv`` are the block's share of
+        ``u`` at the quadrature points and of ``C u`` (the ranks' shares
+        sum to them: an all-reduce), its ``rmv`` the block's rows of
+        ``Cᵀ λ``; shape ``(n_imm, (hi - lo) * nx)``."""
+        h = self.host
+        first, last = lo * nx, hi * nx
+        dofs = h["bg_dofs"].astype(np.int64)
+        own = (dofs >= first) & (dofs < last)
+        return Coupling(np.where(own, dofs - first, 0),
+                        np.where(own, h["bg_phi"], 0.0), h["imm_dofs"],
+                        h["imm_psi"], h["jxw"], (self.shape[0], last - first),
+                        device=self.device, dtype=self.dtype,
+                        points=self.points)
+
     def astype(self, dtype) -> "Coupling":
         """This coupling in ``dtype`` on its device (itself if it is
         already)."""

@@ -539,6 +539,31 @@ class AugmentedStencil2D:
     def patched(self) -> bool:
         return self.planes is not None
 
+    def row_block(self, a: int, b: int) -> "AugmentedStencil2D":
+        """This operator on the block of lattice rows ``[a, b)`` (all
+        columns), as a kernel sees it: the block's first and last rows take
+        the mask of boundary rows, and the patch box is clipped to the
+        block's interior rows ``[a+1, b-1)`` and shifted into block
+        coordinates (no patch when nothing of it is left).  Clipping changes
+        nothing but those two rows: a boundary row's output is its input and
+        its input enters no other row, whatever the patch weighs it with.
+        The rows of the block that lie ``k`` rows or more from a block edge
+        that is not a lattice edge hold the lattice operator's values after
+        ``k - 1`` applications (``parallel.mesh.HALO``)."""
+        ny, nx = self.shape
+        if not 0 <= a < b <= ny:
+            raise ValueError(f"row block [{a}, {b}) outside {ny} rows")
+        shape = (b - a, nx)
+        if self.patched:
+            r0, c0, pr, pc = self.box
+            lo, hi = max(r0, a + 1), min(r0 + pr, b - 1)
+            if lo < hi:
+                return AugmentedStencil2D(
+                    self.h, shape, self.planes[:, lo - r0:hi - r0],
+                    (lo - a, c0, hi - lo, pc))
+        return AugmentedStencil2D(self.h, shape, device=self.device,
+                                  dtype=self.dtype)
+
     @functools.cached_property
     def w9(self) -> torch.Tensor:
         """The 9 patch weight planes (3, 3, pr+2, pc+2) on the box grown by

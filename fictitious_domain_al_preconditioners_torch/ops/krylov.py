@@ -9,6 +9,13 @@ step of every solver).  Callers that want those syncs counted pass a
 ``stats`` dict, whose ``"host_syncs"`` entry is incremented once per
 device-to-host read.
 
+``cg``, ``fgmres``/``gmres`` and ``lanczos_max_eig`` take an optional
+``inner(a, b)``: the inner product of two flat vectors, or the products of
+the rows of a stack ``a`` (k, n) with ``b``.  By default it is the local
+``torch.dot``/``torch.mv``; the row-block sharded solve
+(``parallel.mesh.inner_product``) passes one that all-reduces the sharded
+part of a vector over the ranks and adds its replicated part once.
+
 Control semantics (as in the reference):
   - ``tol``: absolute residual tolerance
   - ``reduction``: stop at ``max(tol, reduction * ||r0||)``
@@ -42,8 +49,12 @@ def _dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def _norm(a):
-    return torch.sqrt(_dot(a, a))
+def _products(inner):
+    """``(dot, mv)``: the inner product of two tensors of one shape (any
+    shape, flattened) and the products of a stack's rows with a vector."""
+    if inner is None:
+        return _dot, torch.mv
+    return (lambda a, b: inner(a.reshape(-1), b.reshape(-1))), inner
 
 
 def _host(t, stats):
@@ -63,7 +74,7 @@ def cg(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
        tol: float = 1e-10, reduction: float | None = None,
        max_steps: int = 100, fixed_iters: bool = False,
        track_tridiag: bool = False, norm_weight=None,
-       stats: dict | None = None):
+       stats: dict | None = None, inner=None):
     """Preconditioned conjugate gradients from ``x0`` (default 0).  Returns
     ``(x, SolveInfo)``; with ``track_tridiag`` also ``(alphas, betas)``,
     NumPy arrays of length ``max_steps`` holding CG's Lanczos coefficients
@@ -72,11 +83,14 @@ def cg(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
     changes only the convergence-check norm to ``||norm_weight * r||``: a
     caller iterating in rescaled variables keeps the original system's
     stopping rule (the Stokes diagonally scaled inner solve).  Works on
-    tensors of any shape (lattice or flat)."""
+    tensors of any shape (lattice or flat); ``inner`` as in the module
+    docstring."""
     M = M or (lambda v: v)
+    dot, _ = _products(inner)
 
     def cnorm(v):
-        return _norm(v if norm_weight is None else norm_weight * v)
+        w = v if norm_weight is None else norm_weight * v
+        return torch.sqrt(dot(w, w))
 
     if x0 is None:
         x = torch.zeros_like(b)
@@ -88,12 +102,12 @@ def cg(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
     thr = _threshold(tol, reduction, res0)
     z = M(r)
     p = z
-    rz = _dot(r, z)
+    rz = dot(r, z)
     res, it = res0, 0
     coefs = []
     while res > thr and it < max_steps:
         Ap = A(p)
-        alpha = rz / _dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         res = _host(cnorm(r), stats)
@@ -103,7 +117,7 @@ def cg(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
         if (res <= thr or it >= max_steps) and not track_tridiag:
             break              # the next direction would go unused
         z = M(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         if track_tridiag:
             coefs.append(beta)
@@ -242,17 +256,24 @@ def _back_substitute(R, g, j):
 
 
 def _gmres_core(A, b, M, *, tol, reduction, max_steps, restart, stats,
-                flexible):
+                flexible, inner=None):
     """Restarted right-preconditioned GMRES from x0 = 0 with classical
     Gram-Schmidt applied twice (CGS2) against the basis built so far.  The
     Hessenberg least-squares problem (Givens rotations, back substitution)
     runs on the host in float64.  ``flexible`` keeps the preconditioned
-    directions Z (FGMRES); otherwise the update is ``M(V y)``."""
+    directions Z (FGMRES); otherwise the update is ``M(V y)``.  ``inner``
+    takes the basis products (``torch.mv(Vj, w)``) and the norms; the
+    updates ``Vjᵀh`` stay local."""
     n = b.shape[0]
     m = restart
+    dot, mv = _products(inner)
+
+    def norm(v):
+        return torch.sqrt(dot(v, v))
+
     tiny = torch.finfo(b.dtype).tiny
     x = torch.zeros_like(b)
-    res0 = _host(_norm(b), stats)
+    res0 = _host(norm(b), stats)
     thr = _threshold(tol, reduction, res0)
     V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
     Z = (torch.empty((m, n), dtype=b.dtype, device=b.device) if flexible
@@ -260,7 +281,7 @@ def _gmres_core(A, b, M, *, tol, reduction, max_steps, restart, stats,
     res, tot_it = res0, 0
     while res > thr and tot_it < max_steps:
         r = b - A(x) if tot_it else b
-        beta = res0 if not tot_it else _host(_norm(r), stats)
+        beta = res0 if not tot_it else _host(norm(r), stats)
         V[0] = r / max(beta, tiny)
         R = np.zeros((m + 1, m))
         cs, sn = np.zeros(m), np.zeros(m)
@@ -271,11 +292,11 @@ def _gmres_core(A, b, M, *, tol, reduction, max_steps, restart, stats,
             z = M(V[j])
             w = A(z)
             Vj = V[:j + 1]
-            h1 = torch.mv(Vj, w)
+            h1 = mv(Vj, w)
             w = w - torch.mv(Vj.T, h1)
-            h2 = torch.mv(Vj, w)
+            h2 = mv(Vj, w)
             w = w - torch.mv(Vj.T, h2)
-            hnorm = _norm(w)
+            hnorm = norm(w)
             hv = _host(torch.cat([h1 + h2, hnorm[None]]), stats)
             h, hnew = hv[:-1], hv[-1]
             V[j + 1] = w / max(hnew, tiny)
@@ -307,45 +328,53 @@ def _gmres_core(A, b, M, *, tol, reduction, max_steps, restart, stats,
 
 def fgmres(A: Callable, b, M: Callable, *, tol: float = 1e-10,
            reduction: float | None = None, max_steps: int = 1000,
-           restart: int = 50, stats: dict | None = None):
+           restart: int = 50, stats: dict | None = None, inner=None):
     """Flexible GMRES, right-preconditioned and restarted (deal.II
     SolverFGMRES), from x0 = 0: ``M`` may change between steps (an inner
     iterative solve).  Returns ``(x, SolveInfo)``."""
     return _gmres_core(A, b, M, tol=tol, reduction=reduction,
                        max_steps=max_steps, restart=restart, stats=stats,
-                       flexible=True)
+                       flexible=True, inner=inner)
 
 
 def gmres(A: Callable, b, M: Optional[Callable] = None, *,
           tol: float = 1e-10, reduction: float | None = None,
           max_steps: int = 1000, restart: int = 50,
-          stats: dict | None = None):
+          stats: dict | None = None, inner=None):
     """Right-preconditioned restarted GMRES (deal.II SolverGMRES), from
     x0 = 0.  Returns ``(x, SolveInfo)``."""
     return _gmres_core(A, b, M or (lambda v: v), tol=tol,
                        reduction=reduction, max_steps=max_steps,
-                       restart=restart, stats=stats, flexible=False)
+                       restart=restart, stats=stats, flexible=False,
+                       inner=inner)
 
 
 def lanczos_max_eig(A: Callable, n: int, steps: int = 8, v0=None, *,
                     dtype=torch.float64, device="cpu",
-                    stats: dict | None = None) -> float:
+                    stats: dict | None = None, inner=None) -> float:
     """Largest-eigenvalue estimate by ``steps`` Lanczos iterations (feeds the
     Chebyshev smoother bounds).  ``v0`` is the start vector (NumPy, length
     n); by default it is ``numpy.random.default_rng(0).standard_normal(n)``,
-    so every device draws the same vector."""
+    so every device draws the same vector.  With a sharded ``inner`` the
+    vectors are this rank's blocks and ``v0`` must be given (this rank's
+    rows of the global start vector)."""
     if v0 is None:
         v0 = np.random.default_rng(0).standard_normal(n)
+    dot, _ = _products(inner)
+
+    def norm(a):
+        return torch.sqrt(dot(a, a))
+
     v = torch.as_tensor(np.array(v0), dtype=dtype, device=device)
-    v = v / _norm(v)
+    v = v / norm(v)
     v_prev = torch.zeros_like(v)
     beta = torch.zeros((), dtype=dtype, device=device)
     alphas, betas = [], []
     for _ in range(steps):
         w = A(v) - beta * v_prev
-        alpha = _dot(v, w)
+        alpha = dot(v, w)
         w = w - alpha * v
-        beta_new = _norm(w)
+        beta_new = norm(w)
         alphas.append(alpha)
         betas.append(beta_new)
         v_prev = v

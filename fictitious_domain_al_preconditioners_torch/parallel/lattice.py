@@ -21,32 +21,71 @@ import torch
 from ..core.grid import GridSpace
 from ..ops.kernels import laplace_stencil_2d
 
-__all__ = ["LatticeOps", "to_flat", "flat_to_lattice", "lattice_prolong",
-           "lattice_restrict"]
+__all__ = ["LatticeOps", "to_lattice", "to_flat", "flat_to_lattice",
+           "lattice_prolong", "lattice_restrict"]
 
 
 @dataclass(frozen=True)
 class LatticeOps:
     """Separable mass and stiffness applies for a Q1 GridSpace;
-    ``shape``/``h`` are in lattice axis order (reversed coordinates)."""
+    ``shape``/``h`` are in lattice axis order (reversed coordinates).
+    ``padded`` (optional) is a lattice shape >= ``shape``: :meth:`pad`
+    zero-pads a lattice tensor to it and the applies keep the pad region
+    zero (``parallel.mesh.padded_shape`` rounds the row count up to the
+    ranks)."""
 
     h: tuple
     shape: tuple
+    padded: tuple | None = None
 
     @classmethod
-    def for_space(cls, space: GridSpace) -> "LatticeOps":
+    def for_space(cls, space: GridSpace,
+                  padded: tuple | None = None) -> "LatticeOps":
+        """``padded`` is given in dof (coordinate) order and reversed
+        here."""
         if not (space.fe.degree == 1 and space.continuous):
             raise ValueError("lattice operators are Q1-continuous only")
         return cls(tuple(float(x) for x in reversed(space.grid.h)),
-                   tuple(int(n) for n in reversed(space.n_points_1d)))
+                   tuple(int(n) for n in reversed(space.n_points_1d)),
+                   None if padded is None
+                   else tuple(int(n) for n in reversed(padded)))
+
+    @property
+    def dof_shape(self) -> tuple:
+        return tuple(reversed(self.shape))
+
+    def _mask_pad(self, u):
+        if self.padded is None or tuple(self.padded) == tuple(self.shape):
+            return u
+        out = torch.zeros_like(u)
+        sl = tuple(slice(0, n) for n in self.shape)
+        out[sl] = u[sl]
+        return out
+
+    def pad(self, u_lat):
+        """Zero-pad a lattice tensor of ``shape`` to ``padded``."""
+        if self.padded is None:
+            return u_lat
+        out = u_lat.new_zeros(tuple(self.padded) + tuple(u_lat.shape[
+            len(self.shape):]))
+        out[tuple(slice(0, n) for n in self.shape)] = u_lat
+        return out
+
+    def unpad(self, u_lat):
+        """The ``shape`` corner of a padded lattice tensor."""
+        if self.padded is None:
+            return u_lat
+        return u_lat[tuple(slice(0, n) for n in self.shape)]
 
     def _axis_apply_n(self, u, axis, off, diag, bdiag):
+        # the boundary rows are the true lattice's, also on a padded tensor
+        n = self.shape[axis]
         v = torch.movedim(u, axis, 0)
         out = diag * v
         out[1:].add_(v[:-1], alpha=off)
         out[:-1].add_(v[1:], alpha=off)
         out[0].add_(v[0], alpha=bdiag - diag)
-        out[-1].add_(v[-1], alpha=bdiag - diag)
+        out[n - 1].add_(v[n - 1], alpha=bdiag - diag)
         return torch.movedim(out, 0, axis)
 
     def _mass_axis(self, u, axis):
@@ -62,7 +101,7 @@ class LatticeOps:
         along each axis."""
         for ax in range(len(self.shape)):
             u = self._mass_axis(u, ax)
-        return u
+        return self._mask_pad(u)
 
     def laplace(self, u):
         """Unconstrained Q1 stiffness apply on a lattice tensor.  A 2D CUDA
@@ -70,7 +109,9 @@ class LatticeOps:
         the same function, in float32 or float64); otherwise the separable
         form below runs."""
         if u.dim() == 2 and u.device.type == "cuda":
-            return laplace_stencil_2d(u, self.h)
+            # K6 takes the true lattice's edges for its boundary rows
+            return self.pad(laplace_stencil_2d(self.unpad(u).contiguous(),
+                                               self.h))
         dim = len(self.shape)
         out = None
         for d in range(dim):
@@ -79,7 +120,7 @@ class LatticeOps:
                 term = (self._stiff_axis(term, ax) if ax == d
                         else self._mass_axis(term, ax))
             out = term if out is None else out + term
-        return out
+        return self._mask_pad(out)
 
     def mass_diag(self) -> np.ndarray:
         """Assembled mass diagonal as the NumPy outer product of the 1D
@@ -119,6 +160,11 @@ def flat_to_lattice(u_flat, shape):
     """``shape`` in dof order (first coordinate fastest) -> lattice view in
     reversed axis order."""
     return u_flat.reshape(tuple(reversed(tuple(shape))))
+
+
+def to_lattice(space: GridSpace, u_flat):
+    """A flat dof vector of ``space`` as its lattice view."""
+    return flat_to_lattice(u_flat, space.n_points_1d)
 
 
 def to_flat(u_lat):

@@ -6,11 +6,14 @@ re-discretized (including the AL term, whose per-level coupling table is
 rebuilt by relocating the immersed quadrature points); smoothers are
 Chebyshev with Lanczos bounds; the coarse solve is a dense inverse built in
 float64 on the host.  The V-cycle is symmetric, so it is a valid CG
-preconditioner.  Two hierarchies share the cycle (:class:`GMG`):
+preconditioner.  The hierarchies:
 
 - :func:`build_gmg`, the lattice hierarchy of a 2D Q1 space: every level
   vector is an (ny, nx) lattice tensor and the transfers are the Q1 lattice
   interleaves;
+- :func:`build_gmg_sharded` (:class:`ShardedGMG`), the same hierarchy over
+  the row blocks of ``parallel.mesh``: the fine levels on each rank's rows,
+  the coarse ones replicated (a :class:`GMG`);
 - :func:`build_gmg_flat`, the flat hierarchy of any continuous space,
   uniform or locally refined (``gmg.py:272-459`` of the reference without
   the lattice branch): level
@@ -18,11 +21,12 @@ preconditioner.  Two hierarchies share the cycle (:class:`GMG`):
   field (the Stokes velocity), and the transfers are the FE embedding
   (:class:`Prolongation`, per component :class:`VectorProlongation`).
 
-The cycle runs in its own precision (``dtype``), which may be lower than the
-caller's: with bfloat16 the level vectors, masks, diagonals and transfers
-are bfloat16, the Lanczos bounds are estimated in float32 and the coarse
-inverse is held and applied in float32 (``gmg.py:202-265, 364-456`` of the
-reference); ``apply`` casts at its boundary.
+The first and the last share the cycle (:class:`GMG`).  The cycle runs in
+its own precision (``dtype``), which may be lower than the caller's: with
+bfloat16 the level vectors, masks, diagonals and transfers are bfloat16, the
+Lanczos bounds are estimated in float32 and the coarse inverse is held and
+applied in float32 (``gmg.py:202-265, 364-456`` of the reference);
+``apply`` casts at its boundary.
 """
 
 from __future__ import annotations
@@ -34,11 +38,14 @@ import torch
 
 from ..ops.krylov import lanczos_max_eig
 from ..parallel.lattice import lattice_prolong, lattice_restrict
+from ..parallel.mesh import inner_product, prolong_block, restrict_block
+from ..utils.carry import block_lanczos_start
 from .chebyshev import chebyshev
 
 __all__ = ["FusedSmoother", "LatticeTransfer2D", "Prolongation",
-           "VectorProlongation", "make_prolongation", "GMG", "build_gmg",
-           "build_gmg_flat", "level_spaces"]
+           "VectorProlongation", "make_prolongation", "GMG", "ShardedGMG",
+           "build_gmg", "build_gmg_sharded", "build_gmg_flat",
+           "level_spaces"]
 
 
 class Prolongation:
@@ -240,22 +247,47 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
     level ops take and return it; with bfloat16 the Lanczos runs in float32
     and the coarse inverse is float32."""
     spaces = level_spaces(fine_space)
-    device = free_mask.device
+    levels = _lattice_levels(spaces, 0, op_factory, free_mask=free_mask,
+                             smoother_degree=smoother_degree,
+                             lanczos_start=lanczos_start, dtype=dtype,
+                             stats=stats)
+    return GMG(levels, _coarse_inverse(levels[-1], dtype), dtype)
+
+
+def _level_masks(fine_space, free_mask):
+    """``mask(sp, i)``: the free-dof mask of level ``i`` (flat bool NumPy),
+    the fine mask on the fine level and the same constrained faces below."""
     fine_mask = free_mask.cpu().numpy()
     constrained_ids = _constrained_faces(fine_space, fine_mask)
 
-    # Lanczos and the coarse inverse need more precision than bf16 keeps
-    work_dt = torch.float32 if dtype == torch.bfloat16 else dtype
-    levels = []
-    for i, sp in enumerate(spaces):
-        lat = tuple(reversed(sp.n_points_1d))
+    def mask(sp, i):
         if i == 0:
-            m = fine_mask
-        elif constrained_ids:
-            m = ~sp.boundary_dof_mask(constrained_ids)
-        else:
-            m = np.ones(sp.n_dofs, dtype=bool)
-        mask = torch.as_tensor(m.reshape(lat), device=device)
+            return fine_mask
+        if constrained_ids:
+            return ~sp.boundary_dof_mask(constrained_ids)
+        return np.ones(sp.n_dofs, dtype=bool)
+
+    return mask
+
+
+def _work_dtype(dtype):
+    # Lanczos and the coarse inverse need more precision than bf16 keeps
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _lattice_levels(spaces, first, op_factory, *, free_mask, smoother_degree,
+                    lanczos_start, dtype, stats, fine_space=None):
+    """The :class:`_Level` list of the lattice levels ``spaces``, the first
+    of which is level ``first`` of the hierarchy of ``fine_space`` (default
+    ``spaces[0]``); the first one has no transfer."""
+    level_mask = _level_masks(fine_space or spaces[0], free_mask)
+    device = free_mask.device
+    work_dt = _work_dtype(dtype)
+    levels = []
+    for j, sp in enumerate(spaces):
+        i = first + j
+        lat = tuple(reversed(sp.n_points_1d))
+        mask = torch.as_tensor(level_mask(sp, i).reshape(lat), device=device)
         op, diag, smoother_builder = op_factory(sp)
         diag = torch.as_tensor(np.asarray(diag, dtype=np.float64).reshape(lat),
                                device=device)
@@ -275,23 +307,123 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
             smoother = chebyshev(op, diag_inv, lam, degree=smoother_degree,
                                  eig_ratio=EIG_RATIO)
         prolong = None
-        if i > 0:
-            finer = spaces[i - 1]
+        if j > 0:
+            finer = spaces[j - 1]
             prolong = LatticeTransfer2D(tuple(reversed(finer.n_points_1d)),
                                         lat, (finer.n_dofs, sp.n_dofs))
         levels.append(_Level(sp, op, diag_inv, maskf, smoother, prolong, lam))
+    return levels
 
-    # coarse dense inverse: columns op(e_k) in the cycle precision, inverted
-    # on the host in float64, held in the working precision
-    coarse = levels[-1]
+
+def _coarse_inverse(coarse, dtype):
+    """The coarse level's dense inverse: columns op(e_k) in the cycle
+    precision, inverted on the host in float64, held in the working
+    precision."""
     lat = tuple(reversed(coarse.space.n_points_1d))
     nco = coarse.space.n_dofs
+    device = coarse.mask.device
     eye = torch.eye(nco, dtype=dtype, device=device)
     dense = torch.stack([coarse.op(eye[k].reshape(lat)).reshape(-1)
                          for k in range(nco)], dim=1)
     inv = np.linalg.inv(dense.cpu().double().numpy())
-    return GMG(levels, torch.as_tensor(inv, dtype=work_dt, device=device),
-               dtype)
+    return torch.as_tensor(inv, dtype=_work_dtype(dtype), device=device)
+
+
+class ShardedGMG:
+    """The lattice V-cycle over row blocks (``parallel.mesh``): the
+    distributed levels hold this rank's rows (``blocks[i]``), their
+    smoothers are fused (``pre``/``post``) and the transfers exchange one
+    halo row; below them the replicated ``tail`` (a :class:`GMG` on whole
+    lattices, the same on every rank) takes the all-gathered restricted
+    residual and runs the rest of the cycle and the dense coarse inverse,
+    and each rank keeps its rows of the prolonged correction.  ``apply``
+    takes and returns this rank's rows of the fine level."""
+
+    def __init__(self, levels, blocks, tail: GMG, mesh, dtype):
+        self.levels = levels
+        self.blocks = blocks
+        self.tail = tail
+        self.mesh = mesh
+        self.dtype = dtype
+
+    def _vcycle(self, li: int, b):
+        mesh, level, fine = self.mesh, self.levels[li], self.blocks[li]
+        x, r = level.smoother.pre(b)
+        if li + 1 < len(self.levels):
+            coarse = self.blocks[li + 1]
+            rc = (self.levels[li + 1].mask
+                  * restrict_block(mesh, fine, coarse, r)).to(self.dtype)
+            up = prolong_block(mesh, coarse, fine, self._vcycle(li + 1, rc))
+        else:
+            coarse = fine.coarse()
+            rc = mesh.all_gather_rows(restrict_block(mesh, fine, coarse, r),
+                                      coarse.counts)
+            rc = (self.tail.levels[0].mask * rc).to(self.dtype)
+            up = prolong_block(mesh, coarse, fine, self.tail._vcycle(0, rc),
+                               full=True)
+        x = x + (level.mask * up).to(self.dtype)
+        return level.smoother.post(b, x)
+
+    def apply(self, b):
+        return self._vcycle(0, b.to(self.dtype)).to(b.dtype)
+
+
+def build_gmg_sharded(fine_space, block_factory, op_factory, *, mesh,
+                      blocks, free_mask, smoother_degree: int = 4,
+                      lanczos_start=None, dtype=torch.float64,
+                      stats: dict | None = None) -> ShardedGMG:
+    """:func:`build_gmg` over row blocks: the first ``len(blocks)`` levels
+    are distributed (``blocks[i]``, ``parallel.mesh.plan_levels``), the rest
+    is the replicated tail built as :func:`build_gmg` builds a hierarchy.
+
+    ``block_factory(i, space, blocks_i) -> (op, diag, smoother_builder)``
+    gives a distributed level: ``op`` on this rank's rows (rows, nx),
+    ``diag`` the level's whole assembled diagonal (flat NumPy) and a
+    ``smoother_builder`` of a fused smoother on this rank's rows;
+    ``op_factory`` gives a tail level, as for :func:`build_gmg`.  Every
+    rank draws its Lanczos start vectors on the whole level
+    (``lanczos_start(i, n)`` or ``default_rng(0)``) and keeps its rows, and
+    all-reduces the Lanczos products: the bounds are those of the serial
+    hierarchy up to the order of the sums."""
+    spaces = level_spaces(fine_space)
+    level_mask = _level_masks(fine_space, free_mask)
+    device = free_mask.device
+    work_dt = _work_dtype(dtype)
+    inner = inner_product(mesh)
+    levels = []
+    for i, (sp, bl) in enumerate(zip(spaces, blocks)):
+        lo, hi = bl.rows(mesh.rank)
+        shape = (hi - lo, bl.nx)
+        mask = torch.as_tensor(level_mask(sp, i).reshape(bl.ny, bl.nx)[lo:hi],
+                               device=device)
+        op, diag, smoother_builder = block_factory(i, sp, bl)
+        if smoother_builder is None:
+            raise ValueError(f"level {i} has no fused smoother: a compact AL "
+                             "block cannot lie on a distributed level")
+        diag = torch.as_tensor(np.asarray(diag, dtype=np.float64)
+                               .reshape(bl.ny, bl.nx)[lo:hi], device=device)
+        diag_inv = torch.where(mask, 1.0 / diag, 1.0).to(dtype)
+
+        def lanc_mv(v, op=op, di=diag_inv, shape=shape):
+            return (di * op(v.reshape(shape).to(dtype))).reshape(-1).to(
+                work_dt)
+
+        v0 = block_lanczos_start(lanczos_start, i, sp.n_dofs, lo, hi, bl.nx)
+        lam = lanczos_max_eig(lanc_mv, shape[0] * shape[1],
+                              steps=LANCZOS_STEPS, v0=v0, dtype=work_dt,
+                              device=device, stats=stats, inner=inner)
+        smoother = smoother_builder(lam, degree=smoother_degree,
+                                    eig_ratio=EIG_RATIO)
+        levels.append(_Level(sp, op, diag_inv, mask.to(dtype), smoother,
+                             None, lam))
+    tail = _lattice_levels(spaces[len(blocks):], len(blocks), op_factory,
+                           free_mask=free_mask,
+                           smoother_degree=smoother_degree,
+                           lanczos_start=lanczos_start, dtype=dtype,
+                           stats=stats, fine_space=fine_space)
+    return ShardedGMG(levels, list(blocks),
+                      GMG(tail, _coarse_inverse(tail[-1], dtype), dtype),
+                      mesh, dtype)
 
 
 def build_gmg_flat(fine_space, op_factory, *, free_mask, n_comp: int = 1,

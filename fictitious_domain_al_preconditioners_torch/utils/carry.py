@@ -4,11 +4,12 @@ This system has no weights: what a parity run carries across is the setup
 state of one problem (right-hand sides, Dirichlet data, the coupling table,
 the immersed mass diagonal or the whole immersed mass and stiffness matrices,
 and the GMG Lanczos start vectors), handed over as NumPy arrays so both
-solvers run on identical inputs.  Five states: the immersed_laplace
-problem's (:class:`CarriedState`), the elliptic interface problem's
-(:class:`EllipticState`), the Stokes problem's (:class:`StokesState`), the
-nitsche problem's (:class:`NitscheState`) and the elasticity interface
-problem's (:class:`ElasticityState`).
+solvers run on identical inputs (a rank of the sharded solve keeps its
+rows of the Lanczos vectors, :func:`block_lanczos_start`).  Five states:
+the immersed_laplace problem's (:class:`CarriedState`), the elliptic
+interface problem's (:class:`EllipticState`), the Stokes problem's
+(:class:`StokesState`), the nitsche problem's (:class:`NitscheState`) and
+the elasticity interface problem's (:class:`ElasticityState`).
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from ..ops.coupling import Coupling
 from ..ops.operators import CellMatrix
 
 __all__ = ["CarriedState", "DiagonalMatrix", "ElasticityState",
-           "EllipticState", "NitscheState", "StokesState", "gmg_level_sizes",
-           "state_from_jax"]
+           "EllipticState", "NitscheState", "StokesState", "block_lanczos_start",
+           "gmg_level_sizes", "state_from_jax"]
 
 
 def gmg_level_sizes(space, n_comp: int = 1) -> list:
@@ -35,6 +36,20 @@ def gmg_level_sizes(space, n_comp: int = 1) -> list:
     from ..precond.gmg import level_spaces
 
     return [n_comp * sp.n_dofs for sp in level_spaces(space)]
+
+
+def block_lanczos_start(lanczos_start, level: int, n: int, lo: int, hi: int,
+                        nx: int) -> np.ndarray:
+    """Rows ``[lo, hi)`` (flat) of level ``level``'s Lanczos start vector on
+    an ``nx``-column lattice of ``n`` dofs: the carried vector
+    (``lanczos_start(level, n)``) or, without one, the draw every serial
+    hierarchy makes (``default_rng(0).standard_normal(n)``).  A rank of the
+    row-block sharded solve starts its block of the Lanczos vectors from
+    this, so its bounds are the serial hierarchy's."""
+    v0 = lanczos_start(level, n) if lanczos_start is not None else None
+    if v0 is None:
+        v0 = np.random.default_rng(0).standard_normal(n)
+    return np.asarray(v0).reshape(-1, nx)[lo:hi].reshape(-1)
 
 
 class DiagonalMatrix:

@@ -291,7 +291,7 @@ def section(cache, kind, formatter, label=False):
     """The table of ``kind``'s rows (those of ROWSPECS and any other in the
     cache; two columns more: setup + build seconds and peak GB; † on a
     stale row; with ``label`` a first column names each row's key), then
-    every cut, failed and missing row with its reason."""
+    every cut, failed and missing row with its reason († when stale)."""
     args = sorted({a for k, a in ROWSPECS if k == kind}
                   | {k.split(":", 1)[1] for k in cache
                      if k.split(":", 1)[0] == kind}, key=_order)
@@ -309,7 +309,8 @@ def section(cache, kind, formatter, label=False):
             extra.append(f" {build:.1f} | {_gb(ent.get('peak_gb'))} |"
                          + (" †" if row_is_stale(kind, ent) else ""))
         else:
-            notes.append(_failure(key, ent))
+            notes.append(_failure(key, ent)
+                         + (" †" if row_is_stale(kind, ent) else ""))
     lines = formatter(rows).splitlines()
     lines[0] += " setup + build [s] | peak GB |"
     lines[1] += "---|---|"

@@ -13,14 +13,23 @@ lock, so that processes measuring other rows at once keep theirs.
 
 Usage: python scripts/measure_family_torch.py KIND ARG [ARG ...]
            [--device cuda|cpu] [--cache PATH] [--force]
+           [--repeat N [--dtypes float64 float32]]
        (KIND and ARG as in make_results_table_torch.ROWSPECS, e.g.
        ``elliptic 0 1 2``; --force re-measures rows that are fresh)
+
+``--repeat N`` (elasticity rows) writes no cache: it sets each row's
+problem up once per V-cycle dtype of ``--dtypes`` and runs its
+``solve_refined`` N times on it, one JSON line a call (dtype, call, outer
+iterations, refine steps, true float64 residual, seconds, the card): whether
+the refined count repeats from one call to the next.  As in the table, the
+first call builds the correction solver and later calls reuse it.
 """
 
 from __future__ import annotations
 
 import argparse
 import gc
+import json
 import os
 import sys
 import time
@@ -39,7 +48,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--cache", default=mrt.CACHE)
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--repeat", type=int, default=0)
+    ap.add_argument("--dtypes", nargs="+", default=["float32"],
+                    choices=("float64", "float32"))
     opts = ap.parse_args(argv)
+    if opts.repeat:
+        for arg in opts.args:
+            repeat(opts.kind, arg, opts.device, opts.dtypes, opts.repeat)
+        return 0
     env = None
     for arg in opts.args:
         key = f"{opts.kind}:{arg}"
@@ -64,6 +80,38 @@ def main(argv=None):
         mrt.save_entries(opts.cache, {key: mrt.stamp(opts.kind, ent, env)})
         gc.collect()
     return 0
+
+
+def repeat(kind, arg, device, dtypes, n):
+    """``--repeat``: the row's ``solve_refined`` ``n`` times per V-cycle
+    dtype, each dtype on one set-up problem."""
+    import torch
+
+    from fictitious_domain_al_preconditioners_torch.models import \
+        ElasticityInterfaceProblem
+
+    if kind != "elasticity":
+        raise SystemExit("--repeat: elasticity rows only")
+    card = mrt.environment(device)["card"]
+    for name in dtypes:
+        prob = ElasticityInterfaceProblem(
+            rows.elasticity_config(), device=device,
+            dtype=getattr(torch, name)).setup(int(arg))
+        for call in range(n):
+            t0 = time.perf_counter()
+            _, _, _, history = prob.solve_refined(tol_abs=1e-10)
+            res = prob.results
+            print(json.dumps(dict(
+                key=f"{kind}:{arg}", dtype=name, call=call,
+                dofs=list(prob.layout.sizes),
+                outer_iterations=res["outer_iterations"],
+                refine_steps=res["refine_steps"],
+                refined_residual=history[-1], converged=res["converged"],
+                seconds=time.perf_counter() - t0, card=card)), flush=True)
+        del prob
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

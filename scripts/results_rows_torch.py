@@ -164,13 +164,13 @@ class Meter:
         print(f"{self.key}: set up {dofs} dofs in "
               f"{self.extra['setup_seconds']:.1f} s", flush=True)
 
-    def warm(self, prob, what, build_key="build_seconds"):
+    def warm(self, prob, what, build_key="build_seconds",
+             outer="outer_iterations"):
         self.sync()
         self.extra["build_seconds"] = prob.results.get(build_key)
         print(f"{self.key}: warm {what} after "
               f"{time.perf_counter() - self.t0:.1f} s: "
-              f"{prob.results.get('outer_iterations')} outer iterations",
-              flush=True)
+              f"{prob.results.get(outer)} outer iterations", flush=True)
 
     def timed(self, fn):
         t0 = time.perf_counter()
@@ -223,7 +223,7 @@ def _refined_row(key, make, device, tol, dofs, outer="outer_iterations"):
     prob = make()
     m.set_up(" + ".join(f"{n:,}" for n in prob.layout.sizes))
     prob.solve_refined(tol_abs=tol)
-    m.warm(prob, "solve_refined", "refine_build_seconds")
+    m.warm(prob, "solve_refined", "refine_build_seconds", outer)
     out, dt = m.timed(lambda: prob.solve_refined(tol_abs=tol))
     r = prob.results
     row = (*dofs(prob), r[outer], r["refine_steps"],

@@ -25,7 +25,7 @@ MODULES = [
     f"{PKG}.utils.timer", f"{PKG}.models.stokes",
     f"{PKG}.models.nitsche_bcs", f"{PKG}.models.elasticity",
     f"{PKG}.core.adaptive", f"{PKG}.utils.vtu", f"{PKG}.cli",
-    f"{PKG}.native",
+    f"{PKG}.native", f"{PKG}.parallel.mesh", f"{PKG}.parallel.dryrun",
 ]
 
 
