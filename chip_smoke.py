@@ -177,9 +177,19 @@ Phases (any failure exits non-zero before the last line is printed):
     extended blocks with their clipped patch boxes, the tail's lattices);
     one JSON line a run (world size, backend, transport, outer iterations,
     the drifts and their limits, setup/build/solve seconds, collectives and
-    halo bytes a solve, peak GB and launches per rank, the card); then
+    halo bytes a solve, peak GB and launches per rank, the card); NCCL with
+    one rank a card runs only where two or more cards are seen; then the
+    other configurations (``SHARDED_FORMS``) on two ranks sharing the card,
+    all in one start of the ranks, each held to a serial solve of its own
+    (run in this process while the ranks run) within its
+    ``SERIAL_LIMITS``: the exact W and the bf16 V-cycle at the
+    refinement, both explicit forms and a fine Γ-band on ∂Ω (the circle at
+    (.2, .5)) at 11, the flower at (10, 11) + 1 (the element form); each
+    rank must have launched K6 and the fine level's kernels (K2
+    ``op``/``pre``/``post``; K2 ``op`` and K1 bf16 under the bf16 V-cycle;
+    K1 in the explicit forms and on the band; none on the element form),
+    every kernel compared with its plain version at the rank's shapes; then
     ``dryrun_multichip(2)`` (two gloo ranks on the CPU with one card);
-    NCCL with one rank a card runs only where two or more cards are seen;
     ``--sharded-only`` runs just it;
 4. cross-check at refinement 7: the card (kernels) against the CPU (plain
    versions) in float32 with the same Lanczos start vectors, for the
@@ -342,6 +352,17 @@ TABLE_SMOKE_LAUNCHES = {
 # parallel.dryrun.SERIAL_LIMITS
 SHARDED_RANKS = 2
 SHARDED_TIMEOUT_S = 600
+# phase 16's other configurations, each on SHARDED_RANKS ranks sharing the
+# card (one start of the ranks for all of them), held to a serial solve of
+# the same configuration: the exact W and the bf16 V-cycle at the
+# refinement, the explicit forms and a fine Γ-band on ∂Ω (the flagship
+# circle moved to (.2, .5), tangent to the side x = 0) at
+# EXPLICIT_REFINEMENT, the flower at ADAPTIVE_PAIR + 1 (the element form)
+SHARDED_FORMS = ("exactw", "bf16", "explicit", "explicit_exactw", "band",
+                 "flower")
+SHARDED_BAND_CIRCLE = ("R*cos(2*pi*x)+Cx; R*sin(2*pi*x)+Cy",
+                       "R=.2, Cx=.2, Cy=.5")
+SHARDED_FORMS_TIMEOUT_S = 900
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 and float64 rates
 # outside the tensor cores
@@ -2400,33 +2421,62 @@ def phase_host_and_table(device, path_launches):
 def sharded_kernel_checks(prob, run, out):
     """On a rank of phase 16, after its solve: every kernel of its path
     against its plain version at this rank's shapes: K1 and K6 at the
-    fine extended block of the Dirichlet lift, K2 in all four modes with
-    each distributed level's block stencils (the halo of ``op`` and of the
-    sweeps, the patch box clipped to the block, no patch where none of it
-    is left) and that level's Lanczos bound, and the replicated tail's
-    levels (K2 and K1 on whole coarse lattices).  Adds ``errs`` (the
-    comparisons), ``kernel_checks`` and ``block_shapes`` to ``out``."""
+    fine extended block of the Dirichlet lift; on each distributed level
+    (and the outer operator's own fine level, under a bf16 V-cycle or
+    with W = M²) K2 in all four modes with the level's block stencils (the
+    halo of ``op`` and of the sweeps, the patch box clipped to the block,
+    no patch where none of it is left) and its Lanczos bound, or K1 in the
+    level's dtype (float32, bf16) at its extended block; and the replicated
+    tail's levels (K2 and K1 on whole coarse lattices).  The element form
+    runs no kernel and checks none.  Adds ``errs`` (the comparisons),
+    ``kernel_checks`` and ``block_shapes`` to ``out``."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops import kernels as K
     from fictitious_domain_al_preconditioners_torch.parallel.mesh import (
         HALO, ext_rows)
 
     dev, errs, shapes = prob.device, [], []
+    rank = run.mesh.rank
+    if run.flat:
+        out.update(errs=errs, kernel_checks=0, block_shapes=shapes)
+        return
     fine = run.blocks[0]
     a, b = ext_rows(run.mesh, fine, HALO["laplace"])
-    tag = f"rank {run.mesh.rank} fine block rows {a}:{b}"
+    tag = f"rank {rank} fine block rows {a}:{b}"
     h = tuple(1.0 / (n - 1) for n in (fine.ny, fine.nx))
     compare_stencils(h, (b - a, fine.nx), dev, seed=1600, tag=tag, errs=errs)
-    for i, lv in enumerate(prob.sharded_levels):
-        for depth, st in lv["stencils"].items():
-            shapes.append(dict(level=i, halo=depth, shape=list(st.shape),
-                               box=list(st.box)))
-            compare_fused(st, dev, lv["lam_max"], seed=1610 + i,
-                          tag=f"rank {run.mesh.rank} level {i} halo {depth} "
-                          f"{st.shape} box {st.box}", errs=errs)
-    first = len(prob.sharded_levels)
+    levels = list(enumerate(prob.sharded_levels))
+    if prob.sharded_outer is not None:
+        levels.append(("outer", prob.sharded_outer))
+    for i, lv in levels:
+        if lv["kind"] == "k2":
+            lam = lv.get("lam_max", run.gmg.levels[0].lam_max)
+            for depth, st in lv["stencils"].items():
+                shapes.append(dict(level=i, kind="k2", halo=depth,
+                                   shape=list(st.shape), box=list(st.box)))
+                compare_fused(st, dev, lam, seed=1610 + len(shapes),
+                              tag=f"rank {rank} level {i} halo {depth} "
+                              f"{st.shape} box {st.box}", errs=errs)
+            continue
+        a, b = lv["ext"]
+        shape = (b - a, fine.nx)
+        shapes.append(dict(level=i, kind="k1", dtype=lv["dtype"],
+                           halo=HALO["op"], shape=list(shape)))
+        tag = f"rank {rank} level {i} K1 {lv['dtype']} {shape}"
+        u = torch.as_tensor(np.random.default_rng(1620 + len(shapes))
+                            .standard_normal(shape), dtype=torch.float32,
+                            device=dev)
+        if lv["dtype"] == "bfloat16":
+            compare_k1_bf16(lv["h"], u, tag, errs)
+        else:
+            record(errs, "masked_laplace_2d", "-", tag,
+                   K.masked_laplace_2d(u, lv["h"]),
+                   K.masked_laplace_2d_plain(u, lv["h"]))
+    first = len(prob.sharded_levels) - run.gmg.direct
     for j, (level, st) in enumerate(zip(run.gmg.tail.levels,
                                         prob.level_stencils)):
         lat = tuple(reversed(level.space.n_points_1d))
-        tag = f"rank {run.mesh.rank} tail level {first + j} {lat}"
+        tag = f"rank {rank} tail level {first + j} {lat}"
         compare_stencils(tuple(1.0 / (n - 1) for n in lat), lat, dev,
                          seed=1630 + j, tag=tag, errs=errs)
         if st is not None:
@@ -2435,15 +2485,16 @@ def sharded_kernel_checks(prob, run, out):
     out.update(errs=errs, kernel_checks=len(errs), block_shapes=shapes)
 
 
-def _sharded_line(res, ranks, backend, wall, serial, cmp, smi):
+def _sharded_line(res, ranks, backend, wall, serial, cmp, smi,
+                  path=None):
     """Phase 16's JSON line of one sharded run (``res``: every rank's
     result; ``cmp``: ``compare_to_serial``'s)."""
     r0 = res[0]
     keys = ("rows", "setup_seconds", "build_seconds", "solve_seconds",
             "host_syncs", "counts", "peak_gb", "launches", "kernel_checks",
-            "distributed_levels", "levels", "compact_levels")
+            "distributed_levels", "levels", "level_kinds", "compact_levels")
     return dict(
-        path=f"sharded_ws{ranks}", world_size=ranks, backend=backend,
+        path=path or f"sharded_ws{ranks}", world_size=ranks, backend=backend,
         transport=r0["transport"], refinement=r0["refinement"],
         dofs_background=r0["dofs_background"],
         dofs_immersed=r0["dofs_immersed"], dtype=r0["dtype"],
@@ -2451,10 +2502,54 @@ def _sharded_line(res, ranks, backend, wall, serial, cmp, smi):
         serial_outer_iterations=serial["outer_iterations"],
         converged=r0["converged"], residual=r0["residual"],
         drifts=cmp["drifts"], limits=cmp["limits"],
-        serial_spread=serial["spread"],
+        serial_spread=serial.get("spread"),
+        serial_seconds={k: serial[k] for k in (
+            "setup_seconds", "build_seconds", "solve_seconds")},
         halo_bytes_a_solve=sum(r["counts"]["halo_bytes"] for r in res),
         wall_seconds=wall, card=smi,
         ranks=[{k: r[k] for k in keys} for r in res])
+
+
+def sharded_form_config(name, refinement):
+    """The configuration of one of phase 16's :data:`SHARDED_FORMS` at the
+    flagship's ``refinement`` (the explicit forms and the band at most
+    :data:`EXPLICIT_REFINEMENT`)."""
+    explicit_ref = min(EXPLICIT_REFINEMENT, refinement)
+    if name == "bf16":
+        return flagship_config(refinement, bf16=True)
+    if name == "exactw":
+        return al_form_config(refinement, name)
+    if name.startswith("explicit"):
+        return al_form_config(explicit_ref, name)
+    if name == "band":
+        cfg = flagship_config(explicit_ref)
+        cfg.embedded_configuration = SHARDED_BAND_CIRCLE
+        return cfg
+    pair = tuple(int(x) for x in ADAPTIVE_PAIR.split(":"))
+    return adaptive_config(os.path.join(ROOT, ADAPTIVE_SCALE_FILE), pair,
+                           flagship_rule=True)
+
+
+def sharded_form_launches(name, r):
+    """The kernels a rank of phase 16's configuration ``name`` must have
+    launched: K6 (the Dirichlet lift) and the fine level's kernels: K2
+    ``op``/``pre``/``post`` in operator form with an interior band (and K1
+    where a tail level is compact), K2 ``op`` (the outer operator) and
+    K1's bf16 form under the bf16 V-cycle, K1 in the explicit forms and on
+    a band on ∂Ω; none on the element form (the flower)."""
+    from fictitious_domain_al_preconditioners_torch.ops.kernels import \
+        launch_key
+
+    if name == "flower":
+        return []
+    keys = ["laplace_stencil_2d"]
+    if name == "bf16":
+        return keys + [launch_key("op"), "masked_laplace_2d:bf16"]
+    if name in ("flagship", "exactw"):
+        keys += [launch_key(m) for m in ("op", "pre", "post")]
+        if not r["compact_levels"]:
+            return keys
+    return keys + ["masked_laplace_2d"]
 
 
 def phase_sharded(refinement, device, smi):
@@ -2468,12 +2563,11 @@ def phase_sharded(refinement, device, smi):
     rank's launch counts (set to 0 before its setup, read after its solve)
     must show K6, K2 ``op``/``pre``/``post`` and K1 where its tail has a
     compact level, and every kernel is compared with its plain version at
-    the rank's shapes (:func:`sharded_kernel_checks`); then
-    ``dryrun_multichip(2)``; then NCCL with one rank a card when two or
-    more are visible.  Returns ``(errs, path_launches)``."""
+    the rank's shapes (:func:`sharded_kernel_checks`); then NCCL with one
+    rank a card when two or more are visible; then the other
+    configurations (:func:`phase_sharded_forms`); then
+    ``dryrun_multichip(2)``.  Returns ``(errs, path_launches)``."""
     import torch
-    from fictitious_domain_al_preconditioners_torch.ops.kernels import \
-        launch_key
     from fictitious_domain_al_preconditioners_torch.parallel.dryrun import (
         compare_to_serial, dryrun_multichip, serial_reference,
         sharded_flagship_rank)
@@ -2484,7 +2578,7 @@ def phase_sharded(refinement, device, smi):
     cfg = flagship_config(refinement)
     serial = serial_reference(cfg, device, spread=True)
     print("phase 16: serial " + json.dumps(
-        {k: v for k, v in serial.items() if k not in ("u", "probe")}),
+        {k: v for k, v in serial.items() if k not in ("u", "lam", "probe")}),
         flush=True)
     check(serial["converged"], "phase 16: the serial solve did not converge")
     torch.cuda.empty_cache()
@@ -2507,23 +2601,94 @@ def phase_sharded(refinement, device, smi):
         tag = f"phase 16 {line['path']} ({backend}, {line['transport']})"
         check(not cmp["failures"], f"{tag}: " + "; ".join(cmp["failures"]))
         for r in res:
-            keys = ["laplace_stencil_2d"] + [launch_key(m) for m in
-                                             ("op", "pre", "post")]
-            if r["compact_levels"]:
-                keys.append("masked_laplace_2d")
-            require_launches(r, keys, f"{tag} rank {r['rank']}")
+            require_launches(r, sharded_form_launches("flagship", r),
+                             f"{tag} rank {r['rank']}")
             errs += r["errs"]
             path_launches[f"{line['path']}_{backend}_rank{r['rank']}"] = \
                 r["launches"]
     if cards < 2:
         print(f"phase 16: NCCL with one rank a card skipped: {cards} card "
               "visible", flush=True)
+    forms_errs, forms_launches = phase_sharded_forms(refinement, device, smi)
+    errs += forms_errs
+    path_launches.update(forms_launches)
     t0 = time.perf_counter()
     dry = dryrun_multichip(2)
     print("phase 16: dryrun_multichip(2) " + json.dumps(dict(
         seconds=time.perf_counter() - t0, ranks=dry)), flush=True)
     print(f"phase 16: passed in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return errs, path_launches
+
+
+def phase_sharded_forms(refinement, device, smi):
+    """Phase 16's other configurations (:data:`SHARDED_FORMS`, sizes in
+    :func:`sharded_form_config`): all of them on ``SHARDED_RANKS`` ranks
+    sharing the card in one start of the ranks
+    (``parallel.dryrun.sharded_runs_rank``; each run's launch counts set to
+    0 before its setup and read after its solve) and, while the ranks run,
+    a deterministic serial solve of each in this process (their limits are
+    read, so no second serial solve measures the spread; the seconds of
+    both sides share the card and the host); each run held to its serial
+    solve by ``compare_to_serial`` within its ``SERIAL_LIMITS``; every rank
+    must have launched the kernels of :func:`sharded_form_launches` (none
+    on the element form) and every kernel agrees with its plain version at
+    the rank's shapes (:func:`sharded_kernel_checks`).  Returns ``(errs,
+    path_launches)``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from fictitious_domain_al_preconditioners_torch.parallel.dryrun import (
+        compare_to_serial, serial_reference, sharded_runs_rank)
+    from fictitious_domain_al_preconditioners_torch.parallel.mesh import \
+        launch
+
+    cfgs = {name: sharded_form_config(name, refinement)
+            for name in SHARDED_FORMS}
+    serials, failures = {}, []
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(
+            launch, sharded_runs_rank, SHARDED_RANKS, backend="gloo",
+            device=str(device),
+            args=([(cfg, None) for cfg in cfgs.values()],
+                  sharded_kernel_checks),
+            timeout=SHARDED_FORMS_TIMEOUT_S)
+        for name, cfg in cfgs.items():
+            serials[name] = serial_reference(cfg, device)
+            print(f"phase 16: serial {name} " + json.dumps(
+                {k: v for k, v in serials[name].items()
+                 if k not in ("u", "lam", "probe")}), flush=True)
+            if not serials[name]["converged"]:
+                failures.append(f"phase 16: the serial {name} solve did "
+                                "not converge")
+            gc.collect()
+            torch.cuda.empty_cache()
+        res_all = ranks.result()
+    wall = time.perf_counter() - t0
+    print(f"phase 16: {len(cfgs)} configurations on {SHARDED_RANKS} ranks, "
+          f"their serial solves beside them, in {wall:.1f} s", flush=True)
+    check(not failures, "; ".join(failures))
+    errs, path_launches = [], {}
+    for k, name in enumerate(cfgs):
+        res = [r[k] for r in res_all]
+        cmp = compare_to_serial(res, serials[name], name)
+        path = f"sharded_{name}_ws{SHARDED_RANKS}"
+        line = _sharded_line(res, SHARDED_RANKS, "gloo", None, serials[name],
+                             cmp, smi, path=path)
+        line["configuration"] = name
+        print("phase 16: " + json.dumps(line), flush=True)
+        tag = f"phase 16 {path} (gloo, {line['transport']})"
+        failures += [f"{tag}: {f}" for f in cmp["failures"]]
+        for r in res:
+            keys = sharded_form_launches(name, r)
+            require_launches(r, keys, f"{tag} rank {r['rank']}")
+            if not keys:
+                check(not r["launches"], f"{tag} rank {r['rank']}: kernels "
+                      f"launched on the element form: {r['launches']}")
+            errs += r["errs"]
+            path_launches[f"{path}_gloo_rank{r['rank']}"] = r["launches"]
+    check(not failures, "; ".join(failures))
     return errs, path_launches
 
 
@@ -2685,10 +2850,11 @@ def main(argv=None) -> int:
                          "elasticity) and its cross-checks (no kernels "
                          "line)")
     ap.add_argument("--sharded-only", action="store_true",
-                    help="run only phase 16, the row-block sharded flagship "
-                         "(one rank over NCCL, two ranks on the card, "
-                         "dryrun_multichip(2)), held to a serial solve (no "
-                         "kernels line)")
+                    help="run only phase 16, the sharded solves (the "
+                         "flagship on one rank over NCCL and two ranks on "
+                         "the card, the other configurations on two, "
+                         "dryrun_multichip(2)), each held to a serial solve "
+                         "(no kernels line)")
     args = ap.parse_args(argv)
     explicit_ref = min(EXPLICIT_REFINEMENT, args.refinement)
     nitsche_cycles = tuple(sorted(set(NITSCHE_CYCLES) | {

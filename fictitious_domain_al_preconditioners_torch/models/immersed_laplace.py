@@ -53,10 +53,11 @@ every level of the bf16 V-cycle; K6 (``laplace_stencil_2d``, through
 Dirichlet data.  On the CPU the same wrappers run their plain PyTorch
 versions.
 
-:meth:`ImmersedLaplaceProblem.build_sharded_solver` runs the flagship solve
-over several ranks: the lattice cut into row blocks (``parallel.mesh``), the
-kernels on each rank's block, the coarse levels and the multiplier
-replicated.
+:meth:`ImmersedLaplaceProblem.build_sharded_solver` runs the augmented
+solve over several ranks, in every configuration :meth:`solve` takes: the
+lattice cut into row blocks (``parallel.mesh``), the kernels on each rank's
+block, or the element form's flat vectors cut into ranges; the coarse
+levels and the multiplier replicated.
 
 Those are the lattice path's: a uniform Q1 background with Dirichlet
 conditions on all four sides.  Every other background takes the element
@@ -93,12 +94,13 @@ from ..ops.kernels import (AugmentedStencil2D, fused_augmented_2d,
                            masked_laplace_2d)
 from ..ops.krylov import cg, cg_condition_number, fgmres, gmres, minres
 from ..ops.linop import LinOp
-from ..ops.operators import constrain, dirichlet_rhs
+from ..ops.operators import CellRows, constrain, dirichlet_rhs
 from ..ops.host_ref import HostAugmentedSystem
 from ..parallel.lattice import LatticeOps
 from ..precond.al import al_preconditioner
 from ..precond.gmg import (FusedSmoother, build_gmg, build_gmg_flat,
-                           build_gmg_sharded, level_spaces)
+                           build_gmg_flat_sharded, build_gmg_sharded,
+                           level_spaces)
 from ..precond.rational import rational_preconditioner
 from ..precond.weights import (inv_diag, inv_diag_squared, inv_exact,
                                inv_squared_exact)
@@ -422,15 +424,29 @@ class ImmersedLaplaceProblem:
 
         # the explicit form, or a (coarse) level whose Γ-band touches ∂Ω:
         # the compact AL block
+        al, al_diag = self._compact(coupling, gamma, w_diag, [ny, nx],
+                                    dtype or dt)
+        return self._masked_aug_level(lat, free, al, k_diag + al_diag), None
+
+    def _compact(self, coupling, gamma, w_diag, shape, dtype, rows=None):
+        """The compact AL block of ``coupling`` held in ``dtype``
+        (``Coupling.compact_al``), or with ``rows = (first, last)`` a rank's
+        rows of it (``Coupling.compact_al_rows``), recorded in
+        ``compact_blocks`` with its rows, bytes and seconds."""
         t0 = time.perf_counter()
-        al, al_diag = coupling.compact_al(gamma, w_diag, dtype=dtype)
+        if rows is None:
+            out = coupling.compact_al(gamma, w_diag, dtype=dtype)
+            m = own = out[0].rows
+        else:
+            out = coupling.compact_al_rows(gamma, *rows, w_diag, dtype=dtype)
+            m, own = out.rows, out.p1 - out.p0
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.compact_blocks.append(dict(
-            shape=[ny, nx], rows=al.rows,
-            bytes=al.rows ** 2 * (dtype or dt).itemsize,
+            shape=shape, rows=m, own_rows=own,
+            bytes=own * m * dtype.itemsize,
             seconds=time.perf_counter() - t0))
-        return self._masked_aug_level(lat, free, al, k_diag + al_diag), None
+        return out
 
     def _patch_stencil(self, sp, pw):
         """K2's stencil of a lattice level from its Γ-band patch ``pw`` =
@@ -612,43 +628,16 @@ class ImmersedLaplaceProblem:
         diagonal surrogate), inverted by CG on the flat GMG whose levels
         re-discretize K and the AL term."""
         cfg = self.cfg
-        dev, dt = self.device, self.dtype
+        dt = self.dtype
         free = self.free
-        order_k = cfg.embedding_space_degree + 1
-        gamma, inv_w, w_diag, coupling_for, fine_coupling = self._al_form()
-
+        form = self._al_form()
+        gamma, inv_w = form[:2]
         gmg_dt = torch.bfloat16 if cfg.use_bf16_multigrid else dt
-
-        def compact(coupling, shape, dtype):
-            t0 = time.perf_counter()
-            al, al_diag = coupling.compact_al(gamma, w_diag, dtype=dtype)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.compact_blocks.append(dict(
-                shape=shape, rows=al.rows, bytes=al.rows ** 2 * dtype.itemsize,
-                seconds=time.perf_counter() - t0))
-            return al, al_diag
-
-        def level(sp, dtype):
-            # K and the AL block held in the level's dtype: the bf16
-            # V-cycle's levels take and return bf16 (the reference passes
-            # dtype=bfloat16 to build_gmg on this path too,
-            # immersed_laplace.py:1192-1198)
-            fine = sp is self.space
-            K_l = (self.K if fine else laplace_matrix(
-                sp, order=order_k, device=dev, dtype=dt)).astype(dtype)
-            al, al_diag = compact(fine_coupling if fine else coupling_for(sp),
-                                  [sp.n_dofs], dtype)
-
-            def mv(x):
-                return K_l.mv(x) + al(x)
-
-            return mv, K_l.diag_host() + al_diag
 
         levels = {}
 
         def op_factory(sp):
-            levels[id(sp)] = level(sp, gmg_dt)
+            levels[id(sp)] = self._flat_level(sp, gmg_dt, form)
             return levels[id(sp)]
 
         gmg = build_gmg_flat(self.space, op_factory, free_mask=free,
@@ -658,7 +647,7 @@ class ImmersedLaplaceProblem:
         self._last_gmg = gmg
         if cfg.use_operator_form or cfg.use_diagonal_inverse:
             aug_raw = (levels[id(self.space)] if gmg_dt == dt
-                       else level(self.space, dt))[0]
+                       else self._flat_level(self.space, dt, form))[0]
         else:
             al_op = self.C.al_term(inv_w, gamma)
 
@@ -675,147 +664,341 @@ class ImmersedLaplaceProblem:
 
         return Aug, aug_inv, gamma, inv_w
 
-    def _check_shardable(self):
-        cfg = self.cfg
-        refused = [why for why, on in (
-            ("the explicit AL form (its operator and every GMG level carry "
-             "the compact block γ·CᵀW⁻¹C, which no row block splits)",
-             not cfg.use_operator_form),
-            ("the exact W = M (its inverse is a solve on the multiplier)",
-             not cfg.use_diagonal_inverse),
-            ("the bf16 V-cycle (K1's bf16 form and the unfused patch)",
-             cfg.use_bf16_multigrid),
-            (f"the element form ({', '.join(self._element_form_triggers())})",
-             self.element_form)) if on]
-        if refused:
-            raise NotImplementedError(
-                "build_sharded_solver: the row-block sharded solve is the "
-                "lattice path in operator form with W = diag(M) and a "
-                "float32 or float64 V-cycle; not in this port: "
-                + "; ".join(refused))
+    def _level_stiffness(self, sp):
+        """The element-form stiffness of a GMG level (the problem's K on
+        the fine one), in the working dtype."""
+        if sp is self.space:
+            return self.K
+        return laplace_matrix(sp, order=self.cfg.embedding_space_degree + 1,
+                              device=self.device, dtype=self.dtype)
+
+    def _flat_level(self, sp, dtype, form, rows=None):
+        """``(mv, diag)`` of an element-form GMG level for
+        :func:`..precond.gmg.build_gmg_flat`: K and the compact AL block
+        (of the AL form ``form``, :meth:`_al_form`) held in the level's
+        ``dtype``: the bf16 V-cycle's levels take and return bf16 (the
+        reference passes dtype=bfloat16 to build_gmg on this path too,
+        immersed_laplace.py:1192-1198).  With ``rows = (first, last)``:
+        ``mv(x)`` those rows of the level's operator applied to the whole
+        vector ``x`` (a rank's rows of the sharded element form)."""
+        gamma, _, w_diag, coupling_for, fine_coupling = form
+        K_l = self._level_stiffness(sp)
+        diag = K_l.diag_host()
+        K_l = K_l.astype(dtype)
+        coupling = fine_coupling if sp is self.space else coupling_for(sp)
+        if rows is not None:
+            K_l = CellRows(K_l, *rows)
+            cr = self._compact(coupling, gamma, w_diag, [sp.n_dofs], dtype,
+                               rows=rows)
+
+            def mv_rows(x):
+                return K_l.mv(x) + cr.apply(x[cr.uniq])
+
+            return mv_rows, diag + cr.diag
+        al, al_diag = self._compact(coupling, gamma, w_diag, [sp.n_dofs],
+                                    dtype)
+
+        def mv(x):
+            return K_l.mv(x) + al(x)
+
+        return mv, diag + al_diag
 
     def build_sharded_solver(self, mesh):
-        """The flagship augmented solve over the row blocks of ``mesh``
+        """The augmented solve over the ranks of ``mesh``
         (:func:`..parallel.mesh.make_mesh`, this process's rank): returns
         ``run(rhs_f, rhs_g, bc_values) -> (u, lam, info)`` on global
         inputs, as the JAX package's method does, to be called on every
-        rank at once.
+        rank at once.  Every ``augmented`` configuration that
+        :meth:`solve` takes: either AL form, either W, either V-cycle
+        dtype, the lattice or the element form.
 
         The same solve as ``solver='augmented'`` (outer FGMRES, the AL
         preconditioner, inner CG, the GMG V-cycle) with the background cut
-        into row blocks (``parallel.mesh.plan_levels``) and the immersed
-        side replicated: K2 (``op``, ``pre``/``post``) runs on each rank's
-        extended block of every distributed level, with its patch box
-        clipped to the block (``AugmentedStencil2D.row_block``); the coarse
-        levels whose blocks would be thinner than the sweeps' halo, and
-        every level with a compact AL block (K1), form the replicated tail
-        (:class:`..precond.gmg.ShardedGMG`); K6 lifts the Dirichlet data on
-        the blocks; C sums each rank's share over the ranks, Cᵀ scatters
-        into each rank's rows; the Krylov inner products all-reduce the
-        background part and add the multiplier part once.  ``u`` comes back
-        whole on every rank, ``lam`` is replicated, and ``info`` is checked
-        equal on every rank.  The serial hierarchy is not built.  The
-        lattice path in operator form with W = diag(M) only, float32 or
-        float64 V-cycle (else ``NotImplementedError``)."""
-        from ..parallel.mesh import (HALO, block_laplace, ext_rows,
-                                     inner_product, on_block, plan_levels,
-                                     replicated, sweep_halo)
-
-        self._check_shardable()
+        into this rank's rows and the immersed side replicated (W⁻¹, the
+        exact one too, applies to the whole multiplier on every rank).  On
+        the lattice (:meth:`_sharded_lattice`) the rows are row blocks of
+        every level down to the replicated tail; on the element form
+        (:meth:`_sharded_flat`) contiguous ranges of each level's flat dof
+        vector.  C sums each rank's share over the ranks
+        (``Coupling.row_block``), Cᵀ scatters into each rank's rows; the
+        Krylov inner products all-reduce the background part and add the
+        multiplier part once.  ``u`` comes back whole on every rank,
+        ``lam`` is replicated, and ``info`` is checked equal on every rank.
+        The serial hierarchy is not built."""
         if mesh.device != self.device:
             raise ValueError(f"build_sharded_solver: the mesh's device "
                              f"{mesh.device} is not the problem's "
                              f"{self.device}")
+        self.compact_blocks = []     # every compact AL block formed, in order
+        self.sharded_levels = []     # per distributed level, fine first
+        self.level_stencils = []     # per tail level
+        self.sharded_outer = None    # the outer operator's own fine level
+        build = (self._sharded_flat if self.element_form
+                 else self._sharded_lattice)
+        return build(mesh)
+
+    def _sharded_coupling(self, mesh, first: int, last: int):
+        """C on this rank's background dofs ``[first, last)``: its share
+        summed over the ranks (``Coupling.row_block``), Cᵀ into its rows."""
+        table = self.C.row_block(first, last, 1)
+        return LinOp(lambda u: mesh.all_reduce(table.mv(u)),
+                     (self.imm_space.n_dofs, last - first), table.rmv,
+                     name="C")
+
+    def _sharded_lattice(self, mesh):
+        """The lattice path over row blocks (``parallel.mesh.plan_levels``):
+        every distributed level runs its kernels on each rank's extended
+        block.  A level of the operator form whose Γ-band is interior is K2
+        (``op``, and ``pre``/``post`` as its smoother), its patch box
+        clipped to the block (``AugmentedStencil2D.row_block``); in
+        bfloat16 K1's bf16 form plus the clipped masked patch; a level of
+        the explicit form or whose band touches ∂Ω K1 plus this rank's rows
+        of the masked compact block (``Coupling.compact_al_rows``: its band
+        entries summed over the ranks, one all-reduce an apply), both with
+        the unfused Chebyshev over one halo exchange an operator call.  The
+        coarse levels whose blocks would be thinner than the sweeps' halo
+        form the replicated tail (:class:`..precond.gmg.ShardedGMG`).  The
+        outer operator is the fine level in the working dtype (K2 ``op``
+        under a bf16 V-cycle), or with W = M² K1 plus the matrix-free
+        γ·CᵀW⁻¹C over the all-reduced C; K6 lifts the Dirichlet data on
+        the blocks."""
+        from ..parallel.mesh import (HALO, block_laplace, ext_rows, on_block,
+                                     plan_levels, sweep_halo)
+
         cfg = self.cfg
+        dt = self.dtype
+        gmg_dt = torch.bfloat16 if cfg.use_bf16_multigrid else dt
         degree = cfg.gmg_smoother_degree
-        gamma, inv_w, _, coupling_for, fine_coupling = self._al_form()
+        gamma, inv_w, w_diag, coupling_for, fine_coupling = self._al_form()
         spaces = level_spaces(self.space)
         # by level size: build_gmg_sharded makes its own level spaces
         couplings = {sp.n_dofs: fine_coupling if i == 0 else coupling_for(sp)
                      for i, sp in enumerate(spaces)}
-        patches = []                 # the levels before the first compact one
-        for sp in spaces:
-            pw = couplings[sp.n_dofs].patch_w9(sp, gamma)
-            if pw is None:
-                break
-            patches.append(pw)
-        if not patches:
-            raise NotImplementedError(
-                "build_sharded_solver: the fine level's Γ-band touches ∂Ω "
-                "(a compact AL block, which no row block splits)")
         lat = LatticeOps.for_space(self.space)
-        nx = lat.shape[1]
         depth = sweep_halo(degree)
         blocks = plan_levels(*lat.shape, mesh.size, n_levels=len(spaces),
-                             depth=depth, max_distributed=len(patches))
-        self.sharded_levels = []     # per distributed level, fine first
-        self.level_stencils = []     # per tail level
+                             depth=depth)
 
         def k2(mode, st, **kw):
             return lambda *ext: fused_augmented_2d(mode, st, *ext, **kw)
 
-        def block_factory(i, sp, bl):
-            st, al_diag = self._patch_stencil(sp, patches[i])
-            sts = {d: st.row_block(*ext_rows(mesh, bl, d))
-                   for d in (HALO["op"], depth)}
-            self.sharded_levels.append(dict(rows=bl.rows(mesh.rank),
-                                            stencils=sts))
-
+        def k1_plus(bl, h, al):
+            # K1 on the extended block, plus ``al`` (flat rows in, flat rows
+            # out) on this rank's rows
             def op(x2):
-                return on_block(mesh, bl, HALO["op"],
-                                k2("op", sts[HALO["op"]]), x2)
+                k = on_block(mesh, bl, HALO["op"],
+                             lambda e: masked_laplace_2d(e, h), x2)
+                return k + al(x2.reshape(-1)).reshape(x2.shape)
 
-            def smoother_builder(lam, degree, eig_ratio):
-                if degree + 1 > depth:
-                    raise ValueError(f"a degree-{degree} sweep needs a halo "
-                                     f"of {degree + 1} rows, not {depth}")
-                kw = dict(lam_max=lam, degree=degree, eig_ratio=eig_ratio)
-                self.sharded_levels[i]["lam_max"] = lam
-                return FusedSmoother(
-                    lambda b: on_block(mesh, bl, depth,
-                                       k2("smooth", sts[depth], **kw), b),
-                    pre=lambda b: on_block(mesh, bl, depth,
-                                           k2("pre", sts[depth], **kw), b),
-                    post=lambda b, x0: on_block(
-                        mesh, bl, depth, k2("post", sts[depth], **kw), b,
-                        x0))
+            return op
 
-            return (op, LatticeOps.for_space(sp).laplace_diag() + al_diag,
-                    smoother_builder)
+        def level_on_block(sp, bl, dtype):
+            """``(op, diag, smoother_builder)`` of a distributed level in
+            ``dtype``, and its record for ``sharded_levels``."""
+            lo, hi = bl.rows(mesh.rank)
+            lat_l = LatticeOps.for_space(sp)
+            k_diag = lat_l.laplace_diag()
+            coupling = couplings[sp.n_dofs]
+            bf16 = dtype == torch.bfloat16
+            explicit = w_diag is not None
+            rec = dict(rows=[lo, hi], dtype=str(dtype).replace("torch.", ""),
+                       h=lat_l.h)
+            pw = None if bf16 or explicit else coupling.patch_w9(sp, gamma)
+            if pw is not None:
+                st, al_diag = self._patch_stencil(sp, pw)
+                sts = {d: st.row_block(*ext_rows(mesh, bl, d))
+                       for d in (HALO["op"], depth)}
+                rec.update(kind="k2", stencils=sts)
+
+                def op(x2):
+                    return on_block(mesh, bl, HALO["op"],
+                                    k2("op", sts[HALO["op"]]), x2)
+
+                def smoother_builder(lam, degree, eig_ratio):
+                    if degree + 1 > depth:
+                        raise ValueError(f"a degree-{degree} sweep needs a "
+                                         f"halo of {degree + 1} rows, not "
+                                         f"{depth}")
+                    kw = dict(lam_max=lam, degree=degree, eig_ratio=eig_ratio)
+                    rec["lam_max"] = lam
+                    return FusedSmoother(
+                        lambda b: on_block(mesh, bl, depth,
+                                           k2("smooth", sts[depth], **kw), b),
+                        pre=lambda b: on_block(
+                            mesh, bl, depth, k2("pre", sts[depth], **kw), b),
+                        post=lambda b, x0: on_block(
+                            mesh, bl, depth, k2("post", sts[depth], **kw), b,
+                            x0))
+
+                return (op, k_diag + al_diag, smoother_builder), rec
+            ext = ext_rows(mesh, bl, HALO["op"])
+            rec.update(kind="k1", ext=list(ext))
+            free = ~sp.boundary_dof_mask(list(cfg.dirichlet_ids))
+            al = (coupling.patch_al_lattice(sp, gamma, free=free, dtype=dtype,
+                                            rows=ext)
+                  if bf16 and not explicit else None)
+            if al is not None:
+                al_ext, al_diag = al
+
+                def op(x2):
+                    return on_block(mesh, bl, HALO["op"],
+                                    lambda e: masked_laplace_2d(e, lat_l.h)
+                                    + al_ext(e), x2)
+
+                return (op, k_diag + al_diag, None), rec
+            # the explicit form, or a level whose Γ-band touches ∂Ω: this
+            # rank's rows of the masked compact AL block
+            nx = bl.nx
+            cr = self._compact(coupling, gamma, w_diag, [bl.ny, nx], dtype,
+                               rows=(lo * nx, hi * nx))
+            m = torch.as_tensor(free[lo * nx:hi * nx], device=self.device)
+
+            def al_rows(x):
+                band = mesh.all_reduce(cr.share(torch.where(m, x, 0.0)))
+                return torch.where(m, cr.apply(band), 0.0)
+
+            return (k1_plus(bl, lat_l.h, al_rows), k_diag + cr.diag,
+                    None), rec
+
+        def block_factory(i, sp, bl):
+            level, rec = level_on_block(sp, bl, gmg_dt)
+            self.sharded_levels.append(rec)
+            return level
 
         def op_factory(sp):
-            level, st = self._level_operator(sp, couplings[sp.n_dofs], gamma)
+            level, st = self._level_operator(sp, couplings[sp.n_dofs], gamma,
+                                             dtype=gmg_dt, w_diag=w_diag)
             self.level_stencils.append(st)
             return level
 
-        self.compact_blocks = []
         gmg = build_gmg_sharded(self.space, block_factory, op_factory,
                                 mesh=mesh, blocks=blocks, free_mask=self.free,
                                 smoother_degree=degree,
                                 lanczos_start=self.lanczos_start,
-                                dtype=self.dtype, stats=self.stats)
-        lo, hi = blocks[0].rows(mesh.rank)
-        rows, n_own = hi - lo, (hi - lo) * nx
-        own = slice(lo * nx, hi * nx)
-        aug_blk = gmg.levels[0].op
-        table = self.C.row_block(lo, hi, nx)
-        n_imm = self.imm_space.n_dofs
-        C_lin = LinOp(lambda u: mesh.all_reduce(table.mv(u)), (n_imm, n_own),
-                      table.rmv, name="C")
+                                dtype=gmg_dt, stats=self.stats)
+        fine = blocks[0]
+        lo, hi = fine.rows(mesh.rank)
+        nx = fine.nx
+        C_lin = self._sharded_coupling(mesh, lo * nx, hi * nx)
+        if not (cfg.use_operator_form or cfg.use_diagonal_inverse):
+            # W = M² is not diagonal: the operator keeps the matrix-free
+            # γ·CᵀW⁻¹C (immersed_laplace.py:1013-1016 of the reference)
+            m = torch.as_tensor(self.free[lo * nx:hi * nx], device=self.device)
+
+            def al_rows(x):
+                al = gamma * C_lin.T(inv_w(C_lin(torch.where(m, x,
+                                                                   0.0))))
+                return torch.where(m, al, 0.0)
+
+            aug_blk = k1_plus(fine, lat.h, al_rows)
+            self.sharded_outer = dict(kind="k1", rows=[lo, hi], dtype=str(
+                dt).replace("torch.", ""), h=lat.h,
+                ext=list(ext_rows(mesh, fine, HALO["op"])))
+        elif gmg_dt == dt:
+            aug_blk = gmg.levels[0].op
+        else:
+            (aug_blk, _, _), self.sharded_outer = level_on_block(
+                self.space, fine, dt)
+
+        def k_mv(x):
+            return block_laplace(mesh, fine, lat.h,
+                                 x.reshape(hi - lo, nx)).reshape(-1)
+
+        return self._sharded_outer(mesh, blocks, gmg, aug_blk, k_mv, C_lin,
+                                   inv_w, gamma, (hi - lo, nx))
+
+    def _sharded_flat(self, mesh):
+        """The element form over contiguous ranges of every level's flat
+        dof vector (``parallel.mesh.plan_ranges``, the partition GSPMD
+        gives the JAX package's flat vectors): every operator computes this
+        rank's rows on its all-gathered input, masked as a whole vector
+        (the stiffness ``ops.operators.CellRows``, the compact AL block
+        ``Coupling.compact_al_rows``, the transfers
+        ``precond.gmg.ProlongationRows``), the unfused Chebyshev on the
+        distributed levels; the levels whose ranges are thinner than
+        ``parallel.mesh.FLAT_MIN_ROWS`` form the replicated tail, the last
+        with the dense coarse inverse.  No kernel runs on this path, as in
+        serial.  A ghost-dof halo would replace the all-gather."""
+        from ..parallel.mesh import plan_ranges
+
+        cfg = self.cfg
+        dt = self.dtype
+        gmg_dt = torch.bfloat16 if cfg.use_bf16_multigrid else dt
+        form = self._al_form()
+        gamma, inv_w = form[:2]
+        blocks = plan_ranges([sp.n_dofs for sp in level_spaces(self.space)],
+                             mesh.size)
+        fine_rows = {}
+
+        def block_factory(i, sp, bl):
+            rows = bl.rows(mesh.rank)
+            self.sharded_levels.append(dict(
+                kind="element", rows=list(rows),
+                dtype=str(gmg_dt).replace("torch.", "")))
+            fine_rows[i] = self._flat_level(sp, gmg_dt, form, rows=rows)
+            return fine_rows[i]
+
+        def op_factory(sp):
+            return self._flat_level(sp, gmg_dt, form)
+
+        gmg = build_gmg_flat_sharded(self.space, block_factory, op_factory,
+                                     mesh=mesh, blocks=blocks,
+                                     free_mask=self.free,
+                                     smoother_degree=cfg.gmg_smoother_degree,
+                                     lanczos_start=self.lanczos_start,
+                                     dtype=gmg_dt, stats=self.stats)
+        fine = blocks[0]
+        lo, hi = fine.rows(mesh.rank)
+        C_lin = self._sharded_coupling(mesh, lo, hi)
+        K_own = CellRows(self.K, lo, hi)
+        if not (cfg.use_operator_form or cfg.use_diagonal_inverse):
+            def aug_rows(x):
+                return K_own.mv(x) + gamma * C_lin.T(inv_w(self.C.mv(x)))
+        elif gmg_dt == dt:
+            aug_rows = fine_rows[0][0]
+        else:
+            aug_rows = self._flat_level(self.space, dt, form,
+                                        rows=(lo, hi))[0]
+        m_full = self.free
+        m_own = m_full[lo:hi]
+
+        def gather(x):
+            return mesh.all_gather_rows(x, fine.counts)
+
+        def aug_blk(x):
+            return torch.where(m_own, aug_rows(torch.where(
+                m_full, gather(x), 0.0)), x)
+
+        def k_mv(x):
+            return K_own.mv(gather(x))
+
+        return self._sharded_outer(mesh, blocks, gmg, aug_blk, k_mv, C_lin,
+                                   inv_w, gamma, (hi - lo,))
+
+    def _sharded_outer(self, mesh, blocks, gmg, aug_blk, k_mv, C_lin, inv_w,
+                       gamma, shape):
+        """The outer solve over this rank's rows (``shape``: the fine
+        level's rows of a lattice, or of a flat vector): FGMRES on the
+        block system with the AL preconditioner, whose inner CG runs on
+        ``aug_blk`` preconditioned by ``gmg``, and the ``run`` of
+        :meth:`build_sharded_solver`."""
+        from ..parallel.mesh import inner_product, replicated
+
+        cfg = self.cfg
+        fine = blocks[0]
+        lo, hi = fine.rows(mesh.rank)
+        own = slice(lo * fine.nx, hi * fine.nx)
+        n_own, n_imm = own.stop - own.start, self.imm_space.n_dofs
         Ct_lin = C_lin.T
 
         def aug_mv(x):
-            return aug_blk(x.reshape(rows, nx)).reshape(-1)
+            return aug_blk(x.reshape(shape)).reshape(-1)
 
         def aug_inv(v):
-            x2, _ = cg(aug_blk, v.reshape(rows, nx), M=gmg.apply,
-                       tol=cfg.inner_tolerance, max_steps=cfg.inner_max_steps,
-                       stats=self.stats, inner=inner_product(mesh))
-            return x2.reshape(-1)
-
-        def k_mv(x):
-            return block_laplace(mesh, blocks[0], lat.h,
-                                 x.reshape(rows, nx)).reshape(-1)
+            x, _ = cg(aug_blk, v.reshape(shape), M=gmg.apply,
+                      tol=cfg.inner_tolerance, max_steps=cfg.inner_max_steps,
+                      stats=self.stats, inner=inner_product(mesh))
+            return x.reshape(-1)
 
         layout = BlockLayout((n_own, n_imm))
         AA = block_operator(layout, layout, [
@@ -843,11 +1026,12 @@ class ImmersedLaplaceProblem:
             mesh.same_on_every_rank([info.iterations, info.residual,
                                      info.res0, info.converged],
                                     "the outer solve's info")
-            u = mesh.all_gather_rows(torch.where(free, u, bc).reshape(rows, nx),
-                                     blocks[0].counts)
+            u = mesh.all_gather_rows(torch.where(free, u, bc).reshape(shape),
+                                     fine.counts)
             return u.reshape(-1), lam, info
 
         run.gmg, run.blocks, run.mesh = gmg, blocks, mesh
+        run.flat = len(shape) == 1
         return run
 
     def _check_refinable(self):
@@ -999,17 +1183,13 @@ class ImmersedLaplaceProblem:
         return LinOp(k_c, (n, n), k_c, name="K_c"), K_inv
 
     def _kg_inv_flat(self, reduction):
-        dev, dt = self.device, self.dtype
-        order = self.cfg.embedding_space_degree + 1
-
         def factory(sp):
-            K_l = self.K if sp is self.space else laplace_matrix(
-                sp, order=order, device=dev, dtype=dt)
+            K_l = self._level_stiffness(sp)
             return K_l.mv, K_l.diag_host()
 
         gmg = build_gmg_flat(self.space, factory, free_mask=self.free,
-                             lanczos_start=self.lanczos_start, dtype=dt,
-                             stats=self.stats)
+                             lanczos_start=self.lanczos_start,
+                             dtype=self.dtype, stats=self.stats)
         self._kinv_gmg = gmg
         K_c = constrain(self.K.as_linop(), self.free)
 

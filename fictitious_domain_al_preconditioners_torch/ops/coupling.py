@@ -17,7 +17,10 @@ form (:meth:`Coupling.particle_mass_term`) and two lattice forms: the
 9-point patch (:meth:`Coupling.patch_w9`, :meth:`Coupling.patch_al_lattice`,
 :meth:`Coupling.patch_stencil_al`) when the band is interior to the lattice,
 and the compact dense block (:meth:`Coupling.compact_al`) otherwise, which
-also holds the explicit form γ·Cᵀdiag(w)C.
+also holds the explicit form γ·Cᵀdiag(w)C.  A rank of the sharded solve
+keeps its rows of the table (:meth:`Coupling.row_block`), of the compact
+block (:meth:`Coupling.compact_al_rows`, :class:`CompactRows`) and of the
+patch (``patch_al_lattice(..., rows=)``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from .. import native
 from ..core.quadrature import gauss
 from .linop import LinOp
 
-__all__ = ["Coupling", "VectorCoupling", "build_coupling", "accumulate_al"]
+__all__ = ["Coupling", "CompactRows", "VectorCoupling", "build_coupling",
+           "accumulate_al"]
 
 
 def accumulate_al(idx, phi, w, m):
@@ -269,6 +273,43 @@ class Coupling:
         lin.rows = m
         return lin, diag
 
+    def compact_al_rows(self, gamma: float, first: int, last: int,
+                        w_diag=None, dtype=None) -> "CompactRows":
+        """The rows of :meth:`compact_al`'s block that belong to the
+        background dofs ``[first, last)`` (a rank's rows of the sharded
+        solve): ``m_own x m`` entries, formed in float64 from the block's
+        COO entries in those rows (the whole ``m x m`` never is), held in
+        ``dtype`` (default: the coupling's).  See :class:`CompactRows`."""
+        dofs = self.host["bg_dofs"]
+        uniq = np.unique(dofs.reshape(-1))
+        if w_diag is None:
+            phi, jxw = self.host["bg_phi"], self.host["jxw"]
+            rows = np.repeat(dofs, dofs.shape[1], axis=1).reshape(-1)
+            cols = np.tile(dofs, (1, dofs.shape[1])).reshape(-1)
+            vals = (phi[:, :, None] * phi[:, None, :]
+                    * jxw[:, None, None]).reshape(-1)
+        else:
+            from .sparse import COO, spgemm_ctwc
+
+            ctwc = spgemm_ctwc(COO.from_coupling(self),
+                               np.asarray(w_diag, dtype=np.float64))
+            rows, cols, vals = ctwc.rows, ctwc.cols, ctwc.vals
+        rows, cols = rows.astype(np.int64), cols.astype(np.int64)
+        p0, p1 = np.searchsorted(uniq, (first, last))
+        own = (rows >= first) & (rows < last)
+        A = np.zeros((p1 - p0, len(uniq)))
+        np.add.at(A, (np.searchsorted(uniq, rows[own]) - p0,
+                      np.searchsorted(uniq, cols[own])), vals[own])
+        diag = np.zeros(self.shape[1])
+        on = rows == cols
+        np.add.at(diag, rows[on], gamma * vals[on])
+        return CompactRows(
+            torch.as_tensor(uniq, dtype=torch.int64, device=self.device),
+            int(p0), int(p1), first, last,
+            torch.as_tensor(gamma * A, dtype=self.dtype,
+                            device=self.device).to(dtype or self.dtype),
+            diag)
+
     def patch_w9(self, space, gamma: float, free=None):
         """Raw Γ-band 9-point patch weights ``((r0, c0, pr, pc), w9)``, float64
         NumPy: ``w9[a, b, i, j]`` multiplies ``x[r0+i+a-1, c0+j+b-1]`` at
@@ -319,7 +360,8 @@ class Coupling:
 
         return LinOp(mv, (n, n), mv, name="AL_stencil"), diag
 
-    def patch_al_lattice(self, space, gamma: float, free=None, dtype=None):
+    def patch_al_lattice(self, space, gamma: float, free=None, dtype=None,
+                         rows=None):
         """Lattice-resident particle AL apply ``mv2(x2d) -> (ny, nx)`` from
         the 9-point patch, and the flat assembled diagonal (float64 NumPy).
         ``free`` bakes
@@ -328,12 +370,31 @@ class Coupling:
         the products, as in the reference (``coupling.py:339-350``), so a
         bfloat16 level stays bfloat16; they are cast once, here, to ``dtype``
         (default: the coupling's), the dtype of the level that applies
-        them."""
+        them.  With ``rows = (a, b)`` ``mv2`` applies the patch on that
+        block of lattice rows, an extended block of the sharded solve: the
+        box is clipped to the block's interior rows ``[a+1, b-1)``, as
+        ``AugmentedStencil2D.row_block`` clips K2's (the diagonal stays the
+        whole lattice's)."""
         pw = self.patch_w9(space, gamma, free=free)
         if pw is None:
             return None
         (r0, c0, pr, pc), w9 = pw
         nx, ny = space.n_points_1d
+        dg = np.zeros((ny, nx))
+        dg[r0:r0 + pr, c0:c0 + pc] = w9[1, 1]
+        out_rows = ny
+        if rows is not None:
+            a, b = rows
+            lo, hi = max(r0, a + 1), min(r0 + pr, b - 1)
+            out_rows = b - a
+            if lo >= hi:         # no row of the patch in the block
+
+                def zero(x2d):
+                    return torch.zeros_like(x2d)
+
+                return zero, dg.reshape(-1)
+            w9 = w9[:, :, lo - r0:hi - r0]
+            r0, pr = lo - a, hi - lo
         w9t = torch.as_tensor(w9, dtype=self.dtype,
                               device=self.device).to(dtype or self.dtype)
 
@@ -345,13 +406,44 @@ class Coupling:
                 for b in range(3):
                     term = w[a, b] * up[a:a + pr, b:b + pc]
                     acc = term if acc is None else acc + term
-            out = torch.zeros((ny, nx), dtype=x2d.dtype, device=x2d.device)
+            out = torch.zeros((out_rows, nx), dtype=x2d.dtype,
+                              device=x2d.device)
             out[r0:r0 + pr, c0:c0 + pc] = acc
             return out
 
-        dg = np.zeros((ny, nx))
-        dg[r0:r0 + pr, c0:c0 + pc] = w9[1, 1]
         return mv2, dg.reshape(-1)
+
+
+class CompactRows:
+    """A rank's rows of a compact AL block (:meth:`Coupling.compact_al_rows`):
+    ``uniq`` are the block's background dofs (all ``m`` of them, sorted),
+    ``uniq[p0:p1]`` those in the rank's dofs ``[first, last)``, ``A`` their
+    rows (``m_own x m``), ``diag`` the whole flat assembled diagonal
+    (float64 NumPy) and ``rows`` = m.  :meth:`share` writes the rank's band
+    entries of a vector of its dofs into a zero m-vector; the ranks' shares
+    sum (an all-reduce, exact: every entry has one contributor) to the
+    band's values, which :meth:`apply` multiplies by the rank's rows and
+    scatters into its dofs.  With the whole vector at hand (the element
+    form gathers it), ``apply(x[uniq])`` needs no reduction."""
+
+    def __init__(self, uniq, p0, p1, first, last, A, diag):
+        self.uniq, self.p0, self.p1 = uniq, p0, p1
+        self.first, self.last = first, last
+        self.local = uniq[p0:p1] - first
+        self.A = A
+        self.diag = diag
+        self.rows = int(uniq.numel())
+
+    def share(self, x_own: torch.Tensor) -> torch.Tensor:
+        band = torch.zeros(self.rows, dtype=x_own.dtype, device=x_own.device)
+        band[self.p0:self.p1] = x_own[self.local]
+        return band
+
+    def apply(self, band: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(self.last - self.first, dtype=band.dtype,
+                          device=band.device)
+        out[self.local] = self.A.to(band.dtype) @ band
+        return out
 
 
 class VectorCoupling:

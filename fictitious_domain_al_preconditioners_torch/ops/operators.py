@@ -6,7 +6,8 @@ matrix (gather, batched local matvec, ``index_add_``), with a per-cell or a
 shared local matrix and an optional per-cell coefficient, and
 :class:`CellMatrixSum`, a sum of such matrices (the element form of a
 locally refined grid: one shared local matrix per level for the cells
-without a hanging node, per-cell folded ones for the others).
+without a hanging node, per-cell folded ones for the others), and
+:class:`CellRows`, a rank's rows of either.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 
 from .linop import LinOp
 
-__all__ = ["CellMatrix", "CellMatrixSum", "constrain", "dirichlet_rhs"]
+__all__ = ["CellMatrix", "CellMatrixSum", "CellRows", "constrain",
+           "dirichlet_rhs"]
 
 
 class CellMatrix:
@@ -205,6 +207,49 @@ class CellMatrixSum:
     def to_dense(self) -> np.ndarray:
         return sum(p.to_dense() for p in self.parts)
 
+
+
+class CellRows:
+    """Rows ``[first, last)`` of a :class:`CellMatrix` or
+    :class:`CellMatrixSum` ``A``: ``mv(x)`` of the whole input vector is
+    those rows of ``A x`` (a rank's rows of the sharded element form).  It
+    keeps the cells with a row dof in the range; their other rows go to one
+    extra output row, which ``mv`` drops."""
+
+    def __init__(self, A, first: int, last: int):
+        self.n = last - first
+        self.shape = (self.n, A.shape[1])
+        self.parts = []
+        for p in getattr(A, "parts", [A]):
+            rows = p.row_dofs_host.astype(np.int64)
+            own = (rows >= first) & (rows < last)
+            cells = own.any(axis=1)
+            keep = torch.as_tensor(cells, device=p.device)
+            self.parts.append((
+                torch.as_tensor(np.where(own, rows - first, self.n)[cells],
+                                dtype=torch.int64, device=p.device),
+                torch.as_tensor(p.col_dofs_host[cells], dtype=torch.int64,
+                                device=p.device),
+                p.local if p.shared_local else p.local[keep],
+                None if p.coef is None else p.coef[keep]))
+
+    def mv(self, x):
+        """Rows ``[first, last)`` of ``A @ x``; a trailing axis broadcasts.
+        Each part sums into its own vector, as :class:`CellMatrixSum`'s
+        do, so the rows round as the whole matrix's."""
+        tail = tuple(x.shape[1:])
+        out = None
+        for rows, cols, local, coef in self.parts:
+            eq = "ab,cb...->ca..." if local.dim() == 2 else "cab,cb...->ca..."
+            ye = torch.einsum(eq, local.to(x.dtype), x[cols])
+            if coef is not None:
+                ye = ye * coef.to(x.dtype).reshape(
+                    (-1,) + (1,) * (ye.dim() - 1))
+            y = torch.zeros((self.n + 1,) + tail, dtype=x.dtype,
+                            device=x.device).index_add_(
+                0, rows.reshape(-1), ye.reshape((-1,) + tail))
+            out = y if out is None else out + y
+        return out[:self.n]
 
 def constrain(op, free_mask: torch.Tensor) -> LinOp:
     """Impose Dirichlet constraints on a square operator:

@@ -9,11 +9,13 @@ float64.  Each runs the three stages of the JAX dry run: the sharded AL CG
 step at refinement 4, the sharded two-level PCG step, and the sharded
 flagship solve at refinement 4 against the serial solve.
 
-:func:`sharded_flagship_rank` is what one rank of a sharded flagship run
-does (the dry run's third stage, ``scripts/run_sharded_big_torch.py``,
-``chip_smoke.py`` phase 16 and the tests call it through ``launch``);
-:func:`serial_reference` and :func:`compare_to_serial` hold such a run to
-the serial solve, for the script and phase 16 alike.
+:func:`sharded_flagship_rank` is what one rank of a sharded run of any
+augmented configuration does (the dry run's third stage,
+``scripts/run_sharded_big_torch.py``, ``chip_smoke.py`` phase 16 and the
+tests call it through ``launch``; :func:`sharded_runs_rank` runs several
+in one start of the ranks); :func:`serial_reference` and
+:func:`compare_to_serial` hold such a run to the serial solve, for the
+script and phase 16 alike.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ import torch
 from .mesh import (Mesh, launch, padded_shape, sharded_al_cg_step,
                    sharded_two_level_step)
 
-__all__ = ["flagship_config", "sharded_flagship_rank", "serial_reference",
-           "compare_to_serial", "SERIAL_LIMITS", "dryrun_multichip"]
+__all__ = ["flagship_config", "sharded_flagship_rank", "sharded_runs_rank",
+           "serial_reference", "compare_to_serial", "SERIAL_LIMITS",
+           "dryrun_multichip"]
 
 CIRCLE = ("R*cos(2*pi*x)+Cx; R*sin(2*pi*x)+Cy", "R=.2, Cx=.4, Cy=.4")
 
@@ -51,12 +54,27 @@ PROBE_SEED = 1650
 #: H100 80GB HBM3, 700 W; PERF.md §6).  The probes take no inner stop, so
 #: they see a halo fault that the u limit cannot tell from rounding: two
 #: ranks read 3.5e-8 (op) and 7.4e-7 (vcycle) there, a halo one row short
-#: 0.12 and 1.3e-3 (float64, on the CPU).
+#: 0.12 and 1.3e-3 (float64, on the CPU).  A configuration with limits of
+#: its own is keyed ``"<dtype>:<name>"``.  The bf16 V-cycle (``bf16``): its
+#: Lanczos bounds are float32 sums, all-reduced over the ranks, whose last
+#: bits move the Chebyshev coefficients enough to flip single bf16 roundings:
+#: the V-cycle probe 4.4e-3 from the serial one (about one bf16 ulp at the
+#: largest entry) and u 1.1e-4 at refinement 6 under the flagship's rule on
+#: 2 ranks (float64 outer, CPU); at 12 on the card 9.6e-3 and u 1.05e-3,
+#: where two serial bf16 solves of one problem lie 1.34e-3 apart (H100,
+#: 700 W; PERF.md §6).  Its operator probe stays bit-equal, and sees a halo
+#: fault.  The other configurations of ``chip_smoke.py`` phase 16 read
+#: within the float32 limits (u 9.2e-6 to 9.0e-5, op at most 1.2e-7,
+#: V-cycle at most 7.4e-7).
 SERIAL_LIMITS = {
     "float64": {1: dict(iterations=0, u=1e-9, op=1e-12, vcycle=1e-12),
                 2: dict(iterations=0, u=1e-9, op=1e-12, vcycle=1e-12)},
     "float32": {1: dict(iterations=0, u=1e-5, op=1e-6, vcycle=1e-6),
-                2: dict(iterations=1, u=5e-4, op=1e-6, vcycle=1e-5)}}
+                2: dict(iterations=1, u=5e-4, op=1e-6, vcycle=1e-5)},
+    "float64:bf16": {1: dict(iterations=0, u=1e-9, op=1e-12, vcycle=1e-12),
+                     2: dict(iterations=1, u=5e-4, op=1e-12, vcycle=2e-2)},
+    "float32:bf16": {1: dict(iterations=0, u=1e-5, op=1e-6, vcycle=1e-6),
+                     2: dict(iterations=1, u=5e-3, op=1e-6, vcycle=2e-2)}}
 
 
 def flagship_config(refinement: int, **control):
@@ -103,34 +121,54 @@ def probe_vector(shape, dtype, device) -> torch.Tensor:
                            device=device)
 
 
-def _apply_probe(op, vcycle, x) -> dict:
-    return {k: f(x).cpu().numpy() for k, f in (("op", op),
-                                               ("vcycle", vcycle))}
+def _apply_probe(gmg, x) -> dict:
+    """The probe through a hierarchy's fine operator (in the V-cycle's
+    dtype: the bf16 levels take bf16) and one V-cycle, float64 NumPy."""
+    return {k: f(x).double().cpu().numpy() for k, f in (
+        ("op", lambda v: gmg.levels[0].op(v.to(gmg.dtype))),
+        ("vcycle", gmg.apply))}
 
 
-def serial_reference(cfg, device, spread: bool = False) -> dict:
-    """The serial flagship solve of ``cfg`` that a sharded run is held to,
-    with deterministic algorithms: its outer ``outer_iterations``,
-    ``converged``, ``u`` (float64 NumPy), the ``probe`` (the fine level's
-    operator and one V-cycle on :func:`probe_vector`), seconds and dofs.
-    With ``spread`` a second solve of the same problem with them off adds
-    ``spread`` (its u's relative max-norm difference: the serial path's
-    own spread from run to run) and ``spread_outer_iterations``."""
-    from ..models.immersed_laplace import ImmersedLaplaceProblem
+def probe_shape(prob) -> tuple:
+    """The fine level vector's shape: the lattice, or flat on the element
+    form."""
     from .lattice import LatticeOps
+
+    if prob.element_form:
+        return (prob.space.n_dofs,)
+    return LatticeOps.for_space(prob.space).shape
+
+
+def serial_reference(cfg, device, spread: bool = False,
+                     state_arrays=None) -> dict:
+    """The serial augmented solve of ``cfg`` (any configuration of
+    ``ImmersedLaplaceProblem.build_sharded_solver``; with ``state_arrays``
+    on the JAX package's setup state) that a sharded
+    run is held to, with deterministic algorithms: its outer
+    ``outer_iterations``, ``converged``, ``u`` and ``lam`` (float64 NumPy),
+    the ``probe`` (the fine level's operator and one V-cycle on
+    :func:`probe_vector`), seconds and dofs.  With ``spread`` a second
+    solve of the same problem with them off adds ``spread`` (its u's
+    relative max-norm difference: the serial path's own spread from run to
+    run) and ``spread_outer_iterations``."""
+    from ..models.immersed_laplace import ImmersedLaplaceProblem
+    from ..utils.carry import state_from_jax
 
     with _deterministic():
         t0 = time.perf_counter()
         prob = ImmersedLaplaceProblem(cfg, device=device).setup()
+        if state_arrays is not None:
+            prob.load_state(state_from_jax(state_arrays, prob.device,
+                                           prob.dtype))
         setup_s = time.perf_counter() - t0
-        u, _, info = prob.solve()
+        u, lam, info = prob.solve()
         gmg = prob._last_gmg
-        x = probe_vector(LatticeOps.for_space(prob.space).shape, prob.dtype,
-                         prob.device)
-        probe = _apply_probe(gmg.levels[0].op, gmg.apply, x)
+        x = probe_vector(probe_shape(prob), prob.dtype, prob.device)
+        probe = _apply_probe(gmg, x)
     u = u.double().cpu().numpy()
     out = dict(outer_iterations=int(info.iterations),
-               converged=bool(info.converged), u=u, probe=probe,
+               converged=bool(info.converged), u=u,
+               lam=lam.double().cpu().numpy(), probe=probe,
                setup_seconds=setup_s,
                build_seconds=prob.results["build_seconds"],
                solve_seconds=prob.results["solve_seconds"],
@@ -144,18 +182,21 @@ def serial_reference(cfg, device, spread: bool = False) -> dict:
     return out
 
 
-def compare_to_serial(res: list, serial: dict) -> dict:
+def compare_to_serial(res: list, serial: dict, name: str | None = None
+                      ) -> dict:
     """Hold a sharded run (``res``: every rank's result of
     :func:`sharded_flagship_rank`) to ``serial``
-    (:func:`serial_reference`) within :data:`SERIAL_LIMITS`: returns the
-    ``drifts`` (outer iterations apart; relative max-norm of u and of the
-    probes, the ranks' rows stacked), the ``limits`` and the
-    ``failures`` (empty when the run holds)."""
+    (:func:`serial_reference`) within :data:`SERIAL_LIMITS` (those of the
+    configuration ``name`` where it has its own): returns the ``drifts``
+    (outer iterations apart; relative max-norm of u and of the probes, the
+    ranks' rows stacked), the ``limits`` and the ``failures`` (empty when
+    the run holds)."""
     def rel(a, ref):
         return float(np.abs(a - ref).max() / np.abs(ref).max())
 
     r0 = res[0]
-    limits = SERIAL_LIMITS[r0["dtype"]][min(len(res), 2)]
+    limits = SERIAL_LIMITS.get(f"{r0['dtype']}:{name}",
+                               SERIAL_LIMITS[r0["dtype"]])[min(len(res), 2)]
     drifts = dict(
         iterations=abs(r0["iterations"] - serial["outer_iterations"]),
         u=rel(r0["u"], serial["u"]),
@@ -170,7 +211,8 @@ def compare_to_serial(res: list, serial: dict) -> dict:
 
 def sharded_flagship_rank(mesh: Mesh, cfg, state_arrays=None,
                           serial: bool = False, keep=None) -> dict:
-    """One rank of the sharded flagship solve of ``cfg`` on
+    """One rank of the sharded augmented solve of ``cfg`` (the flagship, or
+    any configuration ``build_sharded_solver`` takes) on
     ``mesh.device`` (float64 on the CPU, float32 on a card): set up the
     problem (with ``state_arrays``, the JAX package's setup state, loaded
     by ``utils.carry.state_from_jax``), build the sharded solver, solve
@@ -189,6 +231,14 @@ def sharded_flagship_rank(mesh: Mesh, cfg, state_arrays=None,
     as in :func:`serial_reference`."""
     with _deterministic():
         return _sharded_flagship_rank(mesh, cfg, state_arrays, serial, keep)
+
+
+def sharded_runs_rank(mesh: Mesh, runs, keep=None) -> list:
+    """:func:`sharded_flagship_rank` of each ``(cfg, state_arrays)`` of
+    ``runs`` in turn, in one start of the ranks; their results in order
+    (each run's launch counts and peak memory its own)."""
+    return [sharded_flagship_rank(mesh, cfg, arrays, keep=keep)
+            for cfg, arrays in runs]
 
 
 def _sharded_flagship_rank(mesh, cfg, state_arrays, serial, keep):
@@ -224,7 +274,9 @@ def _sharded_flagship_rank(mesh, cfg, state_arrays, serial, keep):
         dofs_immersed=prob.imm_space.n_dofs,
         rows=list(run.blocks[0].rows(mesh.rank)),
         distributed_levels=len(run.blocks),
-        levels=len(run.gmg.levels) + len(run.gmg.tail.levels),
+        levels=(len(run.gmg.levels) + len(run.gmg.tail.levels)
+                - run.gmg.direct),
+        level_kinds=[lv["kind"] for lv in prob.sharded_levels],
         iterations=int(info.iterations), residual=float(info.residual),
         converged=bool(info.converged), setup_seconds=setup_s,
         build_seconds=build_s, solve_seconds=solve_s,
@@ -238,9 +290,8 @@ def _sharded_flagship_rank(mesh, cfg, state_arrays, serial, keep):
         lam=lam.double().cpu().numpy(),
         u=u.double().cpu().numpy() if mesh.rank == 0 else None)
     lo, hi = run.blocks[0].rows(mesh.rank)
-    x = probe_vector((run.blocks[0].ny, run.blocks[0].nx), prob.dtype,
-                     dev)[lo:hi].contiguous()
-    out["probe"] = _apply_probe(run.gmg.levels[0].op, run.gmg.apply, x)
+    x = probe_vector(probe_shape(prob), prob.dtype, dev)[lo:hi].contiguous()
+    out["probe"] = _apply_probe(run.gmg, x)
     if keep is not None:
         keep(prob, run, out)
     if serial:

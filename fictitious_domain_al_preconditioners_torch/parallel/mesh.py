@@ -23,11 +23,18 @@ rows are right when the halo is at least the depth of :data:`HALO` (or
 :func:`sweep_halo` for a Chebyshev sweep); ``tests/test_torch_parallel.py``
 checks each depth, and one row less.
 
+The element form has no lattice rows: each level's flat dof vector is cut
+into contiguous ranges (:func:`range_partition`, :func:`plan_ranges`;
+:class:`RowBlocks` of one-entry rows), and its operators all-gather their
+input (:meth:`Mesh.all_gather_rows`).
+
 Transports (:attr:`Mesh.transport`): ``nccl`` sends device tensors (one card
 a rank); ``gloo`` sends CPU tensors; ``gloo-host`` is gloo with CUDA tensors
 (several ranks on one card, which NCCL refuses): halo rows and reduced
 values are copied to the host, sent, and copied back.  The transport
 follows from the backend and the device, and nothing falls back to another.
+Under gloo a bfloat16 tensor travels in float32 (exact both ways; gloo
+builds differ in their bfloat16 support).
 
 :func:`launch` starts the ranks (spawned processes meeting through a file
 store in a temporary directory) and returns their results.
@@ -49,7 +56,8 @@ import torch.distributed as dist
 from .lattice import LatticeOps, _prolong_axis, _restrict_axis
 
 __all__ = ["HALO", "sweep_halo", "Mesh", "make_mesh", "padded_shape",
-           "RowBlocks", "row_partition", "plan_levels", "lattice_sharding",
+           "RowBlocks", "row_partition", "plan_levels", "FLAT_MIN_ROWS",
+           "range_partition", "plan_ranges", "lattice_sharding",
            "replicated", "inner_product", "restrict_block", "prolong_block",
            "on_block", "ext_rows", "block_laplace", "launch",
            "sharded_al_cg_step", "sharded_two_level_step"]
@@ -98,18 +106,31 @@ class Mesh:
             self.counts[k] = 0
 
     def _out(self, t):
-        """``t`` as the transport sends it."""
-        return t.cpu() if self.transport == "gloo-host" else t.contiguous()
+        """``t`` as the transport sends it: on the host under gloo-host,
+        and a bfloat16 tensor in float32 under gloo (exact both ways,
+        whatever bfloat16 support the gloo build has; :meth:`_in` rounds
+        it back)."""
+        t = t.cpu() if self.transport == "gloo-host" else t.contiguous()
+        if t.dtype == torch.bfloat16 and self.backend != "nccl":
+            return t.float()
+        return t
+
+    @staticmethod
+    def _in(buf, like):
+        """A received ``buf`` as a tensor of ``like``'s dtype and device."""
+        return buf.to(like.device, like.dtype)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks (a new tensor; ``t`` itself when
-        there is one rank)."""
+        there is one rank).  A bfloat16 ``t`` is summed in float32 under
+        gloo and rounded back once (exact where one rank contributes each
+        entry, as a compact AL block's band does)."""
         if self.size == 1:
             return t
         buf = self._out(t).clone()
         dist.all_reduce(buf, group=self.group)
         self.counts["all_reduces"] += 1
-        return buf.to(t.device)
+        return self._in(buf, t)
 
     def all_gather_rows(self, x: torch.Tensor, counts) -> torch.Tensor:
         """The rows of every rank's ``x`` (``counts[r]`` rows on rank r), in
@@ -117,12 +138,13 @@ class Mesh:
         if self.size == 1:
             return x
         m = max(counts)
-        buf = self._out(x).new_zeros((m,) + tuple(x.shape[1:]))
-        buf[:x.shape[0]] = self._out(x)
+        out = self._out(x)
+        buf = out.new_zeros((m,) + tuple(x.shape[1:]))
+        buf[:x.shape[0]] = out
         bufs = [torch.empty_like(buf) for _ in range(self.size)]
         dist.all_gather(bufs, buf, group=self.group)
         self.counts["all_gathers"] += 1
-        return torch.cat([b[:c] for b, c in zip(bufs, counts)]).to(x.device)
+        return self._in(torch.cat([b[:c] for b, c in zip(bufs, counts)]), x)
 
     def same_on_every_rank(self, values, what: str):
         """Raise unless the float64 ``values`` are bit-equal on every
@@ -152,6 +174,7 @@ class Mesh:
             return x, 0, 0
         ops, recv = [], []
         staged = "cpu" if self.transport == "gloo-host" else x.device
+        wire = self._out(x[:0]).dtype
         for q in range(self.size):
             if q == self.rank:
                 continue
@@ -161,7 +184,7 @@ class Mesh:
                 s, e = max(s, qlo), min(e, qhi)
                 if s < e:
                     recv.append((s, torch.empty(
-                        (e - s,) + tuple(x.shape[1:]), dtype=x.dtype,
+                        (e - s,) + tuple(x.shape[1:]), dtype=wire,
                         device=staged)))
                     ops.append(dist.P2POp(dist.irecv, recv[-1][1], q,
                                           self.group))
@@ -176,7 +199,7 @@ class Mesh:
         ext = x.new_empty((b - a,) + tuple(x.shape[1:]))
         ext[lo - a:hi - a] = x
         for s, buf in recv:
-            ext[s - a:s - a + buf.shape[0]] = buf.to(x.device)
+            ext[s - a:s - a + buf.shape[0]] = self._in(buf, x)
         self.counts["halo_exchanges"] += 1
         self.counts["halo_bytes"] += sum(t.numel() * t.element_size()
                                          for _, t in recv)
@@ -263,18 +286,20 @@ def row_partition(ny: int, nx: int, size: int, align: int = 0) -> RowBlocks:
     return RowBlocks(tuple(edges) + (ny,), nx)
 
 
-def plan_levels(ny: int, nx: int, size: int, *, n_levels: int, depth: int,
-                max_distributed: int) -> list:
+def plan_levels(ny: int, nx: int, size: int, *, n_levels: int,
+                depth: int) -> list:
     """The row blocks of the distributed levels of a 2:1 hierarchy, fine
     first; the rest of the hierarchy, at least its coarsest level, is the
     replicated tail.  The fine level is always distributed (a block thinner
-    than a halo takes it from several blocks); a coarser one while all its
-    blocks have at least ``depth`` rows, up to ``max_distributed`` levels.
-    The fine edges are multiples of ``2**(levels - 1)``, so the blocks
-    nest."""
+    than a halo takes it from several blocks; a one-level hierarchy's too);
+    a coarser one, never the coarsest, while all its blocks have at least
+    ``depth`` rows.  The fine edges are multiples of ``2**(levels - 1)``, so
+    the blocks nest."""
     if ny < size:
         raise ValueError(f"{ny} rows do not divide among {size} ranks")
-    for nd in range(min(max_distributed, n_levels - 1), 0, -1):
+    if n_levels == 1:
+        return [row_partition(ny, nx, size)]
+    for nd in range(n_levels - 1, 0, -1):
         levels = [row_partition(ny, nx, size, align=nd - 1)]
         for _ in range(nd - 1):
             levels.append(levels[-1].coarse())
@@ -283,6 +308,37 @@ def plan_levels(ny: int, nx: int, size: int, *, n_levels: int, depth: int,
             return levels
     raise ValueError(f"no level of a {n_levels}-level hierarchy can be "
                      "distributed")
+
+
+#: a level of the element form below the fine one is distributed while
+#: every rank's range of its dofs holds at least this many (the coarser
+#: ones form the replicated tail, whose last level keeps the dense coarse
+#: inverse)
+FLAT_MIN_ROWS = 128
+
+
+def range_partition(n: int, size: int) -> RowBlocks:
+    """Near-even contiguous ranges of a flat vector of ``n`` entries over
+    ``size`` ranks: :class:`RowBlocks` of one-entry rows (``nx = 1``), the
+    partition GSPMD's ``P(axes)`` gives the JAX package's flat vectors."""
+    if n < size:
+        raise ValueError(f"{n} dofs do not divide among {size} ranks")
+    return RowBlocks(tuple(int(round(p * n / size)) for p in range(size))
+                     + (n,), 1)
+
+
+def plan_ranges(sizes, size: int) -> list:
+    """The ranges (:func:`range_partition`) of the distributed levels of a
+    flat hierarchy whose level vectors have ``sizes`` entries, fine first:
+    the fine level always (a one-level hierarchy's too), a coarser one
+    while ``size`` ranges of it hold at least :data:`FLAT_MIN_ROWS` entries
+    each, never the coarsest."""
+    out = [range_partition(sizes[0], size)]
+    for n in sizes[1:-1]:
+        if n // size < FLAT_MIN_ROWS:
+            break
+        out.append(range_partition(n, size))
+    return out
 
 
 class LatticeSharding:

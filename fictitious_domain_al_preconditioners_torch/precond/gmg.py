@@ -14,6 +14,9 @@ preconditioner.  The hierarchies:
 - :func:`build_gmg_sharded` (:class:`ShardedGMG`), the same hierarchy over
   the row blocks of ``parallel.mesh``: the fine levels on each rank's rows,
   the coarse ones replicated (a :class:`GMG`);
+- :func:`build_gmg_flat_sharded`, the flat hierarchy over contiguous ranges
+  of each level vector, the same :class:`ShardedGMG` (the transfers
+  :class:`ProlongationRows` on all-gathered vectors);
 - :func:`build_gmg_flat`, the flat hierarchy of any continuous space,
   uniform or locally refined (``gmg.py:272-459`` of the reference without
   the lattice branch): level
@@ -43,9 +46,9 @@ from ..utils.carry import block_lanczos_start
 from .chebyshev import chebyshev
 
 __all__ = ["FusedSmoother", "LatticeTransfer2D", "Prolongation",
-           "VectorProlongation", "make_prolongation", "GMG", "ShardedGMG",
-           "build_gmg", "build_gmg_sharded", "build_gmg_flat",
-           "level_spaces"]
+           "ProlongationRows", "VectorProlongation", "make_prolongation",
+           "GMG", "ShardedGMG", "build_gmg", "build_gmg_sharded",
+           "build_gmg_flat", "build_gmg_flat_sharded", "level_spaces"]
 
 
 class Prolongation:
@@ -69,6 +72,37 @@ class Prolongation:
         return out.index_add_(0, self.cell_dofs.reshape(-1),
                               (self.phi.to(xf.dtype) * xf[:, None])
                               .reshape(-1))
+
+
+class ProlongationRows:
+    """A rank's rows of a :class:`Prolongation`'s applies to a whole input
+    vector: ``mv(xc)`` its fine rows ``[first, last)`` of ``P xc``, or, with
+    ``restrict``, ``rmv(xf)`` its coarse rows ``[first, last)`` of ``Pᵀ
+    xf`` (the fine rows that reach them, the others dropped)."""
+
+    def __init__(self, P: Prolongation, first: int, last: int, *,
+                 restrict: bool = False):
+        self.n = last - first
+        if not restrict:
+            self.cell_dofs = P.cell_dofs[first:last]
+            self.phi = P.phi[first:last]
+            return
+        dofs = P.cell_dofs
+        own = (dofs >= first) & (dofs < last)
+        fine = own.any(dim=1)
+        self.fine = torch.nonzero(fine).reshape(-1)
+        self.cell_dofs = torch.where(own, dofs - first, self.n)[fine]
+        self.phi = P.phi[fine]
+
+    def mv(self, xc):
+        return (xc[self.cell_dofs] * self.phi.to(xc.dtype)).sum(dim=1)
+
+    def rmv(self, xf):
+        out = torch.zeros(self.n + 1, dtype=xf.dtype, device=xf.device)
+        out.index_add_(0, self.cell_dofs.reshape(-1),
+                       (self.phi.to(xf.dtype) * xf[self.fine][:, None])
+                       .reshape(-1))
+        return out[:self.n]
 
 
 def make_prolongation(fine, coarse, *, device, dtype=torch.float64):
@@ -254,9 +288,10 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
     return GMG(levels, _coarse_inverse(levels[-1], dtype), dtype)
 
 
-def _level_masks(fine_space, free_mask):
-    """``mask(sp, i)``: the free-dof mask of level ``i`` (flat bool NumPy),
-    the fine mask on the fine level and the same constrained faces below."""
+def _level_masks(fine_space, free_mask, n_comp: int = 1):
+    """``mask(sp, i)``: the free-dof mask of level ``i`` (flat bool NumPy
+    of ``n_comp·n``), the fine mask on the fine level and the same
+    constrained faces below, in every component."""
     fine_mask = free_mask.cpu().numpy()
     constrained_ids = _constrained_faces(fine_space, fine_mask)
 
@@ -264,8 +299,8 @@ def _level_masks(fine_space, free_mask):
         if i == 0:
             return fine_mask
         if constrained_ids:
-            return ~sp.boundary_dof_mask(constrained_ids)
-        return np.ones(sp.n_dofs, dtype=bool)
+            return np.tile(~sp.boundary_dof_mask(constrained_ids), n_comp)
+        return np.ones(n_comp * sp.n_dofs, dtype=bool)
 
     return mask
 
@@ -319,53 +354,95 @@ def _coarse_inverse(coarse, dtype):
     """The coarse level's dense inverse: columns op(e_k) in the cycle
     precision, inverted on the host in float64, held in the working
     precision."""
-    lat = tuple(reversed(coarse.space.n_points_1d))
-    nco = coarse.space.n_dofs
+    shape = tuple(coarse.mask.shape)         # a lattice, or flat
+    nco = coarse.mask.numel()
     device = coarse.mask.device
     eye = torch.eye(nco, dtype=dtype, device=device)
-    dense = torch.stack([coarse.op(eye[k].reshape(lat)).reshape(-1)
+    dense = torch.stack([coarse.op(eye[k].reshape(shape)).reshape(-1)
                          for k in range(nco)], dim=1)
     inv = np.linalg.inv(dense.cpu().double().numpy())
     return torch.as_tensor(inv, dtype=_work_dtype(dtype), device=device)
 
 
 class ShardedGMG:
-    """The lattice V-cycle over row blocks (``parallel.mesh``): the
-    distributed levels hold this rank's rows (``blocks[i]``), their
-    smoothers are fused (``pre``/``post``) and the transfers exchange one
-    halo row; below them the replicated ``tail`` (a :class:`GMG` on whole
-    lattices, the same on every rank) takes the all-gathered restricted
-    residual and runs the rest of the cycle and the dense coarse inverse,
-    and each rank keeps its rows of the prolonged correction.  ``apply``
-    takes and returns this rank's rows of the fine level."""
+    """The V-cycle over a rank's rows (``parallel.mesh``): the distributed
+    levels hold this rank's rows of their level vectors (``blocks[i]``:
+    lattice row blocks, or ranges of a flat vector), smoothed by a fused
+    smoother (``pre``/``post``) or the unfused Chebyshev over the level's
+    sharded operator; below them the replicated ``tail`` (a :class:`GMG`
+    on whole level vectors, the same on every rank) runs the rest of the
+    cycle and the dense coarse inverse.  ``transfers[i] = (restrict,
+    prolong)`` move level ``i``'s rows to the next level's (this rank's
+    rows, or the whole first tail level after the last distributed one) and
+    back.  A one-level hierarchy (``direct``) has its fine level in the
+    tail too: the cycle is the tail's dense inverse on the all-gathered
+    vector (``transfers[0]`` gathers and cuts), as the serial cycle of one
+    level is its coarse solve.  ``apply`` takes and returns this rank's
+    rows of the fine level."""
 
-    def __init__(self, levels, blocks, tail: GMG, mesh, dtype):
+    def __init__(self, levels, blocks, tail: GMG, mesh, dtype, transfers,
+                 direct: bool = False):
         self.levels = levels
         self.blocks = blocks
         self.tail = tail
         self.mesh = mesh
         self.dtype = dtype
+        self.transfers = transfers
+        self.direct = direct
 
     def _vcycle(self, li: int, b):
-        mesh, level, fine = self.mesh, self.levels[li], self.blocks[li]
-        x, r = level.smoother.pre(b)
-        if li + 1 < len(self.levels):
-            coarse = self.blocks[li + 1]
-            rc = (self.levels[li + 1].mask
-                  * restrict_block(mesh, fine, coarse, r)).to(self.dtype)
-            up = prolong_block(mesh, coarse, fine, self._vcycle(li + 1, rc))
+        if self.direct:
+            gather, cut = self.transfers[0]
+            return cut(self.tail._coarse_solve(gather(b)))
+        level = self.levels[li]
+        sm = level.smoother
+        if getattr(sm, "pre", None) is not None:
+            x, r = sm.pre(b)
         else:
-            coarse = fine.coarse()
-            rc = mesh.all_gather_rows(restrict_block(mesh, fine, coarse, r),
-                                      coarse.counts)
-            rc = (self.tail.levels[0].mask * rc).to(self.dtype)
-            up = prolong_block(mesh, coarse, fine, self.tail._vcycle(0, rc),
-                               full=True)
-        x = x + (level.mask * up).to(self.dtype)
-        return level.smoother.post(b, x)
+            x = sm(b)
+            r = b - level.op(x)
+        restrict, prolong = self.transfers[li]
+        last = li + 1 == len(self.levels)
+        coarse = self.tail.levels[0] if last else self.levels[li + 1]
+        rc = (coarse.mask * restrict(r)).to(self.dtype)
+        xc = self.tail._vcycle(0, rc) if last else self._vcycle(li + 1, rc)
+        x = x + (level.mask * prolong(xc)).to(self.dtype)
+        if getattr(sm, "post", None) is not None:
+            return sm.post(b, x)
+        return x + sm(b - level.op(x))
 
     def apply(self, b):
         return self._vcycle(0, b.to(self.dtype)).to(b.dtype)
+
+
+def _sharded_level(i, sp, n, own, shape, op, diag, mask, smoother_builder, *,
+                   mesh, smoother_degree, lanczos_start, dtype, stats):
+    """A distributed level: ``op`` on this rank's rows (``shape``), the
+    level's ``mask`` and whole flat assembled ``diag`` (NumPy) cut to the
+    rows of the flat slice ``own``; its Lanczos bound from this rank's rows
+    of the serial start vector with all-reduced products; the fused
+    smoother of ``smoother_builder`` or the unfused Chebyshev."""
+    device = mask.device
+    work_dt = _work_dtype(dtype)
+    diag = torch.as_tensor(np.asarray(diag, dtype=np.float64).reshape(-1)
+                           [own].reshape(shape), device=device)
+    diag_inv = torch.where(mask, 1.0 / diag, 1.0).to(dtype)
+
+    def lanc_mv(v):
+        return (diag_inv * op(v.reshape(shape).to(dtype))).reshape(-1).to(
+            work_dt)
+
+    v0 = block_lanczos_start(lanczos_start, i, n, own.start, own.stop, 1)
+    lam = lanczos_max_eig(lanc_mv, own.stop - own.start, steps=LANCZOS_STEPS,
+                          v0=v0, dtype=work_dt, device=device, stats=stats,
+                          inner=inner_product(mesh))
+    if smoother_builder is not None:
+        smoother = smoother_builder(lam, degree=smoother_degree,
+                                    eig_ratio=EIG_RATIO)
+    else:
+        smoother = chebyshev(op, diag_inv, lam, degree=smoother_degree,
+                             eig_ratio=EIG_RATIO)
+    return _Level(sp, op, diag_inv, mask.to(dtype), smoother, None, lam)
 
 
 def build_gmg_sharded(fine_space, block_factory, op_factory, *, mesh,
@@ -379,51 +456,54 @@ def build_gmg_sharded(fine_space, block_factory, op_factory, *, mesh,
     ``block_factory(i, space, blocks_i) -> (op, diag, smoother_builder)``
     gives a distributed level: ``op`` on this rank's rows (rows, nx),
     ``diag`` the level's whole assembled diagonal (flat NumPy) and a
-    ``smoother_builder`` of a fused smoother on this rank's rows;
-    ``op_factory`` gives a tail level, as for :func:`build_gmg`.  Every
-    rank draws its Lanczos start vectors on the whole level
-    (``lanczos_start(i, n)`` or ``default_rng(0)``) and keeps its rows, and
-    all-reduces the Lanczos products: the bounds are those of the serial
-    hierarchy up to the order of the sums."""
+    ``smoother_builder`` of a fused smoother on this rank's rows, or None
+    for the unfused Chebyshev over ``op``; ``op_factory`` gives a tail
+    level, as for :func:`build_gmg`.  The transfers exchange one halo row;
+    the last distributed level's restriction is all-gathered into the
+    tail's first level.  Every rank draws its Lanczos start vectors on the
+    whole level (``lanczos_start(i, n)`` or ``default_rng(0)``) and keeps
+    its rows, and all-reduces the Lanczos products: the bounds are those
+    of the serial hierarchy up to the order of the sums."""
     spaces = level_spaces(fine_space)
     level_mask = _level_masks(fine_space, free_mask)
-    device = free_mask.device
-    work_dt = _work_dtype(dtype)
-    inner = inner_product(mesh)
-    levels = []
+    nd = len(blocks)
+    direct = nd == len(spaces)
+    levels, transfers = [], []
     for i, (sp, bl) in enumerate(zip(spaces, blocks)):
         lo, hi = bl.rows(mesh.rank)
         shape = (hi - lo, bl.nx)
         mask = torch.as_tensor(level_mask(sp, i).reshape(bl.ny, bl.nx)[lo:hi],
-                               device=device)
+                               device=free_mask.device)
         op, diag, smoother_builder = block_factory(i, sp, bl)
-        if smoother_builder is None:
-            raise ValueError(f"level {i} has no fused smoother: a compact AL "
-                             "block cannot lie on a distributed level")
-        diag = torch.as_tensor(np.asarray(diag, dtype=np.float64)
-                               .reshape(bl.ny, bl.nx)[lo:hi], device=device)
-        diag_inv = torch.where(mask, 1.0 / diag, 1.0).to(dtype)
-
-        def lanc_mv(v, op=op, di=diag_inv, shape=shape):
-            return (di * op(v.reshape(shape).to(dtype))).reshape(-1).to(
-                work_dt)
-
-        v0 = block_lanczos_start(lanczos_start, i, sp.n_dofs, lo, hi, bl.nx)
-        lam = lanczos_max_eig(lanc_mv, shape[0] * shape[1],
-                              steps=LANCZOS_STEPS, v0=v0, dtype=work_dt,
-                              device=device, stats=stats, inner=inner)
-        smoother = smoother_builder(lam, degree=smoother_degree,
-                                    eig_ratio=EIG_RATIO)
-        levels.append(_Level(sp, op, diag_inv, mask.to(dtype), smoother,
-                             None, lam))
-    tail = _lattice_levels(spaces[len(blocks):], len(blocks), op_factory,
+        levels.append(_sharded_level(
+            i, sp, sp.n_dofs, slice(lo * bl.nx, hi * bl.nx), shape, op, diag,
+            mask, smoother_builder, mesh=mesh,
+            smoother_degree=smoother_degree, lanczos_start=lanczos_start,
+            dtype=dtype, stats=stats))
+        if direct:
+            transfers.append((
+                lambda r, f=bl: mesh.all_gather_rows(r, f.counts),
+                lambda x, lo=lo, hi=hi: x[lo:hi]))
+        elif i + 1 < nd:
+            coarse = blocks[i + 1]
+            transfers.append((
+                lambda r, f=bl, c=coarse: restrict_block(mesh, f, c, r),
+                lambda xc, f=bl, c=coarse: prolong_block(mesh, c, f, xc)))
+        else:
+            coarse = bl.coarse()
+            transfers.append((
+                lambda r, f=bl, c=coarse: mesh.all_gather_rows(
+                    restrict_block(mesh, f, c, r), c.counts),
+                lambda xc, f=bl, c=coarse: prolong_block(mesh, c, f, xc,
+                                                         full=True)))
+    tail = _lattice_levels(spaces[nd - direct:], nd - direct, op_factory,
                            free_mask=free_mask,
                            smoother_degree=smoother_degree,
                            lanczos_start=lanczos_start, dtype=dtype,
                            stats=stats, fine_space=fine_space)
     return ShardedGMG(levels, list(blocks),
                       GMG(tail, _coarse_inverse(tail[-1], dtype), dtype),
-                      mesh, dtype)
+                      mesh, dtype, transfers, direct)
 
 
 def build_gmg_flat(fine_space, op_factory, *, free_mask, n_comp: int = 1,
@@ -442,21 +522,28 @@ def build_gmg_flat(fine_space, op_factory, *, free_mask, n_comp: int = 1,
     component.  ``lanczos_start(level_index, n) -> ndarray`` optionally
     supplies each level's Lanczos start vector (``n = n_comp·n_level``).
     ``dtype`` is the cycle precision, as in :func:`build_gmg`."""
-    spaces = level_spaces(fine_space)
+    levels = _flat_levels(level_spaces(fine_space), 0, op_factory,
+                          free_mask=free_mask, n_comp=n_comp,
+                          smoother_degree=smoother_degree,
+                          lanczos_start=lanczos_start, dtype=dtype,
+                          stats=stats)
+    return GMG(levels, _coarse_inverse(levels[-1], dtype), dtype)
+
+
+def _flat_levels(spaces, first, op_factory, *, free_mask, n_comp,
+                 smoother_degree, lanczos_start, dtype, stats,
+                 fine_space=None):
+    """The :class:`_Level` list of the flat levels ``spaces``, the first of
+    which is level ``first`` of the hierarchy of ``fine_space`` (default
+    ``spaces[0]``); the first one has no transfer."""
     device = free_mask.device
-    fine_mask = free_mask.cpu().numpy()
-    constrained_ids = _constrained_faces(fine_space, fine_mask)
-    work_dt = torch.float32 if dtype == torch.bfloat16 else dtype
+    level_mask = _level_masks(fine_space or spaces[0], free_mask, n_comp)
+    work_dt = _work_dtype(dtype)
     levels = []
-    for i, sp in enumerate(spaces):
+    for j, sp in enumerate(spaces):
+        i = first + j
         n = n_comp * sp.n_dofs
-        if i == 0:
-            m = fine_mask
-        elif constrained_ids:
-            m = np.tile(~sp.boundary_dof_mask(constrained_ids), n_comp)
-        else:
-            m = np.ones(n, dtype=bool)
-        mask = torch.as_tensor(m, device=device)
+        mask = torch.as_tensor(level_mask(sp, i), device=device)
         mv_raw, diag = op_factory(sp)
         diag = torch.as_tensor(np.asarray(diag.cpu() if torch.is_tensor(diag)
                                           else diag, dtype=np.float64),
@@ -476,20 +563,80 @@ def build_gmg_flat(fine_space, op_factory, *, free_mask, n_comp: int = 1,
         smoother = chebyshev(op, diag_inv, lam, degree=smoother_degree,
                              eig_ratio=EIG_RATIO)
         prolong = None
-        if i > 0:
-            prolong = make_prolongation(spaces[i - 1], sp, device=device,
+        if j > 0:
+            prolong = make_prolongation(spaces[j - 1], sp, device=device,
                                         dtype=dtype)
             if n_comp > 1:
                 prolong = VectorProlongation(prolong, n_comp)
         levels.append(_Level(sp, op, diag_inv, mask.to(dtype), smoother,
                              prolong, lam))
+    return levels
 
-    # coarse dense inverse: columns op(e_k) in the cycle precision, inverted
-    # on the host in float64, held in the working precision
-    coarse = levels[-1]
-    nco = n_comp * coarse.space.n_dofs
-    eye = torch.eye(nco, dtype=dtype, device=device)
-    dense = torch.stack([coarse.op(eye[k]) for k in range(nco)], dim=1)
-    inv = np.linalg.inv(dense.cpu().double().numpy())
-    return GMG(levels, torch.as_tensor(inv, dtype=work_dt, device=device),
-               dtype)
+
+def build_gmg_flat_sharded(fine_space, block_factory, op_factory, *, mesh,
+                           blocks, free_mask, smoother_degree: int = 4,
+                           lanczos_start=None, dtype=torch.float64,
+                           stats: dict | None = None) -> ShardedGMG:
+    """:func:`build_gmg_flat` (a scalar field) over contiguous ranges of
+    the level vectors: the first ``len(blocks)`` levels are distributed
+    (``blocks[i]``, ``parallel.mesh.plan_ranges``), the rest is the
+    replicated tail built as :func:`build_gmg_flat` builds a hierarchy.
+
+    ``block_factory(i, space, blocks_i) -> (mv, diag)`` gives a distributed
+    level: ``mv(x)`` this rank's rows of the level's unconstrained operator
+    applied to the whole level vector ``x``, ``diag`` the whole assembled
+    diagonal; ``op_factory`` gives a tail level, as for
+    :func:`build_gmg_flat`.  Every sharded operator all-gathers its input
+    and applies the Dirichlet mask to the whole vector; the transfers
+    (:class:`ProlongationRows`) all-gather theirs, and the last distributed
+    level's restriction gives the whole first tail level.  Smoothers are the
+    unfused Chebyshev; the Lanczos bounds as in :func:`build_gmg_sharded`."""
+    spaces = level_spaces(fine_space)
+    level_mask = _level_masks(fine_space, free_mask)
+    device = free_mask.device
+    nd = len(blocks)
+    direct = nd == len(spaces)
+    levels, transfers = [], []
+    for i, (sp, bl) in enumerate(zip(spaces, blocks)):
+        lo, hi = bl.rows(mesh.rank)
+        m_full = torch.as_tensor(level_mask(sp, i), device=device)
+        m_own = m_full[lo:hi]
+        mv_own, diag = block_factory(i, sp, bl)
+
+        def op(x, mv_own=mv_own, m_full=m_full, m_own=m_own, bl=bl):
+            x_full = mesh.all_gather_rows(x, bl.counts)
+            return torch.where(m_own, mv_own(torch.where(m_full, x_full,
+                                                         0.0)), x)
+
+        levels.append(_sharded_level(
+            i, sp, sp.n_dofs, slice(lo, hi), (hi - lo,), op, diag, m_own,
+            None, mesh=mesh, smoother_degree=smoother_degree,
+            lanczos_start=lanczos_start, dtype=dtype, stats=stats))
+        if direct:
+            transfers.append((
+                lambda r, f=bl: mesh.all_gather_rows(r, f.counts),
+                lambda x, lo=lo, hi=hi: x[lo:hi]))
+            continue
+        P = make_prolongation(sp, spaces[i + 1], device=device, dtype=dtype)
+        fine_rows = ProlongationRows(P, lo, hi)
+        if i + 1 < nd:
+            coarse = blocks[i + 1]
+            coarse_rows = ProlongationRows(P, *coarse.rows(mesh.rank),
+                                           restrict=True)
+            transfers.append((
+                lambda r, f=bl, cr=coarse_rows: cr.rmv(
+                    mesh.all_gather_rows(r, f.counts)),
+                lambda xc, c=coarse, fr=fine_rows: fr.mv(
+                    mesh.all_gather_rows(xc, c.counts))))
+        else:
+            transfers.append((
+                lambda r, f=bl, P=P: P.rmv(mesh.all_gather_rows(r, f.counts)),
+                fine_rows.mv))
+    tail = _flat_levels(spaces[nd - direct:], nd - direct, op_factory,
+                        free_mask=free_mask, n_comp=1,
+                        smoother_degree=smoother_degree,
+                        lanczos_start=lanczos_start, dtype=dtype,
+                        stats=stats, fine_space=fine_space)
+    return ShardedGMG(levels, list(blocks),
+                      GMG(tail, _coarse_inverse(tail[-1], dtype), dtype),
+                      mesh, dtype, transfers, direct)

@@ -139,28 +139,24 @@ def test_plan_levels():
     depth = sweep_halo(4)
     assert depth == 5 and HALO == {"laplace": 1, "op": 2, "transfer": 1}
     # refinement 12 over 2 ranks: 11 levels, 4097 ... 17 rows distributed
-    levels = plan_levels(4097, 4097, 2, n_levels=11, depth=depth,
-                         max_distributed=10)
+    levels = plan_levels(4097, 4097, 2, n_levels=11, depth=depth)
     assert [b.ny for b in levels] == [2 ** (12 - i) + 1 for i in range(9)]
     assert min(levels[-1].counts) >= depth
     assert min(levels[-1].coarse().counts) < depth   # the tail starts there
-    # one rank distributes every level before the coarsest and a compact one
-    assert len(plan_levels(33, 33, 1, n_levels=4, depth=depth,
-                           max_distributed=3)) == 3
-    assert len(plan_levels(33, 33, 1, n_levels=4, depth=depth,
-                           max_distributed=2)) == 2
+    # one rank distributes every level before the coarsest
+    assert len(plan_levels(33, 33, 1, n_levels=4, depth=depth)) == 3
+    # a one-level hierarchy's only level is distributed
+    (fine,) = plan_levels(9, 9, 2, n_levels=1, depth=depth)
+    assert fine.counts == [4, 5]
     # refinement 5 over 4 ranks: the fine level alone (blocks of 8, 8, 9, 8)
-    (fine,) = plan_levels(33, 33, 4, n_levels=4, depth=depth,
-                          max_distributed=3)
+    (fine,) = plan_levels(33, 33, 4, n_levels=4, depth=depth)
     assert fine.counts == [8, 8, 9, 8]
     # refinement 4 over 4 ranks: blocks thinner than the halo (several
     # blocks give it)
-    (fine,) = plan_levels(17, 17, 4, n_levels=3, depth=depth,
-                          max_distributed=2)
+    (fine,) = plan_levels(17, 17, 4, n_levels=3, depth=depth)
     assert fine.counts == [4, 4, 5, 4]
     with pytest.raises(ValueError, match="do not divide"):
-        plan_levels(3, 3, 4, n_levels=1, depth=depth, max_distributed=1)
-
+        plan_levels(3, 3, 4, n_levels=1, depth=depth)
 
 # -- halo depth of each kernel's plain version --------------------------------
 

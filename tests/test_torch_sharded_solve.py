@@ -3,7 +3,9 @@
 against the JAX package's serial solve and the port's own, in float64 on
 the CPU with the JAX package's setup state and Lanczos vectors carried; the
 JAX package's sharded solver on its 8-device virtual mesh against the port
-on 4 ranks; ``dryrun_multichip``; and what the sharded path refuses.
+on 4 ranks; ``dryrun_multichip``.  The other configurations have files of
+their own: ``test_torch_sharded_forms.py`` (the lattice path's) and
+``test_torch_sharded_flat.py`` (the element form).
 
 JAX is imported inside the tests only: a spawned rank imports this module
 to find its function, and every rank reports whether ``jax`` was loaded."""
@@ -195,24 +197,6 @@ def test_a_rank_failure_reaches_the_parent():
     assert "rank 1 of 2 failed" in text
     assert "ValueError: rank one fails on purpose" in text
     assert "_failing_rank" in text        # the rank's traceback
-
-
-@pytest.mark.parametrize("option", ["explicit", "exact_w", "bf16",
-                                    "element_form"])
-def test_unsupported_configurations_raise(option):
-    cfg = flagship_config(4)
-    if option == "explicit":
-        cfg.use_operator_form = False
-    elif option == "exact_w":
-        cfg.use_diagonal_inverse = False
-    elif option == "bf16":
-        cfg.use_bf16_multigrid = True
-    else:
-        cfg.delta_refinement = 1
-        cfg.initial_embedded_refinement = 6
-    prob = TProblem(cfg, device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="not in this port"):
-        prob.build_sharded_solver(CPU_MESH)
 
 
 def test_one_rank_mesh_runs_in_process():
