@@ -47,9 +47,10 @@ from ..ops.krylov import cg, fgmres
 from ..ops.linop import LinOp
 from ..ops.operators import CellMatrix, constrain, dirichlet_rhs
 from ..ops.sparse_band import vector_al_level
-from ..precond.al import al_preconditioner_modified
+from ..precond.al import al_preconditioner_modified, block_solve
 from ..precond.gmg import build_gmg_flat
 from ..precond.weights import lattice_mass_inverse
+from ..tracer import span
 from ..utils.prm import Params, parse_prm
 from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
 from ..utils.timer import TimerOutput
@@ -184,7 +185,7 @@ class ElasticityInterfaceProblem:
                                else torch.float32)
         self.timer = TimerOutput()
         self.results = {}
-        self.stats = {"host_syncs": 0}
+        self.stats = {"host_syncs": 0, "inner_iterations": 0}
         self.lanczos_start = None
         self.lanczos_start_a22 = None
         self.gamma_bg = config.gamma_AL_background
@@ -420,13 +421,13 @@ class ElasticityInterfaceProblem:
                          max_steps=min(cfg.inner.max_steps, 1000)))
 
         def A11_inv(v):
-            x, _ = cg(A11_mv, v, M=gmg11.apply, stats=self.stats,
-                      **inner_kw)
+            x, _ = block_solve(A11_mv, v, M=gmg11.apply, stats=self.stats,
+                               **inner_kw)
             return x
 
         def A22_inv(v):
-            x, _ = cg(A22_mv, v, M=gmg22.apply, stats=self.stats,
-                      **inner_kw)
+            x, _ = block_solve(A22_mv, v, M=gmg22.apply, stats=self.stats,
+                               **inner_kw)
             return x
 
         def A12_mv(x):
@@ -495,28 +496,30 @@ class ElasticityInterfaceProblem:
     def solve(self) -> int:
         """Build the solver of the current γ's (once) and run it; returns the
         outer iterations.  ``results`` records them with convergence, the
-        solve and build seconds, the host syncs and the GMG levels'
-        routes."""
-        key = (round(self.gamma_bg, 12), round(self.gamma_imm, 12))
-        if key not in self._solvers:
+        solve and build seconds, the host syncs, the inner CG iterations
+        (``inner_iterations``) and the GMG levels' routes."""
+        with span("solve", family="elasticity", solver="modified"):
+            key = (round(self.gamma_bg, 12), round(self.gamma_imm, 12))
+            if key not in self._solvers:
+                t0 = time.perf_counter()
+                with self.timer.scope("Build solver"):
+                    self._solvers[key] = self._build_solver()
+                self.results["build_seconds"] = time.perf_counter() - t0
+            self.stats.update(host_syncs=0, inner_iterations=0)
             t0 = time.perf_counter()
-            with self.timer.scope("Build solver"):
-                self._solvers[key] = self._build_solver()
-            self.results["build_seconds"] = time.perf_counter() - t0
-        self.stats["host_syncs"] = 0
-        t0 = time.perf_counter()
-        with self.timer.scope("Solve system"):
-            x, info = self._solvers[key](self.rhs_f1, self.rhs_f2)
-            self._sync()
-        self.u, self.u2, self.lam = self.layout.split(x)
-        self.results.update(
-            dofs_background=self.layout.sizes[0],
-            dofs_immersed=self.layout.sizes[1],
-            outer_iterations=int(info.iterations),
-            converged=bool(info.converged), residual=float(info.residual),
-            solve_seconds=time.perf_counter() - t0,
-            host_syncs=self.stats["host_syncs"])
-        return int(info.iterations)
+            with self.timer.scope("Solve system"):
+                x, info = self._solvers[key](self.rhs_f1, self.rhs_f2)
+                self._sync()
+            self.u, self.u2, self.lam = self.layout.split(x)
+            self.results.update(
+                dofs_background=self.layout.sizes[0],
+                dofs_immersed=self.layout.sizes[1],
+                outer_iterations=int(info.iterations),
+                converged=bool(info.converged), residual=float(info.residual),
+                solve_seconds=time.perf_counter() - t0,
+                host_syncs=self.stats["host_syncs"],
+                inner_iterations=self.stats["inner_iterations"])
+            return int(info.iterations)
 
     def build_correction_solver(self):
         """``(r0, r1, r2) -> (x, info)``: one AL-preconditioned FGMRES solve
@@ -565,7 +568,7 @@ class ElasticityInterfaceProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats["host_syncs"] = 0
+        self.stats.update(host_syncs=0, inner_iterations=0)
         t0 = time.perf_counter()
         (u, u2, lam), history, total_iters, converged = guarded_refinement(
             residual, correct, self.layout.sizes, tol_abs, max_refine)
@@ -580,7 +583,8 @@ class ElasticityInterfaceProblem:
             refine_steps=len(history) - 1, converged=converged,
             refined_seconds=elapsed, correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
-            host_syncs=self.stats["host_syncs"])
+            host_syncs=self.stats["host_syncs"],
+            inner_iterations=self.stats["inner_iterations"])
         return u, u2, lam, history
 
     # -- diagnostics --------------------------------------------------------

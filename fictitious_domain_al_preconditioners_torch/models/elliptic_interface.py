@@ -65,12 +65,14 @@ from ..ops.operators import constrain, dirichlet_rhs
 from ..ops.sparse import COO, spgemm_ctwc
 from ..ops.sparse_band import lattice_band_linop
 from ..parallel.lattice import LatticeOps
-from ..precond.al import al_preconditioner_ideal, al_preconditioner_modified
+from ..precond.al import (al_preconditioner_ideal, al_preconditioner_modified,
+                          block_solve)
 from ..precond.chebyshev import chebyshev
 from ..precond.gmg import build_gmg, build_gmg_flat
 from ..precond.weights import (diag_of_m_squared, inv_diag,
                                inv_diag_of_m_squared, inv_exact,
                                inv_squared_exact)
+from ..tracer import span
 from ..utils.expressions import ParsedFunction
 from ..utils.prm import Params, parse_prm
 from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
@@ -252,7 +254,7 @@ class EllipticInterfaceProblem:
         self.timer = TimerOutput()
         self.table = ConvergenceTable()
         self.results = {}
-        self.stats = {"host_syncs": 0}
+        self.stats = {"host_syncs": 0, "inner_iterations": 0}
         self.lanczos_start = None
         self.lanczos_start_a22 = None
         # mutable AL parameters (the √2 rule and the γ study change them)
@@ -727,13 +729,13 @@ class EllipticInterfaceProblem:
                          max_steps=cfg.inner.max_steps))
 
         def A11_inv(v):
-            x, _ = cg(ops["A11"], v, M=gmg11_apply, stats=self.stats,
-                      **inner_kw)
+            x, _ = block_solve(ops["A11"], v, M=gmg11_apply,
+                               stats=self.stats, **inner_kw)
             return x
 
         def A22_inv(v):
-            x, _ = cg(ops["A22"], v, M=A22_prec, stats=self.stats,
-                      **inner_kw)
+            x, _ = block_solve(ops["A22"], v, M=A22_prec, stats=self.stats,
+                               **inner_kw)
             return x
 
         system_operator = block_operator(layout, layout, [
@@ -762,9 +764,11 @@ class EllipticInterfaceProblem:
                 return sub.concat((gmg11_apply(x0), A22_prec(x1)))
 
             def aug_inv_coupled(v):
-                x, _ = cg(Aug2x2, v, M=prec_aug, tol=cfg.inner.tolerance,
-                          reduction=cfg.inner.reduction,
-                          max_steps=cfg.inner.max_steps, stats=self.stats)
+                x, _ = block_solve(Aug2x2, v, M=prec_aug,
+                                   tol=cfg.inner.tolerance,
+                                   reduction=cfg.inner.reduction,
+                                   max_steps=cfg.inner.max_steps,
+                                   stats=self.stats)
                 return x
 
             prec = al_preconditioner_ideal(
@@ -827,33 +831,39 @@ class EllipticInterfaceProblem:
     def solve(self) -> int:
         """Build the solver of the current γ's (once) and run it; returns the
         outer iterations.  ``results`` records them with convergence, the
-        solve and build seconds and the host syncs."""
-        cfg = self.cfg
-        key = (round(self.gamma_bg, 12), round(self.gamma_imm, 12),
-               cfg.use_modified_AL_preconditioner)
-        if key not in self._solvers:
+        solve and build seconds, the host syncs and the inner CG iterations
+        (``inner_iterations``)."""
+        with span("solve", family="elliptic_interface",
+                  solver=("modified"
+                          if self.cfg.use_modified_AL_preconditioner
+                          else "ideal")):
+            cfg = self.cfg
+            key = (round(self.gamma_bg, 12), round(self.gamma_imm, 12),
+                   cfg.use_modified_AL_preconditioner)
+            if key not in self._solvers:
+                t0 = time.perf_counter()
+                with self.timer.scope("Build solver"):
+                    self._solvers[key] = self._build_solver()
+                self.results["build_seconds"] = time.perf_counter() - t0
+            self.stats.update(host_syncs=0, inner_iterations=0)
             t0 = time.perf_counter()
-            with self.timer.scope("Build solver"):
-                self._solvers[key] = self._build_solver()
-            self.results["build_seconds"] = time.perf_counter() - t0
-        self.stats["host_syncs"] = 0
-        t0 = time.perf_counter()
-        with self.timer.scope("Solve system"):
-            x, info = self._solvers[key](self.rhs_f1, self.rhs_f2,
-                                         self.bc_values)
-            self._sync()
-        self.u, self.u2, self.lam = self.layout.split(x)
-        self.results.update(
-            dofs_background=self.space.n_dofs,
-            dofs_immersed=self.fg_space.n_dofs,
-            outer_iterations=int(info.iterations),
-            converged=bool(info.converged),
-            residual=float(info.residual),
-            gamma=self.gamma_bg,
-            solve_seconds=time.perf_counter() - t0,
-            host_syncs=self.stats["host_syncs"],
-        )
-        return int(info.iterations)
+            with self.timer.scope("Solve system"):
+                x, info = self._solvers[key](self.rhs_f1, self.rhs_f2,
+                                             self.bc_values)
+                self._sync()
+            self.u, self.u2, self.lam = self.layout.split(x)
+            self.results.update(
+                dofs_background=self.space.n_dofs,
+                dofs_immersed=self.fg_space.n_dofs,
+                outer_iterations=int(info.iterations),
+                converged=bool(info.converged),
+                residual=float(info.residual),
+                gamma=self.gamma_bg,
+                solve_seconds=time.perf_counter() - t0,
+                host_syncs=self.stats["host_syncs"],
+                inner_iterations=self.stats["inner_iterations"],
+            )
+            return int(info.iterations)
 
     def build_correction_solver(self):
         """``(r0, r1, r2) -> (x, info)``: one AL-preconditioned FGMRES solve
@@ -904,7 +914,7 @@ class EllipticInterfaceProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats["host_syncs"] = 0
+        self.stats.update(host_syncs=0, inner_iterations=0)
         t0 = time.perf_counter()
         (u, u2, lam), history, total_iters, converged = guarded_refinement(
             residual, correct, self.layout.sizes, tol_abs, max_refine)
@@ -922,7 +932,8 @@ class EllipticInterfaceProblem:
             refined_seconds=elapsed,
             correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
-            host_syncs=self.stats["host_syncs"])
+            host_syncs=self.stats["host_syncs"],
+            inner_iterations=self.stats["inner_iterations"])
         return u, u2, lam, history
 
     # -- diagnostics --------------------------------------------------------

@@ -97,13 +97,14 @@ from ..ops.linop import LinOp
 from ..ops.operators import CellRows, constrain, dirichlet_rhs
 from ..ops.host_ref import HostAugmentedSystem
 from ..parallel.lattice import LatticeOps
-from ..precond.al import al_preconditioner
+from ..precond.al import al_preconditioner, block_solve
 from ..precond.gmg import (FusedSmoother, build_gmg, build_gmg_flat,
                            build_gmg_flat_sharded, build_gmg_sharded,
                            level_spaces)
 from ..precond.rational import rational_preconditioner
 from ..precond.weights import (inv_diag, inv_diag_squared, inv_exact,
                                inv_squared_exact)
+from ..tracer import span
 from ..utils.expressions import ParsedFunction
 from ..utils.prm import Params, parse_prm
 from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
@@ -216,7 +217,7 @@ class ImmersedLaplaceProblem:
                                else torch.float32)
         self.timer = TimerOutput()
         self.results = {}
-        self.stats = {"host_syncs": 0}
+        self.stats = {"host_syncs": 0, "inner_iterations": 0}
         self.lanczos_start = None
         self.compact_blocks = []
         self._solvers = {}
@@ -342,35 +343,38 @@ class ImmersedLaplaceProblem:
     def solve(self):
         """Build the solver of ``cfg.solver`` (once per setup) and run it.
         Returns ``(u, lam, SolveInfo)``; ``results`` records the outer
-        iterations, convergence, solve seconds and host syncs of this
-        solve."""
-        key = self.cfg.solver
-        if key not in self._solvers:
-            builder = {"augmented": self._augmented_run,
-                       "CG": self._build_schur_cg,
-                       "ELMAN_triang": self._build_elman,
-                       "rational": self._build_rational}[key]
+        iterations, convergence, solve seconds, host syncs and inner CG
+        iterations (``inner_iterations``) of this solve."""
+        with span("solve", family="immersed_laplace",
+                  solver=self.cfg.solver):
+            key = self.cfg.solver
+            if key not in self._solvers:
+                builder = {"augmented": self._augmented_run,
+                           "CG": self._build_schur_cg,
+                           "ELMAN_triang": self._build_elman,
+                           "rational": self._build_rational}[key]
+                t0 = time.perf_counter()
+                with self.timer.scope("Build solver"):
+                    self._solvers[key] = builder()
+                self.results["build_seconds"] = time.perf_counter() - t0
+            self.stats.update(host_syncs=0, inner_iterations=0)
             t0 = time.perf_counter()
-            with self.timer.scope("Build solver"):
-                self._solvers[key] = builder()
-            self.results["build_seconds"] = time.perf_counter() - t0
-        self.stats["host_syncs"] = 0
-        t0 = time.perf_counter()
-        with self.timer.scope("Solve system"):
-            u, lam, info = self._solvers[key](self.rhs_f, self.rhs_g,
-                                              self.bc_values)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        self.u, self.lam = u, lam
-        self.results.update(
-            outer_iterations=int(info.iterations),
-            residual=float(info.residual),
-            converged=bool(info.converged),
-            solve_seconds=time.perf_counter() - t0,
-            host_syncs=self.stats["host_syncs"],
-            dofs_background=self.space.n_dofs,
-            dofs_immersed=self.imm_space.n_dofs)
-        return u, lam, info
+            with self.timer.scope("Solve system"):
+                u, lam, info = self._solvers[key](self.rhs_f, self.rhs_g,
+                                                  self.bc_values)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            self.u, self.lam = u, lam
+            self.results.update(
+                outer_iterations=int(info.iterations),
+                residual=float(info.residual),
+                converged=bool(info.converged),
+                solve_seconds=time.perf_counter() - t0,
+                host_syncs=self.stats["host_syncs"],
+                inner_iterations=self.stats["inner_iterations"],
+                dofs_background=self.space.n_dofs,
+                dofs_immersed=self.imm_space.n_dofs)
+            return u, lam, info
 
     def _level_operator(self, sp, coupling, gamma, dtype=None, w_diag=None):
         """Masked augmented operator of one lattice level: ``(op, diag,
@@ -611,9 +615,10 @@ class ImmersedLaplaceProblem:
         Aug = LinOp(aug_mv, (n, n), aug_mv, name="Aug")
 
         def aug_inv(v):
-            x2, _ = cg(aug_lat, v.reshape(shape), M=gmg.apply,
-                       tol=cfg.inner_tolerance, max_steps=cfg.inner_max_steps,
-                       stats=self.stats)
+            x2, _ = block_solve(aug_lat, v.reshape(shape), M=gmg.apply,
+                                tol=cfg.inner_tolerance,
+                                max_steps=cfg.inner_max_steps,
+                                stats=self.stats)
             return x2.reshape(-1)
 
         return Aug, aug_inv, gamma, inv_w
@@ -658,8 +663,9 @@ class ImmersedLaplaceProblem:
         Aug = constrain(LinOp(aug_raw, (n, n), aug_raw), free)
 
         def aug_inv(v):
-            x, _ = cg(Aug, v, M=gmg.apply, tol=cfg.inner_tolerance,
-                      max_steps=cfg.inner_max_steps, stats=self.stats)
+            x, _ = block_solve(Aug, v, M=gmg.apply, tol=cfg.inner_tolerance,
+                               max_steps=cfg.inner_max_steps,
+                               stats=self.stats)
             return x
 
         return Aug, aug_inv, gamma, inv_w
@@ -1101,7 +1107,7 @@ class ImmersedLaplaceProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats["host_syncs"] = 0
+        self.stats.update(host_syncs=0, inner_iterations=0)
         t0 = time.perf_counter()
         (u, lam), history, total_iters, converged = guarded_refinement(
             residual, correct, (self.space.n_dofs, self.imm_space.n_dofs),
@@ -1115,6 +1121,7 @@ class ImmersedLaplaceProblem:
             solve_seconds=elapsed, correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
             host_syncs=self.stats["host_syncs"],
+            inner_iterations=self.stats["inner_iterations"],
             dofs_background=self.space.n_dofs,
             dofs_immersed=self.imm_space.n_dofs)
         return u, lam, history

@@ -43,11 +43,13 @@ from ..ops.assembly import (h1_error, imm_mass_matrix, imm_rhs, l2_error,
 from ..ops.blocks import BlockLayout, block_operator
 from ..ops.coupling import build_coupling
 from ..ops.host_ref import HostNitscheSystem
-from ..ops.krylov import cg, fgmres
+from ..ops.krylov import fgmres
 from ..ops.linop import LinOp
 from ..ops.operators import CellMatrix
+from ..precond.al import al_preconditioner, block_solve
 from ..precond.gmg import build_gmg_flat
 from ..precond.weights import inv_exact
+from ..tracer import span
 from ..utils.expressions import ParsedFunction
 from ..utils.prm import Params, parse_prm
 from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
@@ -176,11 +178,10 @@ class NitscheProblem:
         self.timer = TimerOutput()
         self.table = ConvergenceTable()
         self.results = {}
-        self.stats = {"host_syncs": 0}
+        self.stats = {"host_syncs": 0, "inner_iterations": 0}
         self.lanczos_start = None
         self._solver = None
         self._parts = None
-        self._inner_total = 0
         self._refine_cache = None
 
     # -- setup --------------------------------------------------------------
@@ -319,19 +320,15 @@ class NitscheProblem:
         AA = block_operator(layout, layout, [
             [LinOp(aug_mv, (layout.sizes[0],) * 2), Ct_lin], [C_lin, None]])
 
-        def prec_counted(u):
-            u0, u1 = layout.split(u)
-            v1 = -gamma * inv_w(u1)
-            v0, info = cg(aug_mv, u0 - Ct_lin(v1), M=gmg.apply,
-                          tol=cfg.inner.tolerance,
-                          reduction=cfg.inner.reduction,
-                          max_steps=cfg.inner.max_steps, stats=self.stats)
-            # the reference's total of inner CG iterations
-            # (nitsche_bcs.cc:652-667), summed over one outer solve
-            self._inner_total += info.iterations
-            return layout.concat((v0, v1))
+        def aug_inv(v):
+            x, _ = block_solve(aug_mv, v, M=gmg.apply,
+                               tol=cfg.inner.tolerance,
+                               reduction=cfg.inner.reduction,
+                               max_steps=cfg.inner.max_steps, stats=self.stats)
+            return x
 
-        self._parts = dict(system_operator=AA, prec=prec_counted, gmg=gmg,
+        prec = al_preconditioner(layout, aug_inv, Ct_lin, inv_w, gamma)
+        self._parts = dict(system_operator=AA, prec=prec, gmg=gmg,
                            aug_rhs=torch.as_tensor(self._aug_rhs(),
                                                    dtype=op_dt, device=dev))
         return self._parts
@@ -350,13 +347,15 @@ class NitscheProblem:
             max_steps = cfg.outer.max_steps
 
         def solve_core(b):
-            self._inner_total = 0
+            # the reference's total of inner CG iterations
+            # (nitsche_bcs.cc:652-667), summed over one outer solve
+            before = self.stats["inner_iterations"]
             x, info = fgmres(parts["system_operator"], b, parts["prec"],
                              tol=cfg.outer.tolerance,
                              reduction=cfg.outer.reduction,
                              max_steps=max_steps, restart=cfg.fgmres_restart,
                              stats=self.stats)
-            return x, info, self._inner_total
+            return x, info, self.stats["inner_iterations"] - before
 
         if raw_rhs:
             def run_raw(r0, r1):
@@ -379,28 +378,30 @@ class NitscheProblem:
     def solve(self) -> int:
         """Build the solver (once a setup) and run it; returns the outer
         iterations.  ``results`` records them with the inner CG total and
-        per outer iteration, convergence, the solve and build seconds and
-        the host syncs."""
-        if self._solver is None:
+        per outer iteration (also as ``inner_iterations``), convergence,
+        the solve and build seconds and the host syncs."""
+        with span("solve", family="nitsche_bcs", solver="dlm"):
+            if self._solver is None:
+                t0 = time.perf_counter()
+                with self.timer.scope("Build solver"):
+                    self._solver = self._build_solver()
+                self.results["build_seconds"] = time.perf_counter() - t0
+            self.stats.update(host_syncs=0, inner_iterations=0)
             t0 = time.perf_counter()
-            with self.timer.scope("Build solver"):
-                self._solver = self._build_solver()
-            self.results["build_seconds"] = time.perf_counter() - t0
-        self.stats["host_syncs"] = 0
-        t0 = time.perf_counter()
-        with self.timer.scope("Solve system"):
-            x, info, inner_total = self._solver(self.rhs_f, self.rhs_g)
-            self._sync()
-        self.u, self.lam = self.layout.split(x)
-        outer = int(info.iterations)
-        self.results.update(
-            dofs_u=self.space.n_dofs, dofs_lambda=self.mult_space.n_dofs,
-            outer_its=outer, inner_cg_total=int(inner_total),
-            inner_cg_per_outer=float(inner_total) / max(outer, 1),
-            converged=bool(info.converged), residual=float(info.residual),
-            solve_seconds=time.perf_counter() - t0,
-            host_syncs=self.stats["host_syncs"])
-        return outer
+            with self.timer.scope("Solve system"):
+                x, info, inner_total = self._solver(self.rhs_f, self.rhs_g)
+                self._sync()
+            self.u, self.lam = self.layout.split(x)
+            outer = int(info.iterations)
+            self.results.update(
+                dofs_u=self.space.n_dofs, dofs_lambda=self.mult_space.n_dofs,
+                outer_its=outer, inner_cg_total=int(inner_total),
+                inner_cg_per_outer=float(inner_total) / max(outer, 1),
+                converged=bool(info.converged), residual=float(info.residual),
+                solve_seconds=time.perf_counter() - t0,
+                host_syncs=self.stats["host_syncs"],
+                inner_iterations=self.stats["inner_iterations"])
+            return outer
 
     def build_correction_solver(self):
         """``(r0, r1) -> (x, info, inner_total)``: one AL-preconditioned
@@ -450,7 +451,7 @@ class NitscheProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats["host_syncs"] = 0
+        self.stats.update(host_syncs=0, inner_iterations=0)
         t0 = time.perf_counter()
         (u, lam), history, total_outer, converged = guarded_refinement(
             residual, correct, self.layout.sizes, tol_abs, max_refine)
@@ -465,7 +466,8 @@ class NitscheProblem:
             converged=converged, refined_seconds=elapsed,
             correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
-            host_syncs=self.stats["host_syncs"])
+            host_syncs=self.stats["host_syncs"],
+            inner_iterations=self.stats["inner_iterations"])
         return u, lam, history
 
     # -- diagnostics --------------------------------------------------------

@@ -61,8 +61,10 @@ from ..ops.krylov import cg, fgmres, minres
 from ..ops.linop import LinOp
 from ..ops.operators import CellMatrix, constrain, dirichlet_rhs
 from ..ops.sparse_band import vector_al_level
-from ..precond.al import al_preconditioner_diagonal, al_preconditioner_stokes
+from ..precond.al import (al_preconditioner_diagonal, al_preconditioner_stokes,
+                          block_solve)
 from ..precond.gmg import build_gmg_flat
+from ..tracer import span
 from ..utils.expressions import ParsedFunction
 from ..utils.prm import Params, parse_prm
 from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
@@ -193,7 +195,7 @@ class StokesProblem:
                                else torch.float32)
         self.timer = TimerOutput()
         self.results = {}
-        self.stats = {"host_syncs": 0}
+        self.stats = {"host_syncs": 0, "inner_iterations": 0}
         self.lanczos_start = None
         self._solver = None
         self._parts = None
@@ -522,9 +524,10 @@ class StokesProblem:
             def M_s(r):
                 return dsc_inv * gmg.apply(dsc_inv * r)
 
-            x, _ = cg(A_s, dsc * v, M=M_s, tol=cfg.al.tolerance,
-                      reduction=inner_red, max_steps=cfg.al.max_iterations,
-                      norm_weight=dsc_inv, stats=self.stats)
+            x, _ = block_solve(A_s, dsc * v, M=M_s, tol=cfg.al.tolerance,
+                               reduction=inner_red,
+                               max_steps=cfg.al.max_iterations,
+                               norm_weight=dsc_inv, stats=self.stats)
             return dsc * x
 
         AA = block_operator(layout, layout, [
@@ -682,30 +685,33 @@ class StokesProblem:
     def solve(self):
         """Build the configured solver (once a setup) and run it; returns
         ``(u, p, λ, info)``.  ``results`` records the outer iterations,
-        convergence, the solve and build seconds and the host syncs."""
-        if self._solver is None:
+        convergence, the solve and build seconds, the host syncs and the
+        inner CG iterations (``inner_iterations``)."""
+        with span("solve", family="stokes", solver=self.cfg.solver):
+            if self._solver is None:
+                t0 = time.perf_counter()
+                with self.timer.scope("Build solver"):
+                    build = {"Stokes": self._build_stokes_schur,
+                             "IBStokes": self._build_ibstokes,
+                             "IBStokesAL": self._build_ibstokes_al}
+                    self._solver = build[self.cfg.solver]()
+                self.results["build_seconds"] = time.perf_counter() - t0
+            self.stats.update(host_syncs=0, inner_iterations=0)
             t0 = time.perf_counter()
-            with self.timer.scope("Build solver"):
-                build = {"Stokes": self._build_stokes_schur,
-                         "IBStokes": self._build_ibstokes,
-                         "IBStokesAL": self._build_ibstokes_al}
-                self._solver = build[self.cfg.solver]()
-            self.results["build_seconds"] = time.perf_counter() - t0
-        self.stats["host_syncs"] = 0
-        t0 = time.perf_counter()
-        with self.timer.scope("Solve system"):
-            x, info = self._solver(self.rhs_u, self.rhs_g, self.bc_values)
-            self._sync()
-        self.u, self.p, self.lam = self.layout.split(x)
-        self.results.update(
-            dofs_background=self.layout.sizes[0] + self.layout.sizes[1],
-            dofs_immersed=self.layout.sizes[2],
-            outer_iterations=int(info.iterations),
-            converged=bool(info.converged),
-            residual=float(info.residual),
-            solve_seconds=time.perf_counter() - t0,
-            host_syncs=self.stats["host_syncs"])
-        return self.u, self.p, self.lam, info
+            with self.timer.scope("Solve system"):
+                x, info = self._solver(self.rhs_u, self.rhs_g, self.bc_values)
+                self._sync()
+            self.u, self.p, self.lam = self.layout.split(x)
+            self.results.update(
+                dofs_background=self.layout.sizes[0] + self.layout.sizes[1],
+                dofs_immersed=self.layout.sizes[2],
+                outer_iterations=int(info.iterations),
+                converged=bool(info.converged),
+                residual=float(info.residual),
+                solve_seconds=time.perf_counter() - t0,
+                host_syncs=self.stats["host_syncs"],
+                inner_iterations=self.stats["inner_iterations"])
+            return self.u, self.p, self.lam, info
 
     def build_correction_solver(self):
         """``(r0, r1, r2) -> (x, info)``: one AL-preconditioned solve of the
@@ -757,7 +763,7 @@ class StokesProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats["host_syncs"] = 0
+        self.stats.update(host_syncs=0, inner_iterations=0)
         t0 = time.perf_counter()
         (u, p, lam), history, total_iters, converged = guarded_refinement(
             residual, correct, self.layout.sizes, tol_abs, max_refine)
@@ -775,7 +781,8 @@ class StokesProblem:
             refined_seconds=elapsed,
             correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
-            host_syncs=self.stats["host_syncs"])
+            host_syncs=self.stats["host_syncs"],
+            inner_iterations=self.stats["inner_iterations"])
         return u, p, lam, history
 
     # -- diagnostics ----------------------------------------------------------

@@ -20,7 +20,8 @@ and the compact dense block (:meth:`Coupling.compact_al`) otherwise, which
 also holds the explicit form γ·Cᵀdiag(w)C.  A rank of the sharded solve
 keeps its rows of the table (:meth:`Coupling.row_block`), of the compact
 block (:meth:`Coupling.compact_al_rows`, :class:`CompactRows`) and of the
-patch (``patch_al_lattice(..., rows=)``).
+patch (``patch_al_lattice(..., rows=)``).  Each ``C u`` and ``Cᵀ λ`` is a
+``coupling.mv`` / ``coupling.rmv`` span (:mod:`..tracer`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from .. import native
 from ..core.quadrature import gauss
+from ..tracer import span
 from .linop import LinOp
 
 __all__ = ["Coupling", "CompactRows", "VectorCoupling", "build_coupling",
@@ -117,35 +119,39 @@ class Coupling:
     def mv(self, u):
         """C @ u : background -> immersed; u is (n_bg,) or a column block
         (n_bg, k)."""
-        if u.dim() == 2:
-            vals = self.interp_bg(u) * self.jxw[:, None]
-            out = torch.zeros((self.shape[0], u.shape[1]), dtype=u.dtype,
-                              device=u.device)
-            return out.index_add_(
-                0, self.imm_dofs.reshape(-1),
-                (self.imm_psi[:, :, None] * vals[:, None, :]).reshape(
-                    -1, u.shape[1]))
-        vals = (u[self.bg_dofs] * self.bg_phi).sum(dim=1) * self.jxw
-        out = torch.zeros(self.shape[0], dtype=u.dtype, device=u.device)
-        return out.index_add_(0, self.imm_dofs.reshape(-1),
-                              (self.imm_psi * vals[:, None]).reshape(-1))
+        with span("coupling.mv"):
+            if u.dim() == 2:
+                vals = self.interp_bg(u) * self.jxw[:, None]
+                out = torch.zeros((self.shape[0], u.shape[1]),
+                                  dtype=u.dtype, device=u.device)
+                return out.index_add_(
+                    0, self.imm_dofs.reshape(-1),
+                    (self.imm_psi[:, :, None] * vals[:, None, :]).reshape(
+                        -1, u.shape[1]))
+            vals = (u[self.bg_dofs] * self.bg_phi).sum(dim=1) * self.jxw
+            out = torch.zeros(self.shape[0], dtype=u.dtype, device=u.device)
+            return out.index_add_(0, self.imm_dofs.reshape(-1),
+                                  (self.imm_psi * vals[:, None]).reshape(-1))
 
     def rmv(self, lam):
         """Cᵀ @ λ : immersed -> background; λ is (n_imm,) or a column block
         (n_imm, k)."""
-        if lam.dim() == 2:
-            vals = ((lam[self.imm_dofs] * self.imm_psi[:, :, None]).sum(dim=1)
-                    * self.jxw[:, None])
-            out = torch.zeros((self.shape[1], lam.shape[1]), dtype=lam.dtype,
+        with span("coupling.rmv"):
+            if lam.dim() == 2:
+                vals = ((lam[self.imm_dofs]
+                         * self.imm_psi[:, :, None]).sum(dim=1)
+                        * self.jxw[:, None])
+                out = torch.zeros((self.shape[1], lam.shape[1]),
+                                  dtype=lam.dtype, device=lam.device)
+                return out.index_add_(
+                    0, self.bg_dofs.reshape(-1),
+                    (self.bg_phi[:, :, None] * vals[:, None, :]).reshape(
+                        -1, lam.shape[1]))
+            vals = (lam[self.imm_dofs] * self.imm_psi).sum(dim=1) * self.jxw
+            out = torch.zeros(self.shape[1], dtype=lam.dtype,
                               device=lam.device)
-            return out.index_add_(
-                0, self.bg_dofs.reshape(-1),
-                (self.bg_phi[:, :, None] * vals[:, None, :]).reshape(
-                    -1, lam.shape[1]))
-        vals = (lam[self.imm_dofs] * self.imm_psi).sum(dim=1) * self.jxw
-        out = torch.zeros(self.shape[1], dtype=lam.dtype, device=lam.device)
-        return out.index_add_(0, self.bg_dofs.reshape(-1),
-                              (self.bg_phi * vals[:, None]).reshape(-1))
+            return out.index_add_(0, self.bg_dofs.reshape(-1),
+                                  (self.bg_phi * vals[:, None]).reshape(-1))
 
     def as_linop(self) -> LinOp:
         return LinOp(self.mv, self.shape, self.rmv, name="C")

@@ -7,7 +7,9 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.krylov``.  The
 stopping test needs on the host in one read (one ``.item()``-style sync per
 step of every solver).  Callers that want those syncs counted pass a
 ``stats`` dict, whose ``"host_syncs"`` entry is incremented once per
-device-to-host read.
+device-to-host read.  Each read is a ``krylov.sync`` span and each step of
+GMRES and MINRES a ``krylov.outer_step`` span (:mod:`..tracer`; free while
+the tracer is off).
 
 ``cg``, ``fgmres``/``gmres`` and ``lanczos_max_eig`` take an optional
 ``inner(a, b)``: the inner product of two flat vectors, or the products of
@@ -33,6 +35,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..tracer import span
 
 __all__ = ["SolveInfo", "cg", "cg_condition_number", "batched_cg", "minres",
            "fgmres", "gmres", "lanczos_max_eig"]
@@ -61,7 +65,8 @@ def _host(t, stats):
     """Read a device scalar (or small tensor) on the host: one sync."""
     if stats is not None:
         stats["host_syncs"] = stats.get("host_syncs", 0) + 1
-    return t.tolist()
+    with span("krylov.sync"):
+        return t.tolist()
 
 
 def _threshold(tol, reduction, res0):
@@ -220,30 +225,31 @@ def minres(A: Callable, b, M: Optional[Callable] = None, x0=None, *,
     w = w2 = torch.zeros_like(b)
     it = 0
     while phibar > thr and it < max_steps:
-        v = y / max(beta, eps)
-        y = A(v)
-        if it > 0:
-            y = y - (beta / max(oldb, eps)) * r1
-        alfa = _dot(v, y)
-        y = y - (alfa / max(beta, eps)) * r2
-        r1, r2 = r2, y
-        y = M(r2)
-        oldb = beta
-        beta_sq = _dot(r2, y)
-        alfa, beta_sq = _host(torch.stack([alfa, beta_sq]), stats)
-        beta = math.sqrt(max(beta_sq, 0.0))
-        oldeps = epsln
-        delta = cs * dbar + sn * alfa
-        gbar = sn * dbar - cs * alfa
-        epsln = sn * beta
-        dbar = -cs * beta
-        gamma = max(math.sqrt(gbar ** 2 + beta ** 2), eps)
-        cs, sn = gbar / gamma, beta / gamma
-        phi = cs * phibar
-        phibar = sn * phibar
-        w1, w2 = w2, w
-        w = (v - oldeps * w1 - delta * w2) / gamma
-        x = x + phi * w
+        with span("krylov.outer_step", step=it):
+            v = y / max(beta, eps)
+            y = A(v)
+            if it > 0:
+                y = y - (beta / max(oldb, eps)) * r1
+            alfa = _dot(v, y)
+            y = y - (alfa / max(beta, eps)) * r2
+            r1, r2 = r2, y
+            y = M(r2)
+            oldb = beta
+            beta_sq = _dot(r2, y)
+            alfa, beta_sq = _host(torch.stack([alfa, beta_sq]), stats)
+            beta = math.sqrt(max(beta_sq, 0.0))
+            oldeps = epsln
+            delta = cs * dbar + sn * alfa
+            gbar = sn * dbar - cs * alfa
+            epsln = sn * beta
+            dbar = -cs * beta
+            gamma = max(math.sqrt(gbar ** 2 + beta ** 2), eps)
+            cs, sn = gbar / gamma, beta / gamma
+            phi = cs * phibar
+            phibar = sn * phibar
+            w1, w2 = w2, w
+            w = (v - oldeps * w1 - delta * w2) / gamma
+            x = x + phi * w
         it += 1
     return x, SolveInfo(it, phibar, beta1, phibar <= thr or fixed_iters)
 
@@ -289,31 +295,32 @@ def _gmres_core(A, b, M, *, tol, reduction, max_steps, restart, stats,
         g[0] = beta
         res, j = beta, 0
         while j < m and res > thr and tot_it + j < max_steps:
-            z = M(V[j])
-            w = A(z)
-            Vj = V[:j + 1]
-            h1 = mv(Vj, w)
-            w = w - torch.mv(Vj.T, h1)
-            h2 = mv(Vj, w)
-            w = w - torch.mv(Vj.T, h2)
-            hnorm = norm(w)
-            hv = _host(torch.cat([h1 + h2, hnorm[None]]), stats)
-            h, hnew = hv[:-1], hv[-1]
-            V[j + 1] = w / max(hnew, tiny)
-            if flexible:
-                Z[j] = z
-            for i in range(j):
-                hi, hi1 = h[i], h[i + 1]
-                h[i] = cs[i] * hi + sn[i] * hi1
-                h[i + 1] = -sn[i] * hi + cs[i] * hi1
-            hj = h[j]
-            denom = math.sqrt(hj * hj + hnew * hnew)
-            c, s = (hj / denom, hnew / denom) if denom > 0 else (1.0, 0.0)
-            h[j] = denom
-            cs[j], sn[j] = c, s
-            g[j], g[j + 1] = c * g[j], -s * g[j]
-            R[:j + 1, j] = h[:j + 1]
-            res = abs(float(g[j + 1]))
+            with span("krylov.outer_step", step=tot_it + j):
+                z = M(V[j])
+                w = A(z)
+                Vj = V[:j + 1]
+                h1 = mv(Vj, w)
+                w = w - torch.mv(Vj.T, h1)
+                h2 = mv(Vj, w)
+                w = w - torch.mv(Vj.T, h2)
+                hnorm = norm(w)
+                hv = _host(torch.cat([h1 + h2, hnorm[None]]), stats)
+                h, hnew = hv[:-1], hv[-1]
+                V[j + 1] = w / max(hnew, tiny)
+                if flexible:
+                    Z[j] = z
+                for i in range(j):
+                    hi, hi1 = h[i], h[i + 1]
+                    h[i] = cs[i] * hi + sn[i] * hi1
+                    h[i + 1] = -sn[i] * hi + cs[i] * hi1
+                hj = h[j]
+                denom = math.sqrt(hj * hj + hnew * hnew)
+                c, s = (hj / denom, hnew / denom) if denom > 0 else (1.0, 0.0)
+                h[j] = denom
+                cs[j], sn[j] = c, s
+                g[j], g[j + 1] = c * g[j], -s * g[j]
+                R[:j + 1, j] = h[:j + 1]
+                res = abs(float(g[j + 1]))
             j += 1
         if j:
             y = torch.as_tensor(_back_substitute(R, g, j), dtype=b.dtype,

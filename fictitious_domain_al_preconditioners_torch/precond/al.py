@@ -8,15 +8,33 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.precond.al``
   - :func:`al_preconditioner_diagonal`  (C3, lines 81-110, SPD for MinRes)
   - :func:`al_preconditioner_ideal`     (C4, lines 115-164, elliptic ideal)
   - :func:`al_preconditioner_modified`  (C5, lines 168-238, modified AL)
+
+Each application is an ``al.apply`` span (:mod:`..tracer`) whose ``form``
+names the function; :func:`block_solve` is the models' inner CG on a
+block (``Aug⁻¹``, A11⁻¹, A22⁻¹).
 """
 
 from __future__ import annotations
 
 from ..ops.blocks import BlockLayout
+from ..ops.krylov import cg
+from ..tracer import span
 
-__all__ = ["al_preconditioner", "al_preconditioner_stokes",
+__all__ = ["block_solve", "al_preconditioner", "al_preconditioner_stokes",
            "al_preconditioner_diagonal", "al_preconditioner_ideal",
            "al_preconditioner_modified"]
+
+
+def block_solve(A, b, *, stats: dict, **kw):
+    """CG on one block of an AL preconditioner (``kw``: ``M``, the block's
+    V-cycle, and the controls), as an ``al.block_solve`` span; its
+    iterations are added to ``stats["inner_iterations"]``.  Returns
+    ``(x, SolveInfo)``."""
+    with span("al.block_solve"):
+        x, info = cg(A, b, stats=stats, **kw)
+    stats["inner_iterations"] = (stats.get("inner_iterations", 0)
+                                 + info.iterations)
+    return x, info
 
 
 def al_preconditioner(layout: BlockLayout, aug_inv, Ct, inv_w, gamma):
@@ -27,10 +45,11 @@ def al_preconditioner(layout: BlockLayout, aug_inv, Ct, inv_w, gamma):
     """
 
     def apply(u):
-        u0, u1 = layout.split(u)
-        v1 = -gamma * inv_w(u1)
-        v0 = aug_inv(u0 - Ct(v1))
-        return layout.concat((v0, v1))
+        with span("al.apply", form="dlm"):
+            u0, u1 = layout.split(u)
+            v1 = -gamma * inv_w(u1)
+            v0 = aug_inv(u0 - Ct(v1))
+            return layout.concat((v0, v1))
 
     return apply
 
@@ -46,11 +65,12 @@ def al_preconditioner_stokes(layout: BlockLayout, aug_inv, Bt, Ct, inv_w,
     """
 
     def apply(u):
-        u0, u1, u2 = layout.split(u)
-        v2 = -gamma * inv_w(u2)
-        v1 = -gamma_grad_div * mp_inv(u1)
-        v0 = aug_inv(u0 - Bt(v1) - Ct(v2))
-        return layout.concat((v0, v1, v2))
+        with span("al.apply", form="stokes"):
+            u0, u1, u2 = layout.split(u)
+            v2 = -gamma * inv_w(u2)
+            v1 = -gamma_grad_div * mp_inv(u1)
+            v0 = aug_inv(u0 - Bt(v1) - Ct(v2))
+            return layout.concat((v0, v1, v2))
 
     return apply
 
@@ -62,9 +82,10 @@ def al_preconditioner_diagonal(layout: BlockLayout, aug_inv, inv_w, mp_inv,
     stokes_immersed_boundary.cc:1056-1064)."""
 
     def apply(u):
-        u0, u1, u2 = layout.split(u)
-        return layout.concat((aug_inv(u0), gamma_grad_div * mp_inv(u1),
-                              gamma * inv_w(u2)))
+        with span("al.apply", form="diagonal"):
+            u0, u1, u2 = layout.split(u)
+            return layout.concat((aug_inv(u0), gamma_grad_div * mp_inv(u1),
+                                  gamma * inv_w(u2)))
 
     return apply
 
@@ -81,11 +102,12 @@ def al_preconditioner_ideal(layout: BlockLayout, aug_inv_coupled, Ct, M,
     sub = BlockLayout(layout.sizes[:2])
 
     def apply(u):
-        u0, u1, u2 = layout.split(u)
-        v2 = -gamma * inv_w(u2)
-        v0, v1 = sub.split(aug_inv_coupled(
-            sub.concat((u0 - Ct(v2), u1 + M(v2)))))
-        return layout.concat((v0, v1, v2))
+        with span("al.apply", form="ideal"):
+            u0, u1, u2 = layout.split(u)
+            v2 = -gamma * inv_w(u2)
+            v0, v1 = sub.split(aug_inv_coupled(
+                sub.concat((u0 - Ct(v2), u1 + M(v2)))))
+            return layout.concat((v0, v1, v2))
 
     return apply
 
@@ -101,10 +123,11 @@ def al_preconditioner_modified(layout: BlockLayout, A11_inv, A22_inv, Ct, M,
     """
 
     def apply(u):
-        u0, u1, u2 = layout.split(u)
-        v2 = -gamma * inv_w(u2)
-        v1 = A22_inv(u1 + M(v2))
-        v0 = A11_inv(u0 + gamma * Ct(inv_w(M(v1))) - Ct(v2))
-        return layout.concat((v0, v1, v2))
+        with span("al.apply", form="modified"):
+            u0, u1, u2 = layout.split(u)
+            v2 = -gamma * inv_w(u2)
+            v1 = A22_inv(u1 + M(v2))
+            v0 = A11_inv(u0 + gamma * Ct(inv_w(M(v1))) - Ct(v2))
+            return layout.concat((v0, v1, v2))
 
     return apply

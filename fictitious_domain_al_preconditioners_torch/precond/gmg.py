@@ -29,7 +29,9 @@ its own precision (``dtype``), which may be lower than the caller's: with
 bfloat16 the level vectors, masks, diagonals and transfers are bfloat16, the
 Lanczos bounds are estimated in float32 and the coarse inverse is held and
 applied in float32 (``gmg.py:202-265, 364-456`` of the reference);
-``apply`` casts at its boundary.
+``apply`` casts at its boundary.  Each :meth:`GMG.apply` is a ``gmg.vcycle``
+span and each level visit inside it a ``gmg.level`` span (``level``, the
+level vector's ``shape``), the coarse solve the last (:mod:`..tracer`).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..ops.krylov import lanczos_max_eig
 from ..parallel.lattice import lattice_prolong, lattice_restrict
 from ..parallel.mesh import inner_product, prolong_block, restrict_block
 from ..utils.carry import block_lanczos_start
+from ..tracer import span
 from .chebyshev import chebyshev
 
 __all__ = ["FusedSmoother", "LatticeTransfer2D", "Prolongation",
@@ -206,29 +209,31 @@ class GMG:
         return x.to(self.dtype).reshape(b.shape)
 
     def _vcycle(self, li: int, b):
-        level = self.levels[li]
-        if li == len(self.levels) - 1:
-            return self._coarse_solve(b)
-        sm = level.smoother
-        pre = getattr(sm, "pre", None)
-        if pre is not None:
-            x, r = pre(b)
-        else:
-            x = sm(b)
-            r = b - level.op(x)
-        coarse = self.levels[li + 1]
-        rc = (coarse.mask * coarse.prolong.rmv(r)).to(self.dtype)
-        xc = self._vcycle(li + 1, rc)
-        x = x + (level.mask * coarse.prolong.mv(xc)).to(self.dtype)
-        post = getattr(sm, "post", None)
-        if post is not None:
-            x = post(b, x)
-        else:
-            x = x + sm(b - level.op(x))
-        return x
+        with span("gmg.level", level=li, shape=b.shape):
+            level = self.levels[li]
+            if li == len(self.levels) - 1:
+                return self._coarse_solve(b)
+            sm = level.smoother
+            pre = getattr(sm, "pre", None)
+            if pre is not None:
+                x, r = pre(b)
+            else:
+                x = sm(b)
+                r = b - level.op(x)
+            coarse = self.levels[li + 1]
+            rc = (coarse.mask * coarse.prolong.rmv(r)).to(self.dtype)
+            xc = self._vcycle(li + 1, rc)
+            x = x + (level.mask * coarse.prolong.mv(xc)).to(self.dtype)
+            post = getattr(sm, "post", None)
+            if post is not None:
+                x = post(b, x)
+            else:
+                x = x + sm(b - level.op(x))
+            return x
 
     def apply(self, b):
-        return self._vcycle(0, b.to(self.dtype)).to(b.dtype)
+        with span("gmg.vcycle", levels=len(self.levels)):
+            return self._vcycle(0, b.to(self.dtype)).to(b.dtype)
 
 
 # hierarchy and smoother constants of the reference (precond/gmg.py:272-276)

@@ -3,7 +3,10 @@
 Counterpart of ``fictitious_domain_al_preconditioners_tpu.utils.timer``.
 Sections wait for the CUDA card (when one is in use) before they stop the
 clock, so wall times are honest under asynchronous launches.  ``summary()``
-prints the familiar wall-time table.
+prints the familiar wall-time table.  While the port's tracer is on
+(:mod:`..tracer`), each section is also recorded as a span of its name:
+the set-up phases are roots of the span tree, a solve's phases sit under
+its ``solve`` span.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from collections import defaultdict
 from contextlib import contextmanager
 
 import torch
+
+from ..tracer import span
 
 __all__ = ["TimerOutput"]
 
@@ -25,14 +30,16 @@ class TimerOutput:
     @contextmanager
     def scope(self, name: str):
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            # drain queued kernels so the section is charged its real cost
-            if torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            self.wall[name] += time.perf_counter() - t0
-            self.calls[name] += 1
+        with span(name):
+            try:
+                yield
+            finally:
+                # drain queued kernels so the section is charged its real
+                # cost
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                self.wall[name] += time.perf_counter() - t0
+                self.calls[name] += 1
 
     def summary(self) -> str:
         total = sum(self.wall.values())
