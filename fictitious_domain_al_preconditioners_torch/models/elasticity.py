@@ -48,7 +48,7 @@ from ..ops.linop import LinOp
 from ..ops.operators import CellMatrix, constrain, dirichlet_rhs
 from ..ops.sparse_band import vector_al_level
 from ..precond.al import al_preconditioner_modified, block_solve
-from ..precond.gmg import build_gmg_flat
+from ..precond.gmg import build_gmg_flat, reset_solve_stats, solve_stats
 from ..precond.weights import lattice_mass_inverse
 from ..tracer import span
 from ..utils.prm import Params, parse_prm
@@ -505,7 +505,7 @@ class ElasticityInterfaceProblem:
                 with self.timer.scope("Build solver"):
                     self._solvers[key] = self._build_solver()
                 self.results["build_seconds"] = time.perf_counter() - t0
-            self.stats.update(host_syncs=0, inner_iterations=0)
+            reset_solve_stats(self.stats)
             t0 = time.perf_counter()
             with self.timer.scope("Solve system"):
                 x, info = self._solvers[key](self.rhs_f1, self.rhs_f2)
@@ -517,8 +517,7 @@ class ElasticityInterfaceProblem:
                 outer_iterations=int(info.iterations),
                 converged=bool(info.converged), residual=float(info.residual),
                 solve_seconds=time.perf_counter() - t0,
-                host_syncs=self.stats["host_syncs"],
-                inner_iterations=self.stats["inner_iterations"])
+                **solve_stats(self.stats))
             return int(info.iterations)
 
     def build_correction_solver(self):
@@ -568,7 +567,7 @@ class ElasticityInterfaceProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats.update(host_syncs=0, inner_iterations=0)
+        reset_solve_stats(self.stats)
         t0 = time.perf_counter()
         (u, u2, lam), history, total_iters, converged = guarded_refinement(
             residual, correct, self.layout.sizes, tol_abs, max_refine)
@@ -583,8 +582,7 @@ class ElasticityInterfaceProblem:
             refine_steps=len(history) - 1, converged=converged,
             refined_seconds=elapsed, correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
-            host_syncs=self.stats["host_syncs"],
-            inner_iterations=self.stats["inner_iterations"])
+            **solve_stats(self.stats))
         return u, u2, lam, history
 
     # -- diagnostics --------------------------------------------------------

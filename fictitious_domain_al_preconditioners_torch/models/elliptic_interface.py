@@ -68,7 +68,8 @@ from ..parallel.lattice import LatticeOps
 from ..precond.al import (al_preconditioner_ideal, al_preconditioner_modified,
                           block_solve)
 from ..precond.chebyshev import chebyshev
-from ..precond.gmg import build_gmg, build_gmg_flat
+from ..precond.gmg import (build_gmg, build_gmg_flat, reset_solve_stats,
+                           solve_stats)
 from ..precond.weights import (diag_of_m_squared, inv_diag,
                                inv_diag_of_m_squared, inv_exact,
                                inv_squared_exact)
@@ -845,7 +846,7 @@ class EllipticInterfaceProblem:
                 with self.timer.scope("Build solver"):
                     self._solvers[key] = self._build_solver()
                 self.results["build_seconds"] = time.perf_counter() - t0
-            self.stats.update(host_syncs=0, inner_iterations=0)
+            reset_solve_stats(self.stats)
             t0 = time.perf_counter()
             with self.timer.scope("Solve system"):
                 x, info = self._solvers[key](self.rhs_f1, self.rhs_f2,
@@ -860,8 +861,7 @@ class EllipticInterfaceProblem:
                 residual=float(info.residual),
                 gamma=self.gamma_bg,
                 solve_seconds=time.perf_counter() - t0,
-                host_syncs=self.stats["host_syncs"],
-                inner_iterations=self.stats["inner_iterations"],
+                **solve_stats(self.stats),
             )
             return int(info.iterations)
 
@@ -914,7 +914,7 @@ class EllipticInterfaceProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats.update(host_syncs=0, inner_iterations=0)
+        reset_solve_stats(self.stats)
         t0 = time.perf_counter()
         (u, u2, lam), history, total_iters, converged = guarded_refinement(
             residual, correct, self.layout.sizes, tol_abs, max_refine)
@@ -932,8 +932,7 @@ class EllipticInterfaceProblem:
             refined_seconds=elapsed,
             correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
-            host_syncs=self.stats["host_syncs"],
-            inner_iterations=self.stats["inner_iterations"])
+            **solve_stats(self.stats))
         return u, u2, lam, history
 
     # -- diagnostics --------------------------------------------------------

@@ -100,7 +100,7 @@ from ..parallel.lattice import LatticeOps
 from ..precond.al import al_preconditioner, block_solve
 from ..precond.gmg import (FusedSmoother, build_gmg, build_gmg_flat,
                            build_gmg_flat_sharded, build_gmg_sharded,
-                           level_spaces)
+                           level_spaces, reset_solve_stats, solve_stats)
 from ..precond.rational import rational_preconditioner
 from ..precond.weights import (inv_diag, inv_diag_squared, inv_exact,
                                inv_squared_exact)
@@ -357,7 +357,7 @@ class ImmersedLaplaceProblem:
                 with self.timer.scope("Build solver"):
                     self._solvers[key] = builder()
                 self.results["build_seconds"] = time.perf_counter() - t0
-            self.stats.update(host_syncs=0, inner_iterations=0)
+            reset_solve_stats(self.stats)
             t0 = time.perf_counter()
             with self.timer.scope("Solve system"):
                 u, lam, info = self._solvers[key](self.rhs_f, self.rhs_g,
@@ -370,8 +370,7 @@ class ImmersedLaplaceProblem:
                 residual=float(info.residual),
                 converged=bool(info.converged),
                 solve_seconds=time.perf_counter() - t0,
-                host_syncs=self.stats["host_syncs"],
-                inner_iterations=self.stats["inner_iterations"],
+                **solve_stats(self.stats),
                 dofs_background=self.space.n_dofs,
                 dofs_immersed=self.imm_space.n_dofs)
             return u, lam, info
@@ -1107,7 +1106,7 @@ class ImmersedLaplaceProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats.update(host_syncs=0, inner_iterations=0)
+        reset_solve_stats(self.stats)
         t0 = time.perf_counter()
         (u, lam), history, total_iters, converged = guarded_refinement(
             residual, correct, (self.space.n_dofs, self.imm_space.n_dofs),
@@ -1120,8 +1119,7 @@ class ImmersedLaplaceProblem:
             refine_steps=len(history) - 1, converged=converged,
             solve_seconds=elapsed, correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
-            host_syncs=self.stats["host_syncs"],
-            inner_iterations=self.stats["inner_iterations"],
+            **solve_stats(self.stats),
             dofs_background=self.space.n_dofs,
             dofs_immersed=self.imm_space.n_dofs)
         return u, lam, history

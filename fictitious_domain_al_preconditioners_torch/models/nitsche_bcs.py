@@ -47,7 +47,7 @@ from ..ops.krylov import fgmres
 from ..ops.linop import LinOp
 from ..ops.operators import CellMatrix
 from ..precond.al import al_preconditioner, block_solve
-from ..precond.gmg import build_gmg_flat
+from ..precond.gmg import build_gmg_flat, reset_solve_stats, solve_stats
 from ..precond.weights import inv_exact
 from ..tracer import span
 from ..utils.expressions import ParsedFunction
@@ -386,7 +386,7 @@ class NitscheProblem:
                 with self.timer.scope("Build solver"):
                     self._solver = self._build_solver()
                 self.results["build_seconds"] = time.perf_counter() - t0
-            self.stats.update(host_syncs=0, inner_iterations=0)
+            reset_solve_stats(self.stats)
             t0 = time.perf_counter()
             with self.timer.scope("Solve system"):
                 x, info, inner_total = self._solver(self.rhs_f, self.rhs_g)
@@ -399,8 +399,7 @@ class NitscheProblem:
                 inner_cg_per_outer=float(inner_total) / max(outer, 1),
                 converged=bool(info.converged), residual=float(info.residual),
                 solve_seconds=time.perf_counter() - t0,
-                host_syncs=self.stats["host_syncs"],
-                inner_iterations=self.stats["inner_iterations"])
+                **solve_stats(self.stats))
             return outer
 
     def build_correction_solver(self):
@@ -451,7 +450,7 @@ class NitscheProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats.update(host_syncs=0, inner_iterations=0)
+        reset_solve_stats(self.stats)
         t0 = time.perf_counter()
         (u, lam), history, total_outer, converged = guarded_refinement(
             residual, correct, self.layout.sizes, tol_abs, max_refine)
@@ -466,8 +465,7 @@ class NitscheProblem:
             converged=converged, refined_seconds=elapsed,
             correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
-            host_syncs=self.stats["host_syncs"],
-            inner_iterations=self.stats["inner_iterations"])
+            **solve_stats(self.stats))
         return u, lam, history
 
     # -- diagnostics --------------------------------------------------------

@@ -63,7 +63,7 @@ from ..ops.operators import CellMatrix, constrain, dirichlet_rhs
 from ..ops.sparse_band import vector_al_level
 from ..precond.al import (al_preconditioner_diagonal, al_preconditioner_stokes,
                           block_solve)
-from ..precond.gmg import build_gmg_flat
+from ..precond.gmg import build_gmg_flat, reset_solve_stats, solve_stats
 from ..tracer import span
 from ..utils.expressions import ParsedFunction
 from ..utils.prm import Params, parse_prm
@@ -696,7 +696,7 @@ class StokesProblem:
                              "IBStokesAL": self._build_ibstokes_al}
                     self._solver = build[self.cfg.solver]()
                 self.results["build_seconds"] = time.perf_counter() - t0
-            self.stats.update(host_syncs=0, inner_iterations=0)
+            reset_solve_stats(self.stats)
             t0 = time.perf_counter()
             with self.timer.scope("Solve system"):
                 x, info = self._solver(self.rhs_u, self.rhs_g, self.bc_values)
@@ -709,8 +709,7 @@ class StokesProblem:
                 converged=bool(info.converged),
                 residual=float(info.residual),
                 solve_seconds=time.perf_counter() - t0,
-                host_syncs=self.stats["host_syncs"],
-                inner_iterations=self.stats["inner_iterations"])
+                **solve_stats(self.stats))
             return self.u, self.p, self.lam, info
 
     def build_correction_solver(self):
@@ -763,7 +762,7 @@ class StokesProblem:
             seconds["device"] += time.perf_counter() - t0
             return parts, int(info.iterations)
 
-        self.stats.update(host_syncs=0, inner_iterations=0)
+        reset_solve_stats(self.stats)
         t0 = time.perf_counter()
         (u, p, lam), history, total_iters, converged = guarded_refinement(
             residual, correct, self.layout.sizes, tol_abs, max_refine)
@@ -781,8 +780,7 @@ class StokesProblem:
             refined_seconds=elapsed,
             correction_seconds=seconds["device"],
             host_residual_seconds=seconds["host"],
-            host_syncs=self.stats["host_syncs"],
-            inner_iterations=self.stats["inner_iterations"])
+            **solve_stats(self.stats))
         return u, p, lam, history
 
     # -- diagnostics ----------------------------------------------------------

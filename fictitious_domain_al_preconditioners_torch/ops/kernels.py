@@ -32,11 +32,16 @@ Dispatch rule of every wrapper: a CPU tensor goes to the plain PyTorch
 version; a CUDA tensor launches the kernel (float32, or bfloat16 for K1,
 or float64 for K6; contiguous) or raises.  Each launch adds one to
 :data:`LAUNCHES` (K1 and K6 per dtype form, K2 per mode and per form: with
-or without patch planes).
+or without patch planes).  Inside :func:`recording_launches` (a CUDA
+graph's capture, which runs nothing) a launch is recorded instead, with its
+call record (:func:`call_record`); the graph's owner adds the record to
+:data:`LAUNCHES` and :data:`GRAPH_CALLS` at each replay.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -47,7 +52,8 @@ import subprocess
 import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "build", "source_tag",
+__all__ = ["LAUNCHES", "GRAPH_CALLS", "reset_launch_counts",
+           "recording_launches", "call_record", "build", "source_tag",
            "stencil_factors_2d",
            "masked_laplace_2d", "masked_laplace_2d_plain",
            "laplace_stencil_2d", "laplace_stencil_2d_plain",
@@ -119,9 +125,52 @@ LAUNCHES = {"masked_laplace_2d": 0, "masked_laplace_2d:bf16": 0,
             **{launch_key(m, p): 0 for p in (True, False) for m in MODES}}
 
 
+#: kernel-entry calls that ran inside CUDA graph replays, keyed by their
+#: :func:`call_record`: a replay passes no wrapper, so these calls are
+#: counted here, from the record of the graph's capture, and by no profiler
+#: range of a wrapper call
+GRAPH_CALLS = collections.Counter()
+
+# the list recording the launches of a capture, None outside one
+_recording = None
+
+
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    GRAPH_CALLS.clear()
+
+
+def call_record(kernel: str, t: torch.Tensor, **extra) -> tuple:
+    """The record of one kernel-entry call: its entry, the lattice's shape,
+    the dtype, and for K2 ``mode``, ``box`` and ``degree``, as sorted
+    ``(name, value)`` pairs (``dict(record)`` reads it)."""
+    fields = dict(kernel=kernel, shape=tuple(t.shape),
+                  dtype=str(t.dtype).replace("torch.", ""), cuda=True,
+                  **extra)
+    return tuple(sorted(fields.items()))
+
+
+def _launched(key: str, record):
+    """Count one launch under ``key`` in :data:`LAUNCHES`, or, inside
+    :func:`recording_launches`, record it with ``record()``."""
+    if _recording is None:
+        LAUNCHES[key] += 1
+    else:
+        _recording.append((key, record()))
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record the wrappers' launches made inside, without counting them:
+    yields the list of their ``(LAUNCHES key, call record)``, for a CUDA
+    graph's capture, whose launches run only when it is replayed."""
+    global _recording
+    outer, _recording = _recording, []
+    try:
+        yield _recording
+    finally:
+        _recording = outer
 
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -336,7 +385,7 @@ def masked_laplace_2d(u: torch.Tensor, h) -> torch.Tensor:
         rc = fn(u.data_ptr(), out.data_ptr(), ny, nx, fac.ctypes.data, stream)
     key = "masked_laplace_2d:bf16" if bf16 else "masked_laplace_2d"
     _check_rc(rc, key)
-    LAUNCHES[key] += 1
+    _launched(key, lambda: call_record("masked_laplace_2d", u))
     return out
 
 
@@ -480,7 +529,7 @@ def laplace_stencil_2d(u: torch.Tensor, h) -> torch.Tensor:
         rc = fn(u.data_ptr(), out.data_ptr(), ny, nx, fac.ctypes.data, stream)
     key = "laplace_stencil_2d:f64" if f64 else "laplace_stencil_2d"
     _check_rc(rc, key)
-    LAUNCHES[key] += 1
+    _launched(key, lambda: call_record("laplace_stencil_2d", u))
     return out
 
 
@@ -695,7 +744,9 @@ def fused_augmented_2d(mode: str, st: AugmentedStencil2D, b, x0=None, *,
                 ny, nx, fac.ctypes.data, r0, c0, pr, pc, coef.ctypes.data,
                 stream)
     _check_rc(rc, f"fused_augmented_2d({mode})")
-    LAUNCHES[launch_key(mode, st.patched)] += 1
+    _launched(launch_key(mode, st.patched), lambda: call_record(
+        "fused_augmented_2d", b, mode=mode, box=tuple(st.box),
+        degree=int(degree)))
     return (out, rout) if mode == "pre" else out
 
 

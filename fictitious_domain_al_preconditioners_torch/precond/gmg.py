@@ -31,16 +31,21 @@ Lanczos bounds are estimated in float32 and the coarse inverse is held and
 applied in float32 (``gmg.py:202-265, 364-456`` of the reference);
 ``apply`` casts at its boundary.  Each :meth:`GMG.apply` is a ``gmg.vcycle``
 span and each level visit inside it a ``gmg.level`` span (``level``, the
-level vector's ``shape``), the coarse solve the last (:mod:`..tracer`).
+level vector's ``shape``), the coarse solve the last (:mod:`..tracer`); on a
+CUDA card the visits below level 0 run inside their graph's replay, a
+``gmg.graph`` span (``levels``, the levels replayed), and are spanned only
+in the first V-cycle, which runs them eagerly and captures them.
 """
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..ops.kernels import GRAPH_CALLS, LAUNCHES, recording_launches
 from ..ops.krylov import lanczos_max_eig
 from ..parallel.lattice import lattice_prolong, lattice_restrict
 from ..parallel.mesh import inner_product, prolong_block, restrict_block
@@ -50,8 +55,11 @@ from .chebyshev import chebyshev
 
 __all__ = ["FusedSmoother", "LatticeTransfer2D", "Prolongation",
            "ProlongationRows", "VectorProlongation", "make_prolongation",
-           "GMG", "ShardedGMG", "build_gmg", "build_gmg_sharded",
-           "build_gmg_flat", "build_gmg_flat_sharded", "level_spaces"]
+           "SOLVE_COUNTERS", "reset_solve_stats", "solve_stats",
+           "graph_eligible",
+           "GMG", "ShardedGMG",
+           "build_gmg", "build_gmg_sharded", "build_gmg_flat",
+           "build_gmg_flat_sharded", "level_spaces"]
 
 
 class Prolongation:
@@ -192,21 +200,131 @@ class _Level:
     lam_max: float
 
 
+#: the counters of one solve in a family's ``stats``, reset at its start and
+#: reported in its ``results``: the Krylov solvers' host reads and inner
+#: iterations, and the V-cycle graphs' replays, captures, failed captures
+#: and the device bytes their captures reserved
+SOLVE_COUNTERS = ("host_syncs", "inner_iterations", "vcycle_graph_replays",
+                  "vcycle_graph_captures", "vcycle_graph_failures",
+                  "vcycle_graph_pool_bytes")
+
+
+def reset_solve_stats(stats: dict):
+    """Set every :data:`SOLVE_COUNTERS` of ``stats`` to 0."""
+    stats.update(dict.fromkeys(SOLVE_COUNTERS, 0))
+
+
+def solve_stats(stats: dict) -> dict:
+    """The :data:`SOLVE_COUNTERS` of ``stats``."""
+    return {k: stats[k] for k in SOLVE_COUNTERS}
+
+
+def graph_eligible(device, n_levels: int) -> bool:
+    """Whether a hierarchy of ``n_levels`` on ``device`` runs the cycle
+    below its first level as one CUDA graph: on a CUDA device, with a level
+    below the first."""
+    return torch.device(device).type == "cuda" and n_levels >= 2
+
+
 class GMG:
     """V-cycle preconditioner: ``apply(b) -> x`` on the hierarchy's level
     vectors (lattice tensors or flat).
     ``dtype`` is the cycle precision; ``apply`` takes ``b`` in any floating
-    dtype and returns ``x`` in ``b``'s."""
+    dtype and returns ``x`` in ``b``'s.
 
-    def __init__(self, levels, coarse_inv, dtype):
+    Where :func:`graph_eligible`, the cycle below level 0 (every visit of
+    levels 1 … L-1, the transfers and the coarse solve) is captured as one
+    CUDA graph at its first call and replayed after: the host launches
+    level 0's kernels and one graph, whatever the depth.  The replay reads
+    level 1's right-hand side from a static input and leaves its correction
+    in a static output, which level 0 consumes at once.  Each replay adds
+    the kernel-entry calls the capture recorded to ``ops.kernels.LAUNCHES``
+    and ``ops.kernels.GRAPH_CALLS``; ``stats`` counts replays, captures,
+    failed captures and the bytes the captures reserved
+    (:data:`SOLVE_COUNTERS`).  A capture that fails leaves the cycle eager
+    for good."""
+
+    def __init__(self, levels, coarse_inv, dtype, stats: dict | None):
         self.levels = levels
         self.coarse_inv = coarse_inv
         self.dtype = dtype
+        self.stats = stats
+        # the graph below level 0: None until the first call, False where
+        # there is none (not eligible, or its capture failed)
+        self._graph = None
+        self._static = None          # (input, output) of the graph
+        self._tally = {}             # LAUNCHES keys of one replay
+        self._calls = {}             # GRAPH_CALLS records of one replay
 
     def _coarse_solve(self, b):
-        # the dense inverse at its own (at least float32) precision
-        x = self.coarse_inv @ b.reshape(-1).to(self.coarse_inv.dtype)
+        # the dense inverse at its own (at least float32) precision; on a
+        # CUDA device as a product and a row sum: a matrix-vector product
+        # calls cuBLAS, which gives a graph's capture stream a workspace of
+        # its own (32 MiB on sm_90) for the life of the process
+        v = b.reshape(-1).to(self.coarse_inv.dtype)
+        if v.device.type == "cuda":
+            x = (self.coarse_inv * v).sum(dim=1)
+        else:
+            x = self.coarse_inv @ v
         return x.to(self.dtype).reshape(b.shape)
+
+    def _count(self, key: str, n: int = 1):
+        if self.stats is not None:
+            self.stats[key] = self.stats.get(key, 0) + n
+
+    def _below(self, rc):
+        """The cycle below level 0 on level 1's right-hand side ``rc``:
+        replayed from its graph, captured at the first call where
+        :func:`graph_eligible`, else level by level."""
+        if self._graph is None:
+            if graph_eligible(rc.device, len(self.levels)):
+                return self._capture(rc)
+            self._graph = False
+        if self._graph is False:
+            return self._vcycle(1, rc)
+        static_in, static_out = self._static
+        with span("gmg.graph", levels=len(self.levels) - 1):
+            static_in.copy_(rc)
+            self._graph.replay()
+        for key, n in self._tally.items():
+            LAUNCHES[key] += n
+        GRAPH_CALLS.update(self._calls)
+        self._count("vcycle_graph_replays")
+        return static_out
+
+    def _capture(self, rc):
+        """The first call below level 0: the eager cycle, whose result is
+        this call's (it also settles what the kernels set up once a
+        process), then the capture of the same pass on a static input, on
+        PyTorch's capture stream.  The kernel-entry launches of the capture
+        are recorded, not counted: they run at each replay.  The bytes the
+        capture reserves (its private pool: the tail's intermediates and
+        its output) are counted in ``vcycle_graph_pool_bytes``."""
+        xc = self._vcycle(1, rc)
+        graph = torch.cuda.CUDAGraph()
+        static_in = torch.empty_like(rc)
+        # the capture empties the allocator's cache itself; emptied here
+        # first, the reserved bytes grow by the capture's pool alone
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(rc.device)
+        try:
+            # the outer stream context restores the current stream where a
+            # failed capture leaves the capture stream current
+            with torch.cuda.stream(torch.cuda.current_stream(rc.device)), \
+                    torch.cuda.graph(graph), recording_launches() as rec:
+                static_out = self._vcycle(1, static_in)
+        except RuntimeError:
+            self._graph = False
+            self._count("vcycle_graph_failures")
+        else:
+            self._graph = graph
+            self._static = (static_in, static_out)
+            self._tally = collections.Counter(key for key, _ in rec)
+            self._calls = collections.Counter(call for _, call in rec)
+            self._count("vcycle_graph_captures")
+            self._count("vcycle_graph_pool_bytes",
+                        torch.cuda.memory_reserved(rc.device) - reserved)
+        return xc
 
     def _vcycle(self, li: int, b):
         with span("gmg.level", level=li, shape=b.shape):
@@ -222,7 +340,7 @@ class GMG:
                 r = b - level.op(x)
             coarse = self.levels[li + 1]
             rc = (coarse.mask * coarse.prolong.rmv(r)).to(self.dtype)
-            xc = self._vcycle(li + 1, rc)
+            xc = self._below(rc) if li == 0 else self._vcycle(li + 1, rc)
             x = x + (level.mask * coarse.prolong.mv(xc)).to(self.dtype)
             post = getattr(sm, "post", None)
             if post is not None:
@@ -290,7 +408,7 @@ def build_gmg(fine_space, op_factory, *, free_mask, smoother_degree: int = 4,
                              smoother_degree=smoother_degree,
                              lanczos_start=lanczos_start, dtype=dtype,
                              stats=stats)
-    return GMG(levels, _coarse_inverse(levels[-1], dtype), dtype)
+    return GMG(levels, _coarse_inverse(levels[-1], dtype), dtype, stats)
 
 
 def _level_masks(fine_space, free_mask, n_comp: int = 1):
@@ -507,7 +625,8 @@ def build_gmg_sharded(fine_space, block_factory, op_factory, *, mesh,
                            lanczos_start=lanczos_start, dtype=dtype,
                            stats=stats, fine_space=fine_space)
     return ShardedGMG(levels, list(blocks),
-                      GMG(tail, _coarse_inverse(tail[-1], dtype), dtype),
+                      GMG(tail, _coarse_inverse(tail[-1], dtype), dtype,
+                          stats),
                       mesh, dtype, transfers, direct)
 
 
@@ -532,7 +651,7 @@ def build_gmg_flat(fine_space, op_factory, *, free_mask, n_comp: int = 1,
                           smoother_degree=smoother_degree,
                           lanczos_start=lanczos_start, dtype=dtype,
                           stats=stats)
-    return GMG(levels, _coarse_inverse(levels[-1], dtype), dtype)
+    return GMG(levels, _coarse_inverse(levels[-1], dtype), dtype, stats)
 
 
 def _flat_levels(spaces, first, op_factory, *, free_mask, n_comp,
@@ -643,5 +762,6 @@ def build_gmg_flat_sharded(fine_space, block_factory, op_factory, *, mesh,
                         lanczos_start=lanczos_start, dtype=dtype,
                         stats=stats, fine_space=fine_space)
     return ShardedGMG(levels, list(blocks),
-                      GMG(tail, _coarse_inverse(tail[-1], dtype), dtype),
+                      GMG(tail, _coarse_inverse(tail[-1], dtype), dtype,
+                          stats),
                       mesh, dtype, transfers, direct)

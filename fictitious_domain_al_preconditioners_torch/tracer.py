@@ -23,7 +23,8 @@ The spans, each where its work happens: ``solve`` (each model's
 of a Krylov solver), ``al.apply`` (one application of an AL preconditioner;
 ``form``), ``al.block_solve`` (its inner CG on the V-cycle),
 ``gmg.vcycle`` (``levels``), ``gmg.level`` (one level visit, the coarse
-solve the last; ``level``, ``shape``) and ``coupling.mv`` /
+solve the last; ``level``, ``shape``), ``gmg.graph`` (one replay of the
+CUDA graph of the cycle below level 0; ``levels``) and ``coupling.mv`` /
 ``coupling.rmv`` (C and Cᵀ).
 
 The tracer lives in this module, not in ``utils.timer``, whose package
