@@ -14,6 +14,7 @@ locally refined backgrounds.
     python3 chip_smoke.py --options-only   # phase 14
     python3 chip_smoke.py --table-only     # phase 15
     python3 chip_smoke.py --sharded-only   # phase 16
+    python3 chip_smoke.py --kernels-only   # phases 1-2, K2 rows timed
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -25,8 +26,9 @@ Phases (any failure exits non-zero before the last line is printed):
    SM);
 2. kernels against their plain PyTorch versions on the card: K1 (float32
    and its bf16-storage form), K6 (float32 and float64), and K2 in all four
-   modes with patch planes (from flagship couplings) and without, at n =
-   65, n = 1025 and (530, 777); K1's two forms, K6's two forms and the
+   modes with patch planes (from flagship couplings) and without, in
+   float32 and in bf16 storage, at n = 65, n = 1025 and (530, 777); K1's
+   two forms, K6's two forms and the
    patched K2 ``op`` also at the edge shapes of their tile (lattices one and
    two points either side of a multiple of it, shorter than a thread's run,
    narrower than a warp, without interior; for ``op``, patch boxes whose
@@ -54,9 +56,11 @@ Phases (any failure exits non-zero before the last line is printed):
    the fine level (K6 also against ``torch.nn.functional.conv2d``);
 6. the mixed-precision flagship: the flagship with the bf16 V-cycle
    (``use_bf16_multigrid``) at the refinement, a warm-up and a timed solve;
-   it must converge within 2 outer iterations of phase 3's count, with K1's
-   bf16 form launched; K1 bf16 is compared with its plain version at every
-   level shape of that path and timed at the fine level; then
+   it must converge within 2 outer iterations of phase 3's count, with
+   K2's bf16 form (``op``, ``pre``, ``post``, the levels whose band is
+   interior) and K1's (the others) launched; both are compared with their
+   plain versions at every level shape of that path (K2 with each level's
+   planes) and timed at the fine level (K2 in every mode); then
    ``solve_refined(tol_abs=1e-10)`` at refinement 11 (at most the
    refinement), once with the float32 V-cycle (``bench.py``'s ``refined``
    row) and once with the bf16 V-cycle, each to a true float64 residual of
@@ -240,7 +244,8 @@ MODE_SOURCE = {"op": f"{PKG}/csrc/fdal_augmented.cu",
                "op:no_patch": f"{PKG}/csrc/fdal_kernels.cu",
                "smooth": f"{PKG}/csrc/fdal_kernels.cu",
                "pre": f"{PKG}/csrc/fdal_pre.cu",
-               "post": f"{PKG}/csrc/fdal_post.cu"}
+               "post": f"{PKG}/csrc/fdal_post.cu",
+               "bf16": f"{PKG}/csrc/fdal_sweep_bf16.cu"}
 _TPU = "fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py"
 REPLACES = {"masked_laplace_2d": f"{_TPU}:193",
             "masked_laplace_2d:bf16": f"{_TPU}:193",
@@ -254,6 +259,10 @@ REPLACES = {"masked_laplace_2d": f"{_TPU}:193",
 TOL = {"masked_laplace_2d": 1e-6, "laplace_stencil_2d": 1e-6, "op": 1e-6,
        "smooth": 2e-5, "pre": 2e-5, "post": 5e-5,
        "masked_laplace_2d:bf16": 1e-2, "laplace_stencil_2d:f64": 1e-13}
+# K2 in bf16 storage (every mode) against the float32 plain form on the same
+# bf16 inputs and planes, before its rounding: half a bf16 ulp of the
+# largest output, the kernel's one rounding a store
+BF16_SWEEP_TOL = 2.0 ** -8
 # the solver modes of phase 5 and the refinement of ELMAN_triang, the
 # negative control whose counts grow with refinement (BASELINE.md:31)
 MODE_SOLVERS = ("rational", "CG", "ELMAN_triang")
@@ -596,8 +605,9 @@ def record(errs, kernel, mode, tag, got, ref):
     abs_err = float((got - ref).abs().max())
     rel = abs_err / max(float(ref.abs().max()), 1e-300)
     errs.append((kernel, mode, tag, abs_err, rel))
-    check(rel <= TOL[kernel if mode == "-" else mode.split(":")[0]],
-          f"{kernel}:{mode} {tag}: rel err {rel:.3e} > tol")
+    tol = (BF16_SWEEP_TOL if mode.endswith(":bf16")
+           else TOL[kernel if mode == "-" else mode.split(":")[0]])
+    check(rel <= tol, f"{kernel}:{mode} {tag}: rel err {rel:.3e} > tol")
 
 
 def compare_stencils(h, shape, device, seed, tag, errs):
@@ -811,23 +821,30 @@ def compare_op_edges(device, errs):
 
 def compare_fused(st, device, lam, seed, tag, errs):
     """K2 in all four modes against its plain version on one stencil (with
-    or without patch planes)."""
+    or without patch planes), in the stencil's dtype: a bf16 stencil runs
+    the bf16-storage kernel on bf16 vectors, held to the float32 plain form
+    on the same inputs (:data:`BF16_SWEEP_TOL`)."""
     import torch
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
     rng = np.random.default_rng(seed)
     b = torch.as_tensor(rng.standard_normal(st.shape), dtype=torch.float32,
-                        device=device)
+                        device=device).to(st.dtype)
     x0 = torch.as_tensor(rng.standard_normal(st.shape), dtype=torch.float32,
-                         device=device)
+                         device=device).to(st.dtype)
     kw = dict(lam_max=lam, degree=4, eig_ratio=30.0)
-    form = "" if st.patched else ":no_patch"
+    bf16 = st.dtype == torch.bfloat16
+    form = ("" if st.patched else ":no_patch") + (":bf16" if bf16 else "")
     for mode in K.MODES:
         xin = x0 if mode == "post" else None
         got = K.fused_augmented_2d(mode, st, b, xin, **kw)
-        ref = K.fused_augmented_2d_plain(mode, st, b, xin, **kw)
+        ref = K.fused_augmented_2d_plain(
+            mode, st.float32, b.float(),
+            None if xin is None else xin.float(), **kw)
         pairs = zip(got, ref) if mode == "pre" else [(got, ref)]
         for g, r in pairs:
+            check(g.dtype == st.dtype, f"K2 {mode}{form} {tag}: returned "
+                  f"{g.dtype}")
             record(errs, "fused_augmented_2d", mode + form, tag, g, r)
 
 
@@ -846,6 +863,7 @@ def stencil_lam(st):
 
 
 def phase_kernels(device):
+    import torch
     from fictitious_domain_al_preconditioners_torch.ops.kernels import (
         AugmentedStencil2D, sweep_output_tile)
 
@@ -868,8 +886,12 @@ def phase_kernels(device):
         compare_stencils(h, shape, device, seed=i, tag=tag, errs=errs)
         for st in (AugmentedStencil2D(h, shape, planes, box),
                    AugmentedStencil2D(h, shape, device=device,
-                                      dtype=planes.dtype)):
-            lam = stencil_lam(st)
+                                      dtype=planes.dtype),
+                   AugmentedStencil2D(h, shape, planes.to(torch.bfloat16),
+                                      box),
+                   AugmentedStencil2D(h, shape, device=device,
+                                      dtype=torch.bfloat16)):
+            lam = stencil_lam(st.float32)
             compare_fused(st, device, lam, seed=10 + i, tag=tag, errs=errs)
             print(f"phase 2: {tag} box={st.box} lam_max={lam:.6f} ok",
                   flush=True)
@@ -990,10 +1012,11 @@ def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fused_bound(mode, st, degree):
+def fused_bound(mode, st, degree, itemsize=4):
     """Bound of one K2 call: the lattice inputs read once (b, and x0 in
-    post), the outputs written once (x, and r in pre), the planes read once;
-    the stencil applications, Chebyshev updates and patch terms done."""
+    post), the outputs written once (x, and r in pre), the planes read once,
+    each value ``itemsize`` bytes (2 in bf16 storage); the stencil
+    applications, Chebyshev updates and patch terms done (float32)."""
     ny, nx = st.shape
     n = ny * nx
     box = st.box[2] * st.box[3]
@@ -1001,25 +1024,27 @@ def fused_bound(mode, st, degree):
     apps = {"op": 1, "smooth": degree - 1, "pre": degree,
             "post": degree}[mode]
     updates = 0 if mode == "op" else degree - 1
-    nbytes = 4 * (arrays * n + 5 * box)
+    nbytes = itemsize * (arrays * n + 5 * box)
     flops = n * (apps * STENCIL_FLOPS + 6 * updates + 4) + box * apps * 18
     return bound(nbytes, flops)
 
 
 def time_fused(st, lam, degree, device, times):
-    """K2's modes at one stencil: kernel and plain times between CUDA events
-    (``ms`` holds the host's cost of one wrapper call), the kernel's device
-    ms a launch in a CUDA graph (``graph_ms``), and the bound."""
+    """K2's modes at one stencil, in its dtype (a bf16 stencil's keys end in
+    ``:bf16``): kernel and plain times between CUDA events (``ms`` holds the
+    host's cost of one wrapper call), the kernel's device ms a launch in a
+    CUDA graph (``graph_ms``), and the bound."""
     import torch
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
     rng = np.random.default_rng(7)
     b = torch.as_tensor(rng.standard_normal(st.shape), dtype=torch.float32,
-                        device=device)
+                        device=device).to(st.dtype)
     x0 = torch.as_tensor(rng.standard_normal(st.shape), dtype=torch.float32,
-                         device=device)
+                         device=device).to(st.dtype)
     kw = dict(lam_max=lam, degree=degree, eig_ratio=30.0)
-    form = "" if st.patched else ":no_patch"
+    form = (("" if st.patched else ":no_patch")
+            + (":bf16" if st.dtype == torch.bfloat16 else ""))
     for mode in K.MODES:
         xin = x0 if mode == "post" else None
         ms, pms = cuda_time_turns(
@@ -1030,7 +1055,43 @@ def time_fused(st, lam, degree, device, times):
         times[mode + form] = dict(ms=ms, plain_ms=pms, library_ms=None,
                                   graph_ms=gms, shape=list(st.shape))
         times[mode + form]["bound_ms"], times[mode + form]["bound_by"] = \
-            fused_bound(mode, st, degree)
+            fused_bound(mode, st, degree, st.dtype.itemsize)
+
+
+def time_k2_rows(refinement, device):
+    """K2's modes in float32 and in bf16 storage at the fine lattice of
+    ``refinement`` with the flagship's planes and a Lanczos bound of the
+    float32 stencil (:func:`time_fused`'s rows, keyed as there)."""
+    import torch
+    from fictitious_domain_al_preconditioners_torch.ops.kernels import \
+        AugmentedStencil2D
+
+    planes, box = flagship_planes(refinement, device)
+    n = 2 ** refinement + 1
+    h = (1.0 / (n - 1), 1.0 / (n - 1))
+    st = AugmentedStencil2D(h, (n, n), planes, box)
+    lam = stencil_lam(st)
+    times = {}
+    for s in (st, AugmentedStencil2D(h, (n, n), planes.to(torch.bfloat16),
+                                     box)):
+        time_fused(s, lam, 4, device, times)
+    return times
+
+
+def print_times(times):
+    """One line a row of kernel times (``time_*``'s)."""
+    for k, t in times.items():
+        also = "".join(
+            f", {name} {t[key]:.4f} ms" for key, name in
+            (("copy_ms", "copy"), ("k2_op_ms", "no-patch K2 op"),
+             ("graph_ms", "in a CUDA graph: kernel"),
+             ("copy_graph_ms", "copy"),
+             ("k2_op_graph_ms", "no-patch K2 op"),
+             ("k1_graph_ms", "K1")) if key in t)
+        print(f"time {k} at {tuple(t['shape'])}: kernel {t['ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['library_ms']} ms{also}", flush=True)
 
 
 def time_stencils(h, shape, device, times):
@@ -1169,8 +1230,10 @@ def time_window_levels(shapes, stencils, device, times):
 
 def phase_bf16_flagship(refinement, device, f32_iterations):
     """The flagship with the bf16 V-cycle: converged within 2 outer
-    iterations of the float32 V-cycle's count, K1 bf16 on its path and
-    agreeing with its plain version at every level shape."""
+    iterations of the float32 V-cycle's count; K2 in bf16 storage
+    (``op``, ``pre``, ``post``) on the levels whose band is interior and K1
+    bf16 on the others, each agreeing with its plain version at every level
+    shape, K2 with the level's own planes and Lanczos bound."""
     import torch
     from fictitious_domain_al_preconditioners_torch.models import \
         ImmersedLaplaceProblem
@@ -1188,17 +1251,27 @@ def phase_bf16_flagship(refinement, device, f32_iterations):
           f"phase 6: {out['outer_iterations']} outer iterations against "
           f"{f32_iterations} with the float32 V-cycle")
     require_launches(out, ["masked_laplace_2d:bf16", "laplace_stencil_2d",
-                           launch_key("op")], "phase 6")
+                           launch_key("op")]
+                     + [launch_key(m, bf16=True) for m in ("op", "pre",
+                                                           "post")],
+                     "phase 6")
     errs = []
-    for i, level in enumerate(prob._last_gmg.levels):
+    for i, (level, st) in enumerate(zip(prob._last_gmg.levels,
+                                        prob.level_stencils)):
         lat = tuple(reversed(level.space.n_points_1d))
         h = tuple(1.0 / (n - 1) for n in lat)
         u = torch.as_tensor(
             np.random.default_rng(500 + i).standard_normal(lat),
             dtype=torch.float32, device=device)
-        compare_k1_bf16(h, u, f"bf16 flagship level {i} {lat}", errs)
-    print(f"phase 6: K1 bf16 agrees with plain at all {len(errs)} level "
-          "shapes", flush=True)
+        tag = f"bf16 flagship level {i} {lat}"
+        compare_k1_bf16(h, u, tag, errs)
+        if st is not None:
+            check(st.dtype == torch.bfloat16, f"phase 6: {tag} holds a "
+                  f"{st.dtype} stencil")
+            compare_fused(st, device, level.lam_max, seed=520 + i, tag=tag,
+                          errs=errs)
+    print(f"phase 6: K1 bf16 and K2 bf16 agree with plain at all "
+          f"{len(errs)} level comparisons", flush=True)
     return prob, out, errs
 
 
@@ -1242,8 +1315,7 @@ def phase_refined(refinement, device, bf16):
     check(u.shape == (prob.space.n_dofs,) and bool(np.isfinite(u).all())
           and bool(np.isfinite(lam).all()),
           f"phase 6 {tag}: non-finite or misshapen iterate")
-    require_launches(out, ["fused_augmented_2d:op", "masked_laplace_2d:bf16"
-                           if bf16 else "fused_augmented_2d:pre"],
+    require_launches(out, [K.launch_key("op"), K.launch_key("pre", bf16=bf16)],
                      f"phase 6 {tag}")
     return out
 
@@ -2535,7 +2607,8 @@ def sharded_form_launches(name, r):
     launched: K6 (the Dirichlet lift) and the fine level's kernels: K2
     ``op``/``pre``/``post`` in operator form with an interior band (and K1
     where a tail level is compact), K2 ``op`` (the outer operator) and
-    K1's bf16 form under the bf16 V-cycle, K1 in the explicit forms and on
+    K2's bf16 form (and K1's where a tail level is compact) under the bf16
+    V-cycle, K1 in the explicit forms and on
     a band on ∂Ω; none on the element form (the flower)."""
     from fictitious_domain_al_preconditioners_torch.ops.kernels import \
         launch_key
@@ -2544,7 +2617,10 @@ def sharded_form_launches(name, r):
         return []
     keys = ["laplace_stencil_2d"]
     if name == "bf16":
-        return keys + [launch_key("op"), "masked_laplace_2d:bf16"]
+        keys += [launch_key("op")] + [launch_key(m, bf16=True)
+                                      for m in ("op", "pre", "post")]
+        return keys + (["masked_laplace_2d:bf16"] if r["compact_levels"]
+                       else [])
     if name in ("flagship", "exactw"):
         keys += [launch_key(m) for m in ("op", "pre", "post")]
         if not r["compact_levels"]:
@@ -2725,10 +2801,10 @@ def k6_resources(shape):
 
 def k2_resources(shape, degree=4):
     """Resources of the K2 instantiations on the main paths (``op``, and
-    ``pre``/``post`` at ``degree``, each with and without patch), keyed as
-    the modes of the kernels line; the patched ``op``'s are of the
-    instantiation a launch on ``shape`` takes, with its plan and every
-    instantiation's under ``chunks``."""
+    ``pre``/``post`` at ``degree``, each with and without patch, and each
+    mode in bf16 storage), keyed as the modes of the kernels line; the
+    patched ``op``'s are of the instantiation a launch on ``shape`` takes,
+    with its plan and every instantiation's under ``chunks``."""
     from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 
     res = {}
@@ -2736,6 +2812,9 @@ def k2_resources(shape, degree=4):
         for mode in K.MODES:
             key = mode if patch else f"{mode}:no_patch"
             res[key] = K.fused_augmented_resources(mode, degree, patch)
+    for mode in K.MODES:
+        res[f"{mode}:bf16"] = K.fused_augmented_resources(mode, degree,
+                                                          bf16=True)
     tile = K.augmented_op_tile(*shape)
     res["op"] = dict(
         K.fused_augmented_resources("op", degree, True, tile["chunk_rows"]),
@@ -2786,13 +2865,24 @@ def kernel_report(path_launches, errs, times, resources):
                               launches=total,
                               launches_by_path=by_path,
                               max_abs_err=worst("fused_augmented_2d", key))
+    for m in MODES:
+        # bf16 storage: the form without planes runs the same instantiation
+        key = f"{m}:bf16"
+        by_path = {p: n.get(launch_key(m, True, True), 0)
+                   + n.get(launch_key(m, False, True), 0)
+                   for p, n in path_launches.items()}
+        modes[key] = dict(times[key], **resources[key],
+                          source=MODE_SOURCE["bf16"],
+                          launches=sum(by_path.values()),
+                          launches_by_path=by_path,
+                          max_abs_err=worst("fused_augmented_2d", key))
     # K2's own times are those of its patched op mode; its launches sum
-    # every mode and form
+    # every mode, form and dtype
     k2 = entry("fused_augmented_2d", times["op"])
     k2.update(resources["op"])
     k2["launches_by_path"] = {
-        p: sum(n.get(launch_key(m, q), 0) for m in MODES
-               for q in (True, False))
+        p: sum(n.get(launch_key(m, q, h), 0) for m in MODES
+               for q in (True, False) for h in (False, True))
         for p, n in path_launches.items()}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k2["modes"] = modes
@@ -2848,6 +2938,11 @@ def main(argv=None) -> int:
                     help="run only phase 14 (multiplier degrees 0 and 2, "
                          "the bf16 element-form V-cycle, Q2 elliptic and "
                          "elasticity) and its cross-checks (no kernels "
+                         "line)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run only phases 1 and 2 and time K2 in float32 "
+                         "and in bf16 storage at the refinement's fine "
+                         "lattice with the flagship's planes (no kernels "
                          "line)")
     ap.add_argument("--sharded-only", action="store_true",
                     help="run only phase 16, the sharded solves (the "
@@ -2910,6 +3005,12 @@ def main(argv=None) -> int:
                 check(rc["local_bytes"] == 0, f"{name} chunk {chunk} spills "
                       f"{rc['local_bytes']} bytes a thread")
 
+        if args.kernels_only:
+            phase_kernels(device)
+            print_times(time_k2_rows(args.refinement, device))
+            print(f"chip_smoke: phases 1 and 2 passed in "
+                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            return 0
         if args.sharded_only:
             phase_sharded(args.refinement, device, smi)
             print(f"chip_smoke: phase 16 passed in "
@@ -3001,6 +3102,8 @@ def main(argv=None) -> int:
         errs += bf16_errs
         lat = tuple(reversed(prob.space.n_points_1d))
         time_k1_bf16(tuple(1.0 / (n - 1) for n in lat), lat, device, times)
+        time_fused(prob.level_stencils[0], prob._last_gmg.levels[0].lam_max,
+                   prob.cfg.gmg_smoother_degree, device, times)
         del prob
         torch.cuda.empty_cache()
         time_k1_levels(level_shapes, device, times)
@@ -3009,18 +3112,7 @@ def main(argv=None) -> int:
             out = phase_refined(ref, device, bf16)
             path_launches[out["path"]] = out["launches"]
             torch.cuda.empty_cache()
-        for k, t in times.items():
-            also = "".join(
-                f", {name} {t[key]:.4f} ms" for key, name in
-                (("copy_ms", "copy"), ("k2_op_ms", "no-patch K2 op"),
-                 ("graph_ms", "in a CUDA graph: kernel"),
-                 ("copy_graph_ms", "copy"),
-                 ("k2_op_graph_ms", "no-patch K2 op"),
-                 ("k1_graph_ms", "K1")) if key in t)
-            print(f"time {k} at {tuple(t['shape'])}: kernel {t['ms']:.4f} "
-                  f"ms, plain {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
-                  f"{t['library_ms']} ms{also}", flush=True)
+        print_times(times)
 
         out, ell_errs, ell_space = phase_elliptic(args.elliptic_cycle, device)
         path_launches[out["path"]] = out["launches"]

@@ -58,19 +58,9 @@ int fdal_fused_augmented_2d(int mode, int degree, const float* b,
   s.rout = rout;
   s.ny = ny;
   s.nx = nx;
-  // 9-point weights of K0(x)M1 + M0(x)K1; the centre is Kc as given
-  const double k0o = fac[0], k0c = fac[1], m0o = fac[2], m0c = fac[3];
-  const double k1o = fac[4], k1c = fac[5], m1o = fac[6], m1c = fac[7];
-  s.w = Weights{fac[8], (float)(k0o * m1c + m0o * k1c),
-                (float)(k0c * m1o + m0c * k1o), (float)(k0o * m1o + m0o * k1o)};
   s.box = Box{r0, c0, pr, pc};
-  if (mode != MODE_OP) {
-    if (degree < 2 || degree > MAX_DEG) return (int)cudaErrorInvalidValue;
-    s.ch.inv_theta = coef[0];
-    for (int j = 0; j < degree - 1; ++j) {
-      s.ch.a[j] = coef[1 + j];
-      s.ch.c[j] = coef[degree + j];
-    }
+  if (!set_weights(s, mode, degree, fac, coef)) {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)run_mode(mode, degree, planes != nullptr, &s, nullptr,
                        (cudaStream_t)stream);

@@ -1,9 +1,11 @@
-// K2, the fused augmented operator and Chebyshev sweeps, shared by the three
+// K2, the fused augmented operator and Chebyshev sweeps, shared by the four
 // sources that instantiate it: fdal_kernels.cu (mode smooth, mode op of the
 // form without patch, and the C entry points), fdal_pre.cu (mode pre) and
-// fdal_post.cu (mode post), each compiled by its own nvcc process.  The mode
-// op with the patch is not instantiated from here: one application of the
-// patched operator has a kernel of its own, fdal_augmented.cu.
+// fdal_post.cu (mode post), each compiled by its own nvcc process, in
+// float32 storage; fdal_sweep_bf16.cu every mode in bf16 storage.  The mode
+// op with the patch in float32 is not instantiated from here: one
+// application of the patched operator has a kernel of its own,
+// fdal_augmented.cu.
 //
 // Replaces fictitious_domain_al_preconditioners_tpu/ops/pallas_kernels.py
 // :394 fused_chebyshev_2d.  The masked augmented operator
@@ -54,10 +56,15 @@
 //   body and loads no plane bytes.  Patched blocks hold the whole centre
 //   weight Kc + w_c in plane 0 and form D^-1 from it with a correctly
 //   rounded reciprocal (rcp_rn), as no register is left to keep it.
+// - Storage: the lattice arrays and the planes are float or __nv_bfloat16
+//   (sweep_kernel's T; bf16 in fdal_sweep_bf16.cu), one body for both:
+//   loads widen to float32 and stores round once (__float2bfloat16_rn);
+//   the registers, the shared staging and every update are float32.
 // The dynamic shared memory attribute is set once per instantiation.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fdal {
@@ -99,17 +106,42 @@ struct Cheb {
   float c[MAX_DEG];
 };
 
-struct Sweep {
-  const float* b;
-  const float* x0;
-  const float* planes;
-  float* out;
-  float* rout;
+// The arguments of one call, the lattice arrays and planes in storage T.
+template <typename T>
+struct SweepOf {
+  const T* b;
+  const T* x0;
+  const T* planes;
+  T* out;
+  T* rout;
   int ny, nx;
   Weights w;
   Box box;
   Cheb ch;
 };
+using Sweep = SweepOf<float>;
+using SweepBf16 = SweepOf<__nv_bfloat16>;
+
+// fac (host): k0o, k0c, m0o, m0c, k1o, k1c, m1o, m1c, kc; the 9-point
+// weights of K0(x)M1 + M0(x)K1, the centre Kc as given.  coef (host):
+// inv_theta, a_1..a_{deg-1}, c_1..c_{deg-1}, read outside mode op.  False
+// for a degree out of range.
+template <typename T>
+inline bool set_weights(SweepOf<T>& s, int mode, int degree, const float* fac,
+                        const float* coef) {
+  const double k0o = fac[0], k0c = fac[1], m0o = fac[2], m0c = fac[3];
+  const double k1o = fac[4], k1c = fac[5], m1o = fac[6], m1c = fac[7];
+  s.w = Weights{fac[8], (float)(k0o * m1c + m0o * k1c),
+                (float)(k0c * m1o + m0c * k1o), (float)(k0o * m1o + m0o * k1o)};
+  if (mode == MODE_OP) return true;
+  if (degree < 2 || degree > MAX_DEG) return false;
+  s.ch.inv_theta = coef[0];
+  for (int j = 0; j < degree - 1; ++j) {
+    s.ch.a[j] = coef[1 + j];
+    s.ch.c[j] = coef[degree + j];
+  }
+  return true;
+}
 
 // Internal linkage for the templates: each source instantiates its own
 // modes, and the per-instantiation statics of run() stay inside the
@@ -131,9 +163,20 @@ constexpr size_t smem_bytes() {
 // p with its provenance hidden from the compiler, so that the addresses of
 // one pass over a lattice array are not kept live (in registers) for the
 // next pass over the same array.
-__device__ __forceinline__ const float* opaque(const float* p) {
+template <typename T>
+__device__ __forceinline__ const T* opaque(const T* p) {
   asm volatile("" : "+l"(p));
   return p;
+}
+
+// A stored value in float32, and a float32 value stored (rounded once).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 // 1/d correctly rounded for a positive normal d (Kc + w_c, w_c >= 0): the
@@ -216,8 +259,8 @@ __device__ __forceinline__ void apply_patch(const float* __restrict__ zcol,
 // outside the lattice interior, so the masks inm (interior) and inl (in the
 // lattice) are read, else they are all ones at compile time and every
 // select folds away.
-template <int MODE, int DEG, bool HIT, bool EDGE>
-__device__ __forceinline__ void sweep_body(const Sweep& s, float* zcol,
+template <int MODE, int DEG, bool HIT, bool EDGE, typename T>
+__device__ __forceinline__ void sweep_body(const SweepOf<T>& s, float* zcol,
                                            const float* pcol, unsigned inm,
                                            unsigned inl, int gr, int gc,
                                            bool keep_col, int keep_lo,
@@ -229,20 +272,22 @@ __device__ __forceinline__ void sweep_body(const Sweep& s, float* zcol,
   const long long base = (long long)gr * s.nx + gc;
   const int nx = s.nx;
   float rhs[RUN], x[RUN];
-  const float* b = s.b + base;
+  const T* b = s.b + base;
 #pragma unroll
   for (int k = 0; k < RUN; ++k) {
     // points outside the lattice are 0 (a select, never a product)
-    rhs[k] = ((inl >> k) & 1u) ? b[k * nx] : 0.f;
+    rhs[k] = ((inl >> k) & 1u) ? widen(b[k * nx]) : 0.f;
   }
   const float dint = 1.f / s.w.c;
   // the kept rows of the run (the tile less its halo, inside the lattice)
-  auto store = [&](float* dst, const float (&v)[RUN]) {
+  auto store = [&](T* dst, const float (&v)[RUN]) {
     if (!keep_col) return;
     dst += base;
 #pragma unroll
     for (int k = 0; k < RUN; ++k) {
-      if (k >= keep_lo && k < keep_hi && ((inl >> k) & 1u)) dst[k * nx] = v[k];
+      if (k >= keep_lo && k < keep_hi && ((inl >> k) & 1u)) {
+        put(dst + k * nx, v[k]);
+      }
     }
   };
   auto apply = [&](const float (&v)[RUN], auto emit) {
@@ -260,10 +305,10 @@ __device__ __forceinline__ void sweep_body(const Sweep& s, float* zcol,
     apply(rhs, [&](int k, float av, float) { x[k] = av; });
   } else {
     if constexpr (MODE == MODE_POST) {
-      const float* x0 = opaque(s.x0 + base);
+      const T* x0 = opaque(s.x0 + base);
 #pragma unroll
       for (int k = 0; k < RUN; ++k) {
-        x[k] = ((inl >> k) & 1u) ? x0[k * nx] : 0.f;
+        x[k] = ((inl >> k) & 1u) ? widen(x0[k * nx]) : 0.f;
       }
       apply(x, [&](int k, float av, float) { rhs[k] -= av; });
     }
@@ -287,10 +332,10 @@ __device__ __forceinline__ void sweep_body(const Sweep& s, float* zcol,
     }
     if constexpr (MODE == MODE_POST) {
       // x0 again: this block read it a few microseconds ago, from L2 now
-      const float* x0 = opaque(s.x0 + base);
+      const T* x0 = opaque(s.x0 + base);
 #pragma unroll
       for (int k = 0; k < RUN; ++k) {
-        if ((inl >> k) & 1u) x[k] += x0[k * nx];
+        if ((inl >> k) & 1u) x[k] += widen(x0[k * nx]);
       }
     }
     if constexpr (MODE == MODE_PRE) {
@@ -304,11 +349,12 @@ __device__ __forceinline__ void sweep_body(const Sweep& s, float* zcol,
   store(s.out, x);
 }
 
-template <int MODE, int DEG, bool HIT>
-__device__ __forceinline__ void body(bool edge, const Sweep& s, float* zcol,
-                                     const float* pcol, unsigned inm,
-                                     unsigned inl, int gr, int gc,
-                                     bool keep_col, int keep_lo, int keep_hi) {
+template <int MODE, int DEG, bool HIT, typename T>
+__device__ __forceinline__ void body(bool edge, const SweepOf<T>& s,
+                                     float* zcol, const float* pcol,
+                                     unsigned inm, unsigned inl, int gr,
+                                     int gc, bool keep_col, int keep_lo,
+                                     int keep_hi) {
   if (edge) {
     sweep_body<MODE, DEG, HIT, true>(s, zcol, pcol, inm, inl, gr, gc,
                                      keep_col, keep_lo, keep_hi);
@@ -318,9 +364,9 @@ __device__ __forceinline__ void body(bool edge, const Sweep& s, float* zcol,
   }
 }
 
-template <int MODE, int DEG, bool PATCH>
+template <int MODE, int DEG, bool PATCH, typename T>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-sweep_kernel(const Sweep s) {
+sweep_kernel(const SweepOf<T> s) {
   constexpr int H = halo<MODE, DEG>();
   constexpr int TY = EY - 2 * H;
   constexpr int TX = EX - 2 * H;
@@ -369,7 +415,7 @@ sweep_kernel(const Sweep s) {
         const int e = t / ZN, yy = (t % ZN) / ZW, xx = t % ZW;
         const int pr = gr0 + yy - 1 - box.r0, pc = gc0 + xx - 1 - box.c0;
         const float v = (pr >= 0 && pr < box.pr && pc >= 0 && pc < box.pc)
-            ? s.planes[e * plane + (long long)pr * box.pc + pc] : 0.f;
+            ? widen(s.planes[e * plane + (long long)pr * box.pc + pc]) : 0.f;
         P[t] = e == 0 ? s.w.c + v : v;  // plane 0: the centre weight
       }
       __syncthreads();
@@ -386,11 +432,11 @@ sweep_kernel(const Sweep s) {
 // to res (registers a thread, static and dynamic shared bytes, local bytes
 // a thread, resident blocks an SM, threads a block).  The dynamic shared
 // memory attribute is set on the first use.
-template <int MODE, int DEG, bool PATCH>
-cudaError_t run(const Sweep* s, int* res, cudaStream_t stream) {
+template <int MODE, int DEG, bool PATCH, typename T>
+cudaError_t run(const SweepOf<T>* s, int* res, cudaStream_t stream) {
   constexpr int H = halo<MODE, DEG>();
   constexpr size_t shmem = smem_bytes<PATCH>();
-  auto kernel = sweep_kernel<MODE, DEG, PATCH>;
+  auto kernel = sweep_kernel<MODE, DEG, PATCH, T>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (attr != cudaSuccess) return attr;

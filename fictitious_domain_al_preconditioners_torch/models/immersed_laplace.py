@@ -29,11 +29,13 @@ constrained stiffness.  Every inner vector is an (ny, nx) lattice tensor; the
 flat dof vector is a view of the same buffer.
 
 With ``use_bf16_multigrid`` the augmented solver's V-cycle runs in
-bfloat16: on the lattice every level operator is K1 in its bf16-storage
-form plus the masked Γ-band AL term in bf16, smoothed by the unfused
-Chebyshev, on the element form every level holds its stiffness and compact
-AL block in bf16, while the inner CG and the outer FGMRES stay in the
-working dtype.  The multiplier is continuous of ``embedded_space_degree``
+bfloat16: on the lattice a level whose Γ-band is interior is K2 in its
+bf16-storage form (the same operator and fused Chebyshev sweeps, the
+vectors and planes in bf16, float32 arithmetic), any other level K1's
+bf16-storage form plus the masked compact AL block in bf16 with the
+unfused Chebyshev; on the element form every level holds its stiffness
+and compact AL block in bf16, while the inner CG and the outer FGMRES stay
+in the working dtype.  The multiplier is continuous of ``embedded_space_degree``
 1 or 2, or DG0 for 0; on the lattice its degree changes C, W and the
 right-hand side, not K2's particle planes, which depend on the Γ
 quadrature only.
@@ -47,8 +49,8 @@ every level of the operator form whose Γ-band is interior, and smooths
 ``K⁻¹``'s levels in its no-patch form; K1 (``masked_laplace_2d``) is the
 constrained stiffness of ``K⁻¹``, of a coarse level whose band touches ∂Ω,
 of the operator and every level of the explicit form (beside the masked
-compact AL block, with the unfused Chebyshev smoother) and, in bfloat16, of
-every level of the bf16 V-cycle; K6 (``laplace_stencil_2d``, through
+compact AL block, with the unfused Chebyshev smoother), in either dtype of
+the V-cycle; K6 (``laplace_stencil_2d``, through
 ``LatticeOps.laplace``) is the unconstrained stiffness that lifts the
 Dirichlet data.  On the CPU the same wrappers run their plain PyTorch
 versions.
@@ -378,29 +380,28 @@ class ImmersedLaplaceProblem:
     def _level_operator(self, sp, coupling, gamma, dtype=None, w_diag=None):
         """Masked augmented operator of one lattice level: ``(op, diag,
         smoother_builder)`` for :func:`..precond.gmg.build_gmg`, and the
-        level's :class:`AugmentedStencil2D` (None on a compact-AL level and
-        in bfloat16).
+        level's :class:`AugmentedStencil2D` (None on a compact-AL level).
 
-        In the working dtype a level of the operator form whose Γ-band is
-        interior is K2 (``op``, and ``pre``/``post`` as its smoother).  In
-        bfloat16 (``dtype``, the bf16 V-cycle) it is K1's bf16 form plus the
-        masked 9-point patch in bf16, with the unfused Chebyshev smoother:
-        the reference has no bf16 form of the fused kernel
-        (``pallas_kernels.py:451-452``).  A level whose band touches ∂Ω,
-        and every level of the explicit form (``w_diag``, the weights of
-        γ·Cᵀdiag(w)C), is K1 plus the masked compact AL block in either
-        dtype (``_fused_masked_k`` + ``_masked_wrap`` of the reference,
-        immersed_laplace.py:1100-1106, 1129-1135)."""
-        dev, dt = self.device, self.dtype
+        A level of the operator form whose Γ-band is interior is K2 (``op``,
+        and ``pre``/``post`` as its smoother) in the level's dtype: the
+        working dtype, or bfloat16 (``dtype``, the bf16 V-cycle), where K2
+        runs in bf16 storage.  The reference has no bf16 form of the fused
+        kernel (``pallas_kernels.py:451-452``) and applies K1's bf16 form
+        plus the masked 9-point patch with the unfused Chebyshev; K2's
+        symmetric planes are that patch on an interior band.  A level whose
+        band touches ∂Ω, and every level of the explicit form (``w_diag``,
+        the weights of γ·Cᵀdiag(w)C), is K1 plus the masked compact AL block
+        in either dtype (``_fused_masked_k`` + ``_masked_wrap`` of the
+        reference, immersed_laplace.py:1100-1106, 1129-1135)."""
+        dt = self.dtype
         lat = LatticeOps.for_space(sp)
         ny, nx = lat.shape
         k_diag = lat.laplace_diag()
         free = ~sp.boundary_dof_mask(list(self.cfg.dirichlet_ids))
-        bf16 = dtype == torch.bfloat16
         explicit = w_diag is not None
-        pw = None if bf16 or explicit else coupling.patch_w9(sp, gamma)
+        pw = None if explicit else coupling.patch_w9(sp, gamma)
         if pw is not None:
-            st, al_diag = self._patch_stencil(sp, pw)
+            st, al_diag = self._patch_stencil(sp, pw, dtype)
 
             def op(x2):
                 return fused_augmented_2d("op", st, x2)
@@ -414,16 +415,6 @@ class ImmersedLaplaceProblem:
                                                           **kw))
 
             return (op, k_diag + al_diag, smoother_builder), st
-
-        al = (coupling.patch_al_lattice(sp, gamma, free=free, dtype=dtype)
-              if bf16 and not explicit else None)
-        if al is not None:
-            al_mv2, al_diag = al
-
-            def op(x2):
-                return masked_laplace_2d(x2, lat.h) + al_mv2(x2)
-
-            return (op, k_diag + al_diag, None), None
 
         # the explicit form, or a (coarse) level whose Γ-band touches ∂Ω:
         # the compact AL block
@@ -451,14 +442,17 @@ class ImmersedLaplaceProblem:
             seconds=time.perf_counter() - t0))
         return out
 
-    def _patch_stencil(self, sp, pw):
+    def _patch_stencil(self, sp, pw, dtype=None):
         """K2's stencil of a lattice level from its Γ-band patch ``pw`` =
-        ``(box, w9)`` (:meth:`..ops.coupling.Coupling.patch_w9`), and the
-        patch's assembled diagonal (flat)."""
+        ``(box, w9)`` (:meth:`..ops.coupling.Coupling.patch_w9`), its planes
+        in ``dtype`` (default the working dtype; rounded through it, as
+        ``patch_al_lattice`` rounds its weights), and the patch's assembled
+        diagonal (flat)."""
         lat = LatticeOps.for_space(sp)
         (r0, c0, pr, pc), w9 = pw
         planes = torch.as_tensor(np.stack([w9[a, b] for a, b in _PLANES]),
-                                 dtype=self.dtype, device=self.device)
+                                 dtype=self.dtype,
+                                 device=self.device).to(dtype or self.dtype)
         st = AugmentedStencil2D(lat.h, lat.shape, planes, pw[0])
         al_diag = np.zeros(lat.shape)
         al_diag[r0:r0 + pr, c0:c0 + pc] = w9[1, 1]
@@ -754,9 +748,9 @@ class ImmersedLaplaceProblem:
         """The lattice path over row blocks (``parallel.mesh.plan_levels``):
         every distributed level runs its kernels on each rank's extended
         block.  A level of the operator form whose Γ-band is interior is K2
-        (``op``, and ``pre``/``post`` as its smoother), its patch box
-        clipped to the block (``AugmentedStencil2D.row_block``); in
-        bfloat16 K1's bf16 form plus the clipped masked patch; a level of
+        (``op``, and ``pre``/``post`` as its smoother) in the level's dtype
+        (bf16 storage under a bf16 V-cycle, as on one rank), its patch box
+        clipped to the block (``AugmentedStencil2D.row_block``); a level of
         the explicit form or whose band touches ∂Ω K1 plus this rank's rows
         of the masked compact block (``Coupling.compact_al_rows``: its band
         entries summed over the ranks, one all-reduce an apply), both with
@@ -804,13 +798,12 @@ class ImmersedLaplaceProblem:
             lat_l = LatticeOps.for_space(sp)
             k_diag = lat_l.laplace_diag()
             coupling = couplings[sp.n_dofs]
-            bf16 = dtype == torch.bfloat16
             explicit = w_diag is not None
             rec = dict(rows=[lo, hi], dtype=str(dtype).replace("torch.", ""),
                        h=lat_l.h)
-            pw = None if bf16 or explicit else coupling.patch_w9(sp, gamma)
+            pw = None if explicit else coupling.patch_w9(sp, gamma)
             if pw is not None:
-                st, al_diag = self._patch_stencil(sp, pw)
+                st, al_diag = self._patch_stencil(sp, pw, dtype)
                 sts = {d: st.row_block(*ext_rows(mesh, bl, d))
                        for d in (HALO["op"], depth)}
                 rec.update(kind="k2", stencils=sts)
@@ -839,18 +832,6 @@ class ImmersedLaplaceProblem:
             ext = ext_rows(mesh, bl, HALO["op"])
             rec.update(kind="k1", ext=list(ext))
             free = ~sp.boundary_dof_mask(list(cfg.dirichlet_ids))
-            al = (coupling.patch_al_lattice(sp, gamma, free=free, dtype=dtype,
-                                            rows=ext)
-                  if bf16 and not explicit else None)
-            if al is not None:
-                al_ext, al_diag = al
-
-                def op(x2):
-                    return on_block(mesh, bl, HALO["op"],
-                                    lambda e: masked_laplace_2d(e, lat_l.h)
-                                    + al_ext(e), x2)
-
-                return (op, k_diag + al_diag, None), rec
             # the explicit form, or a level whose Γ-band touches ∂Ω: this
             # rank's rows of the masked compact AL block
             nx = bl.nx

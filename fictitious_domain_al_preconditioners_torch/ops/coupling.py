@@ -18,10 +18,10 @@ form (:meth:`Coupling.particle_mass_term`) and two lattice forms: the
 :meth:`Coupling.patch_stencil_al`) when the band is interior to the lattice,
 and the compact dense block (:meth:`Coupling.compact_al`) otherwise, which
 also holds the explicit form γ·Cᵀdiag(w)C.  A rank of the sharded solve
-keeps its rows of the table (:meth:`Coupling.row_block`), of the compact
-block (:meth:`Coupling.compact_al_rows`, :class:`CompactRows`) and of the
-patch (``patch_al_lattice(..., rows=)``).  Each ``C u`` and ``Cᵀ λ`` is a
-``coupling.mv`` / ``coupling.rmv`` span (:mod:`..tracer`).
+keeps its rows of the table (:meth:`Coupling.row_block`) and of the
+compact block (:meth:`Coupling.compact_al_rows`, :class:`CompactRows`).
+Each ``C u`` and ``Cᵀ λ`` is a ``coupling.mv`` / ``coupling.rmv`` span
+(:mod:`..tracer`).
 """
 
 from __future__ import annotations
@@ -366,8 +366,7 @@ class Coupling:
 
         return LinOp(mv, (n, n), mv, name="AL_stencil"), diag
 
-    def patch_al_lattice(self, space, gamma: float, free=None, dtype=None,
-                         rows=None):
+    def patch_al_lattice(self, space, gamma: float, free=None, dtype=None):
         """Lattice-resident particle AL apply ``mv2(x2d) -> (ny, nx)`` from
         the 9-point patch, and the flat assembled diagonal (float64 NumPy).
         ``free`` bakes
@@ -376,11 +375,7 @@ class Coupling:
         the products, as in the reference (``coupling.py:339-350``), so a
         bfloat16 level stays bfloat16; they are cast once, here, to ``dtype``
         (default: the coupling's), the dtype of the level that applies
-        them.  With ``rows = (a, b)`` ``mv2`` applies the patch on that
-        block of lattice rows, an extended block of the sharded solve: the
-        box is clipped to the block's interior rows ``[a+1, b-1)``, as
-        ``AugmentedStencil2D.row_block`` clips K2's (the diagonal stays the
-        whole lattice's)."""
+        them."""
         pw = self.patch_w9(space, gamma, free=free)
         if pw is None:
             return None
@@ -388,19 +383,6 @@ class Coupling:
         nx, ny = space.n_points_1d
         dg = np.zeros((ny, nx))
         dg[r0:r0 + pr, c0:c0 + pc] = w9[1, 1]
-        out_rows = ny
-        if rows is not None:
-            a, b = rows
-            lo, hi = max(r0, a + 1), min(r0 + pr, b - 1)
-            out_rows = b - a
-            if lo >= hi:         # no row of the patch in the block
-
-                def zero(x2d):
-                    return torch.zeros_like(x2d)
-
-                return zero, dg.reshape(-1)
-            w9 = w9[:, :, lo - r0:hi - r0]
-            r0, pr = lo - a, hi - lo
         w9t = torch.as_tensor(w9, dtype=self.dtype,
                               device=self.device).to(dtype or self.dtype)
 
@@ -412,8 +394,7 @@ class Coupling:
                 for b in range(3):
                     term = w[a, b] * up[a:a + pr, b:b + pc]
                     acc = term if acc is None else acc + term
-            out = torch.zeros((out_rows, nx), dtype=x2d.dtype,
-                              device=x2d.device)
+            out = torch.zeros((ny, nx), dtype=x2d.dtype, device=x2d.device)
             out[r0:r0 + pr, c0:c0 + pc] = acc
             return out
 

@@ -10,7 +10,9 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.pallas_kernels``:
 - **K2** :func:`fused_augmented_2d` replaces ``fused_chebyshev_2d``
   (``pallas_kernels.py:394``): the masked augmented operator (stiffness plus
   the Γ-band AL patch, or the stiffness alone when the stencil has no patch
-  planes) in four modes, ``op``, ``smooth``, ``pre`` and ``post``.
+  planes) in four modes, ``op``, ``smooth``, ``pre`` and ``post``, in
+  float32 and in bfloat16 storage (float32 arithmetic, one rounding a
+  store; the bf16 V-cycle's levels, a form the reference does not have).
 - **K6** :func:`laplace_stencil_2d` replaces ``_conv9_pallas``
   (``pallas_kernels.py:31``) with the edge corrections of
   ``SeparableStencil2D``: the unconstrained Q1 stiffness apply, in float32
@@ -19,7 +21,8 @@ Counterpart of ``fictitious_domain_al_preconditioners_tpu.ops.pallas_kernels``:
 K2 is CUDA C++ for ``sm_90a``: the sweep kernel in ``csrc/fdal_sweep.cuh``,
 instantiated for ``smooth`` and the no-patch ``op`` (and its C entry points)
 in ``csrc/fdal_kernels.cu``, for ``pre`` in ``csrc/fdal_pre.cu`` and for
-``post`` in ``csrc/fdal_post.cu``.  The single-application kernels share the
+``post`` in ``csrc/fdal_post.cu``, and in bf16 storage for every mode in
+``csrc/fdal_sweep_bf16.cu``.  The single-application kernels share the
 register window of ``csrc/fdal_window.cuh``: K1 (both forms) in
 ``csrc/fdal_masked.cu``, K2's ``op`` with the patch in
 ``csrc/fdal_augmented.cu`` and K6 in ``csrc/fdal_stencil.cu``.  All sit behind
@@ -29,13 +32,14 @@ at first use, called through ctypes.  Nothing is built or imported from CUDA
 when this module is imported.
 
 Dispatch rule of every wrapper: a CPU tensor goes to the plain PyTorch
-version; a CUDA tensor launches the kernel (float32, or bfloat16 for K1,
-or float64 for K6; contiguous) or raises.  Each launch adds one to
-:data:`LAUNCHES` (K1 and K6 per dtype form, K2 per mode and per form: with
-or without patch planes).  Inside :func:`recording_launches` (a CUDA
-graph's capture, which runs nothing) a launch is recorded instead, with its
-call record (:func:`call_record`); the graph's owner adds the record to
-:data:`LAUNCHES` and :data:`GRAPH_CALLS` at each replay.
+version; a CUDA tensor launches the kernel (float32, or bfloat16 for K1
+and K2, or float64 for K6; contiguous) or raises.  Each launch adds one to
+:data:`LAUNCHES` (K1 and K6 per dtype form, K2 per mode, per form: with
+or without patch planes, and per dtype).  Inside
+:func:`recording_launches` (a CUDA graph's capture, which runs nothing) a
+launch is recorded instead, with its call record (:func:`call_record`);
+the graph's owner adds the record to :data:`LAUNCHES` and
+:data:`GRAPH_CALLS` at each replay.
 """
 
 from __future__ import annotations
@@ -113,16 +117,19 @@ def window_plan(ny: int, nx: int, itemsize: int = 4) -> dict:
                 tile_columns=WINDOW_KEEP * WINDOW_WARPS)
 
 
-def launch_key(mode: str, patch: bool = True) -> str:
-    """The :data:`LAUNCHES` key of K2 in ``mode``, with or without patch."""
-    return f"fused_augmented_2d:{mode}" + ("" if patch else ":no_patch")
+def launch_key(mode: str, patch: bool = True, bf16: bool = False) -> str:
+    """The :data:`LAUNCHES` key of K2 in ``mode``, with or without patch,
+    in float32 or in bf16 storage."""
+    return (f"fused_augmented_2d:{mode}" + ("" if patch else ":no_patch")
+            + (":bf16" if bf16 else ""))
 
 
 #: kernel launches made by the wrappers, keyed by kernel (K1 and K6 by dtype
-#: form, K2 by mode and form)
+#: form, K2 by mode, form and dtype)
 LAUNCHES = {"masked_laplace_2d": 0, "masked_laplace_2d:bf16": 0,
             "laplace_stencil_2d": 0, "laplace_stencil_2d:f64": 0,
-            **{launch_key(m, p): 0 for p in (True, False) for m in MODES}}
+            **{launch_key(m, p, h): 0 for h in (False, True)
+               for p in (True, False) for m in MODES}}
 
 
 #: kernel-entry calls that ran inside CUDA graph replays, keyed by their
@@ -177,7 +184,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f)
                 for f in ("fdal_kernels.cu", "fdal_pre.cu", "fdal_post.cu",
                           "fdal_stencil.cu", "fdal_masked.cu",
-                          "fdal_augmented.cu"))
+                          "fdal_augmented.cu", "fdal_sweep_bf16.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f)
                 for f in ("fdal_sweep.cuh", "fdal_window.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
@@ -274,6 +281,11 @@ def _library():
     lib.fdal_fused_augmented_2d.restype = ci
     lib.fdal_fused_augmented_resources.argtypes = [ci, ci, ci, vp]
     lib.fdal_fused_augmented_resources.restype = ci
+    lib.fdal_fused_augmented_2d_bf16.argtypes = \
+        lib.fdal_fused_augmented_2d.argtypes
+    lib.fdal_fused_augmented_2d_bf16.restype = ci
+    lib.fdal_fused_augmented_bf16_resources.argtypes = [ci, ci, vp]
+    lib.fdal_fused_augmented_bf16_resources.restype = ci
     return lib
 
 
@@ -614,6 +626,18 @@ class AugmentedStencil2D:
                                   dtype=self.dtype)
 
     @functools.cached_property
+    def float32(self) -> "AugmentedStencil2D":
+        """This operator with its planes widened to float32 (exact), the
+        plain form's of a bfloat16 stencil; itself when float32."""
+        if self.dtype == torch.float32:
+            return self
+        if not self.patched:
+            return AugmentedStencil2D(self.h, self.shape, device=self.device,
+                                      dtype=torch.float32)
+        return AugmentedStencil2D(self.h, self.shape, self.planes.float(),
+                                  self.box)
+
+    @functools.cached_property
     def w9(self) -> torch.Tensor:
         """The 9 patch weight planes (3, 3, pr+2, pc+2) on the box grown by
         one point on each side, in the layout of ``Coupling.patch_w9``,
@@ -672,9 +696,20 @@ def fused_augmented_2d_plain(mode: str, st: AugmentedStencil2D, b, x0=None,
                              *, lam_max: float = 1.0, degree: int = 4,
                              eig_ratio: float = 30.0):
     """Plain PyTorch K2: ``chebyshev`` over :meth:`AugmentedStencil2D.op_plain`
-    (the unfused composition the reference runs off the TPU)."""
+    (the unfused composition the reference runs off the TPU).  A bfloat16
+    ``b`` (and ``x0``) is widened to float32 with the stencil's planes
+    (:attr:`AugmentedStencil2D.float32`), and each output rounded to
+    bfloat16 once: the bf16-storage kernel's semantics, as K1's bf16 form
+    (:func:`masked_laplace_2d_plain`)."""
     from ..precond.chebyshev import chebyshev
 
+    if b.dtype == torch.bfloat16:
+        out = fused_augmented_2d_plain(
+            mode, st.float32, b.float(), None if x0 is None else x0.float(),
+            lam_max=lam_max, degree=degree, eig_ratio=eig_ratio)
+        if mode == "pre":
+            return out[0].to(b.dtype), out[1].to(b.dtype)
+        return out.to(b.dtype)
     if mode == "op":
         return st.op_plain(b)
     cheb = chebyshev(st.op_plain, st.dinv, lam_max, degree=degree,
@@ -700,7 +735,10 @@ def fused_augmented_2d(mode: str, st: AugmentedStencil2D, b, x0=None, *,
     - ``post``:   ``(b, x0) -> x0 + cheb_k(b - A x0)``
 
     ``lam_max`` is the Lanczos bound of D⁻¹A; ``degree`` and ``eig_ratio``
-    set the Chebyshev sweep (unused in ``op``)."""
+    set the Chebyshev sweep (unused in ``op``).  On CUDA ``b``'s dtype picks
+    the kernel: float32, or bfloat16 storage (``csrc/fdal_sweep_bf16.cu``;
+    ``x0`` and the planes in the same dtype, float32 arithmetic, each output
+    rounded once), counted under ``launch_key(mode, patched, bf16=True)``."""
     if mode not in _MODE_ID:
         raise ValueError(f"unknown mode {mode!r}")
     if (mode == "post") != (x0 is not None):
@@ -709,13 +747,15 @@ def fused_augmented_2d(mode: str, st: AugmentedStencil2D, b, x0=None, *,
         return fused_augmented_2d_plain(mode, st, b, x0, lam_max=lam_max,
                                         degree=degree, eig_ratio=eig_ratio)
     ny, nx = st.shape
-    _check_cuda("fused_augmented_2d: b", b, (ny, nx))
+    _check_cuda("fused_augmented_2d: b", b, (ny, nx),
+                (torch.float32, torch.bfloat16))
+    bf16 = b.dtype == torch.bfloat16
     if st.patched:
-        _check_cuda("fused_augmented_2d: planes", st.planes)
+        _check_cuda("fused_augmented_2d: planes", st.planes, dtypes=(b.dtype,))
     if st.device != b.device:
         raise ValueError("fused_augmented_2d: stencil on another device")
     if x0 is not None:
-        _check_cuda("fused_augmented_2d: x0", x0, (ny, nx))
+        _check_cuda("fused_augmented_2d: x0", x0, (ny, nx), (b.dtype,))
     if mode != "op" and not 2 <= degree <= _MAX_DEGREE:
         raise ValueError(f"fused_augmented_2d: degree {degree} not in "
                          f"[2, {_MAX_DEGREE}]")
@@ -730,7 +770,15 @@ def fused_augmented_2d(mode: str, st: AugmentedStencil2D, b, x0=None, *,
     lib = _library()
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        if mode == "op" and st.patched:
+        if bf16:
+            rc = lib.fdal_fused_augmented_2d_bf16(
+                _MODE_ID[mode], int(degree), b.data_ptr(),
+                None if x0 is None else x0.data_ptr(),
+                st.planes.data_ptr() if st.patched else None,
+                out.data_ptr(), None if rout is None else rout.data_ptr(),
+                ny, nx, fac.ctypes.data, r0, c0, pr, pc, coef.ctypes.data,
+                stream)
+        elif mode == "op" and st.patched:
             # one application with the patch: the window kernel
             rc = lib.fdal_augmented_op_2d(
                 b.data_ptr(), st.planes.data_ptr(), out.data_ptr(), ny, nx,
@@ -744,7 +792,7 @@ def fused_augmented_2d(mode: str, st: AugmentedStencil2D, b, x0=None, *,
                 ny, nx, fac.ctypes.data, r0, c0, pr, pc, coef.ctypes.data,
                 stream)
     _check_rc(rc, f"fused_augmented_2d({mode})")
-    _launched(launch_key(mode, st.patched), lambda: call_record(
+    _launched(launch_key(mode, st.patched, bf16), lambda: call_record(
         "fused_augmented_2d", b, mode=mode, box=tuple(st.box),
         degree=int(degree)))
     return (out, rout) if mode == "pre" else out
@@ -774,12 +822,24 @@ def augmented_op_tile(ny: int, nx: int) -> dict:
 
 
 def fused_augmented_resources(mode: str, degree: int = 4,
-                              patch: bool = True, chunk: int = 8) -> dict:
+                              patch: bool = True, chunk: int = 8,
+                              bf16: bool = False) -> dict:
     """What one K2 instantiation takes of the card (builds the library):
     registers a thread, static and dynamic shared bytes a block, local
     (spilled) bytes a thread, resident blocks an SM and threads a block.
     ``op`` with the patch is the window kernel of csrc/fdal_augmented.cu in
-    its instantiation of ``chunk`` (no dynamic shared memory)."""
+    its instantiation of ``chunk`` (no dynamic shared memory).  ``bf16``:
+    the bf16-storage sweep of csrc/fdal_sweep_bf16.cu, whose every mode
+    and form runs the patched instantiation (``patch`` and ``chunk``
+    unused)."""
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+            "local_bytes", "blocks_per_sm", "threads")
+    if bf16:
+        res = np.zeros(6, dtype=np.int32)
+        _check_rc(_library().fdal_fused_augmented_bf16_resources(
+            _MODE_ID[mode], int(degree), res.ctypes.data),
+            f"fused_augmented_resources({mode}, {degree}, bf16)")
+        return dict(zip(keys, (int(v) for v in res)))
     if mode == "op" and patch:
         res = augmented_op_resources(chunk)
         return dict(registers=res["registers"],
@@ -791,6 +851,4 @@ def fused_augmented_resources(mode: str, degree: int = 4,
     _check_rc(_library().fdal_fused_augmented_resources(
         _MODE_ID[mode], int(degree), int(patch), res.ctypes.data),
         f"fused_augmented_resources({mode}, {degree}, {patch})")
-    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
-            "local_bytes", "blocks_per_sm", "threads")
     return dict(zip(keys, (int(v) for v in res)))

@@ -52,12 +52,13 @@ import sys
 import time
 
 _SWEEP = re.compile(r"sweep_kernel<(?:\(int\))?(\d), (?:\(int\))?\d, "
-                    r"(?:\(bool\))?(true|false|1|0)>")
+                    r"(?:\(bool\))?(true|false|1|0), (float|__nv_bfloat16)>")
 
 
 def port_kernel(name):
     """The port's kernel that a device activity's name belongs to (K1 by
-    storage form, K2 by mode and form, K6 by dtype form), or None."""
+    storage form, K2 by mode, form and storage form, K6 by dtype form), or
+    None."""
     if "augmented_op_kernel" in name:
         return "K2 op"
     if "laplace_stencil_kernel" in name:
@@ -68,7 +69,8 @@ def port_kernel(name):
     if m:
         mode = ("op", "smooth", "pre", "post")[int(m.group(1))]
         patch = m.group(2) in ("true", "1")
-        return f"K2 {mode}" + ("" if patch else ", no patch")
+        return (f"K2 {mode}" + ("" if patch else ", no patch")
+                + (" bf16" if m.group(3) != "float" else ""))
     return None
 
 

@@ -97,14 +97,14 @@ PRESETS = {
              "zcol[k * ZW] = ((inm >> k) & 1u) ? v[k] : 0.f;\n"
              "    __syncthreads();", "")],
         "no_memory": [
-            ("rhs[k] = ((inl >> k) & 1u) ? b[k * nx] : 0.f;",
+            ("rhs[k] = ((inl >> k) & 1u) ? widen(b[k * nx]) : 0.f;",
              "rhs[k] = ((inl >> k) & 1u) ? (float)(k + gc) : 0.f;"),
-            ("x[k] = ((inl >> k) & 1u) ? x0[k * nx] : 0.f;",
+            ("x[k] = ((inl >> k) & 1u) ? widen(x0[k * nx]) : 0.f;",
              "x[k] = ((inl >> k) & 1u) ? (float)(k * gc) : 0.f;"),
-            ("if ((inl >> k) & 1u) x[k] += x0[k * nx];",
+            ("if ((inl >> k) & 1u) x[k] += widen(x0[k * nx]);",
              "if ((inl >> k) & 1u) x[k] += 1.f;"),
-            ("((inl >> k) & 1u)) dst[k * nx] = v[k];",
-             "v[k] == 12345.f) dst[k * nx] = v[k];")],
+            ("((inl >> k) & 1u)) {\n        put(dst + k * nx, v[k]);",
+             "v[k] == 12345.f) {\n        put(dst + k * nx, v[k]);")],
     },
 }
 # variants whose arithmetic is the kernel's (held against the plain version)

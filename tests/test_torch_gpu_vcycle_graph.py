@@ -43,9 +43,10 @@ def _launch_key(kernel: str) -> str:
     if "augmented_op_kernel" in kernel:
         return K.launch_key("op")
     if "sweep_kernel" in kernel:
-        mode, _, patch = kernel.split("sweep_kernel<")[1].split(">")[0] \
-            .split(", ")
-        return K.launch_key(K.MODES[int(mode)], patch == "true")
+        mode, _, patch, storage = kernel.split("sweep_kernel<")[1] \
+            .split(">")[0].split(", ")
+        return K.launch_key(K.MODES[int(mode)], patch == "true",
+                            storage == "__nv_bfloat16")
     base = ("masked_laplace_2d" if "masked_laplace_kernel" in kernel
             else "laplace_stencil_2d")
     form = kernel.split("_kernel<")[1].split(",")[0]

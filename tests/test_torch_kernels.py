@@ -240,7 +240,8 @@ def test_sources_exist_and_the_build_hash_covers_them(tmp_path, monkeypatch):
     changes the name of the library, so it is rebuilt."""
     names = [os.path.basename(p) for p in K.SOURCES]
     assert names == ["fdal_kernels.cu", "fdal_pre.cu", "fdal_post.cu",
-                     "fdal_stencil.cu", "fdal_masked.cu", "fdal_augmented.cu"]
+                     "fdal_stencil.cu", "fdal_masked.cu", "fdal_augmented.cu",
+                     "fdal_sweep_bf16.cu"]
     assert all(os.path.isfile(p) for p in K.SOURCES + K.HEADERS)
     masked = open(K.SOURCES[4]).read()
     assert "fdal_masked_laplace_2d_bf16" in masked

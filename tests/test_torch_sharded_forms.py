@@ -8,7 +8,7 @@ whose hierarchy is one level), on 2 gloo ranks (the explicit form also on
 and Lanczos vectors carried, held to the JAX package solving in the test
 (the bf16 V-cycle to the port's serial bf16 solve); the JAX package's own
 sharded solver on its 8-device virtual mesh against the port on 4 ranks;
-and the row-block forms of the compact AL block and of the masked patch
+and the row-block forms of the compact AL block and of K2's clipped patch
 against the whole lattice's.
 
 The ranks run while the JAX package solves (they need only its setup
@@ -30,13 +30,15 @@ from fictitious_domain_al_preconditioners_torch.models import \
     ImmersedLaplaceProblem as TProblem
 from fictitious_domain_al_preconditioners_torch.ops.coupling import \
     build_coupling
-from fictitious_domain_al_preconditioners_torch.ops.kernels import \
-    masked_laplace_2d
+from fictitious_domain_al_preconditioners_torch.models.immersed_laplace \
+    import _PLANES
+from fictitious_domain_al_preconditioners_torch.ops.kernels import (
+    AugmentedStencil2D, fused_augmented_2d)
 from fictitious_domain_al_preconditioners_torch.parallel import launch
 from fictitious_domain_al_preconditioners_torch.parallel.dryrun import (
     flagship_config, sharded_flagship_rank, sharded_runs_rank)
 from fictitious_domain_al_preconditioners_torch.parallel.mesh import (
-    HALO, row_partition)
+    HALO, row_partition, sweep_halo)
 from fictitious_domain_al_preconditioners_torch.utils.carry import \
     state_from_jax
 from test_torch_bf16 import bf16_carried_arrays
@@ -61,11 +63,11 @@ CONFIGS = {"exact_w": form(4, diagonal=False),
            "explicit_exact_w": form(4, operator=False, diagonal=False),
            "band_on_boundary": form(2),
            "bf16": form(4, bf16=True)}
-# the kind of each distributed level (fine first): K2 on an interior band,
-# K1 + the compact rows in the explicit form and on a band on ∂Ω, K1's bf16
-# form + the clipped patch in the bf16 V-cycle
+# the kind of each distributed level (fine first): K2 on an interior band
+# (in bf16 storage in the bf16 V-cycle), K1 + the compact rows in the
+# explicit form and on a band on ∂Ω
 KINDS = {"exact_w": ["k2"], "explicit": ["k1"], "explicit_exact_w": ["k1"],
-         "band_on_boundary": ["k1"], "bf16": ["k1"]}
+         "band_on_boundary": ["k1"], "bf16": ["k2"]}
 UNEVEN = "explicit"
 
 
@@ -228,23 +230,32 @@ def test_compact_rows_assemble_the_block(explicit):
 
 @pytest.mark.parametrize("dtype", [torch.float64, BF16])
 def test_clipped_patch_on_extended_blocks(dtype):
-    """K1 plus the masked patch on an extended block (halo ``HALO['op']``,
-    the patch box clipped to its interior rows) equals the whole lattice's
-    on the block's own rows bit for bit, in float64 and in bf16 (the bf16
-    V-cycle's level)."""
+    """K2 on an extended block (``AugmentedStencil2D.row_block``: the
+    block's rows and the halo of its mode, the patch box clipped to the
+    block's interior rows) equals the whole lattice's on the block's own
+    rows bit for bit, in float64 and in bf16 (the bf16 V-cycle's level on a
+    rank: bf16 planes and vectors)."""
     space, C, gamma = _flagship_coupling(5)
-    free = ~space.boundary_dof_mask([0, 1, 2, 3])
+    box, w9 = C.patch_w9(space, gamma)
+    planes = torch.as_tensor(np.stack([w9[a, b] for a, b in _PLANES]))
     ny, nx = space.n_points_1d[1], space.n_points_1d[0]
     h = (1.0 / (ny - 1), 1.0 / (nx - 1))
-    x = torch.as_tensor(np.random.default_rng(6).standard_normal(
-        (ny, nx))).to(dtype)
-    mv2, diag = C.patch_al_lattice(space, gamma, free=free, dtype=dtype)
-    whole = masked_laplace_2d(x, h) + mv2(x)
-    depth = HALO["op"]
-    for lo, hi in ((0, 9), (9, 17), (17, 33), (12, 13), (4, 30)):
-        a, b = max(lo - depth, 0), min(hi + depth, ny)
-        blk, blk_diag = C.patch_al_lattice(space, gamma, free=free,
-                                           dtype=dtype, rows=(a, b))
-        np.testing.assert_array_equal(blk_diag, diag)
-        got = (masked_laplace_2d(x[a:b], h) + blk(x[a:b]))[lo - a:hi - a]
-        assert torch.equal(got, whole[lo:hi]), (lo, hi)
+    st = AugmentedStencil2D(h, (ny, nx), planes.to(dtype), box)
+    rng = np.random.default_rng(6)
+    x, x0 = (torch.as_tensor(rng.standard_normal((ny, nx))).to(dtype)
+             for _ in range(2))
+    kw = dict(lam_max=1.5, degree=4)
+    for mode, depth in (("op", HALO["op"]), ("pre", sweep_halo(4)),
+                        ("post", sweep_halo(4))):
+        def apply(s, lo, hi):
+            out = fused_augmented_2d(mode, s, x[lo:hi],
+                                     x0[lo:hi] if mode == "post" else None,
+                                     **kw)
+            return torch.stack(out) if mode == "pre" else out[None]
+
+        whole = apply(st, 0, ny)
+        for lo, hi in ((0, 9), (9, 17), (17, 33), (12, 13), (4, 30)):
+            a, b = max(lo - depth, 0), min(hi + depth, ny)
+            got = apply(st.row_block(a, b), a, b)[:, lo - a:hi - a]
+            assert got.dtype == dtype
+            assert torch.equal(got, whole[:, lo:hi]), (mode, lo, hi)
