@@ -1301,11 +1301,11 @@ def phase_refined(refinement, device, bf16):
         refine_steps=res["refine_steps"],
         outer_iterations=res["outer_iterations"],
         converged=res["converged"], refined_residual=res["refined_residual"],
-        history=history, solve_seconds=res["solve_seconds"],
+        history=history, solve_seconds=res["refined_seconds"],
         device_seconds=res["correction_seconds"],
         host_residual_seconds=res["host_residual_seconds"],
         host_syncs=res["host_syncs"],
-        warmup_seconds=warm["solve_seconds"],
+        warmup_seconds=warm["refined_seconds"],
         build_seconds=warm["refine_build_seconds"],
         peak_memory_bytes=torch.cuda.max_memory_allocated(device),
         launches=launches)

@@ -68,17 +68,16 @@ from ..parallel.lattice import LatticeOps
 from ..precond.al import (al_preconditioner_ideal, al_preconditioner_modified,
                           block_solve)
 from ..precond.chebyshev import chebyshev
-from ..precond.gmg import (build_gmg, build_gmg_flat, reset_solve_stats,
-                           solve_stats)
+from ..precond.gmg import build_gmg, build_gmg_flat
 from ..precond.weights import (diag_of_m_squared, inv_diag,
                                inv_diag_of_m_squared, inv_exact,
                                inv_squared_exact)
-from ..tracer import span
 from ..utils.expressions import ParsedFunction
 from ..utils.prm import Params, parse_prm
-from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
+from ..utils.refine import CORRECTION_MAX_OUTER
 from ..utils.report import ConvergenceTable
 from ..utils.timer import TimerOutput
+from .session import SolveSession, split_correction
 
 __all__ = ["ControlConfig", "EllipticInterfaceConfig",
            "EllipticInterfaceProblem", "exact_solution", "exact_gradient"]
@@ -261,10 +260,9 @@ class EllipticInterfaceProblem:
         # mutable AL parameters (the √2 rule and the γ study change them)
         self.gamma_bg = config.gamma_AL_background
         self.gamma_imm = config.gamma_AL_immersed
-        self._solvers = {}
         self._parts = {}
         self._particle_coupling = None
-        self._refine_cache = None
+        self.session = SolveSession(self, "elliptic_interface")
 
     # -- per-cycle setup ----------------------------------------------------
 
@@ -355,10 +353,9 @@ class EllipticInterfaceProblem:
 
         self.layout = BlockLayout((self.space.n_dofs, self.fg_space.n_dofs,
                                    self.fg_space.n_dofs))
-        self._solvers = {}
         self._parts = {}
         self._particle_coupling = None
-        self._refine_cache = None
+        self.session.reset()
         self.results["setup_seconds"] = time.perf_counter() - t0
         return self
 
@@ -377,10 +374,9 @@ class EllipticInterfaceProblem:
                               state.lanczos_starts_a22)):
             if starts is not None:
                 setattr(self, attr, lambda i, n, s=starts: s[i])
-        self._solvers = {}
         self._parts = {}
         self._particle_coupling = None
-        self._refine_cache = None
+        self.session.reset()
         return self
 
     # -- operators ------------------------------------------------------------
@@ -823,10 +819,6 @@ class EllipticInterfaceProblem:
 
         return run
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     # -- solve --------------------------------------------------------------
 
     def solve(self) -> int:
@@ -834,36 +826,19 @@ class EllipticInterfaceProblem:
         outer iterations.  ``results`` records them with convergence, the
         solve and build seconds, the host syncs and the inner CG iterations
         (``inner_iterations``)."""
-        with span("solve", family="elliptic_interface",
-                  solver=("modified"
-                          if self.cfg.use_modified_AL_preconditioner
-                          else "ideal")):
-            cfg = self.cfg
-            key = (round(self.gamma_bg, 12), round(self.gamma_imm, 12),
-                   cfg.use_modified_AL_preconditioner)
-            if key not in self._solvers:
-                t0 = time.perf_counter()
-                with self.timer.scope("Build solver"):
-                    self._solvers[key] = self._build_solver()
-                self.results["build_seconds"] = time.perf_counter() - t0
-            reset_solve_stats(self.stats)
-            t0 = time.perf_counter()
-            with self.timer.scope("Solve system"):
-                x, info = self._solvers[key](self.rhs_f1, self.rhs_f2,
-                                             self.bc_values)
-                self._sync()
-            self.u, self.u2, self.lam = self.layout.split(x)
-            self.results.update(
-                dofs_background=self.space.n_dofs,
-                dofs_immersed=self.fg_space.n_dofs,
-                outer_iterations=int(info.iterations),
-                converged=bool(info.converged),
-                residual=float(info.residual),
-                gamma=self.gamma_bg,
-                solve_seconds=time.perf_counter() - t0,
-                **solve_stats(self.stats),
-            )
-            return int(info.iterations)
+        modified = self.cfg.use_modified_AL_preconditioner
+        key = (round(self.gamma_bg, 12), round(self.gamma_imm, 12), modified)
+        x, info = self.session.solve(
+            "modified" if modified else "ideal", key, self._build_solver,
+            self.rhs_f1, self.rhs_f2, self.bc_values)
+        self.u, self.u2, self.lam = self.layout.split(x)
+        self.results.update(
+            dofs_background=self.space.n_dofs,
+            dofs_immersed=self.fg_space.n_dofs,
+            outer_iterations=int(info.iterations),
+            converged=bool(info.converged), residual=float(info.residual),
+            gamma=self.gamma_bg)
+        return int(info.iterations)
 
     def build_correction_solver(self):
         """``(r0, r1, r2) -> (x, info)``: one AL-preconditioned FGMRES solve
@@ -887,52 +862,18 @@ class EllipticInterfaceProblem:
         accepted true residual norms.  ``results`` records the total outer
         iterations, the final residual, the accepted steps, convergence, the
         seconds of the loop, of the device corrections and of the host
-        residuals, and the host syncs.  The host system and the correction
-        solver are built once per :meth:`setup` (on the operators
+        residuals, and the host syncs
+        (:meth:`.session.SolveSession.refine`).  The host system and the
+        correction solver are built once per :meth:`setup` (on the operators
         :meth:`solve` built)."""
-        if self._refine_cache is None:
-            t0 = time.perf_counter()
-            self._refine_cache = (HostEllipticSystem(self),
-                                  self.build_correction_solver())
-            self.results["refine_build_seconds"] = time.perf_counter() - t0
-        host, corr = self._refine_cache
-        dev, dt = self.device, torch.float64
-        seconds = {"host": 0.0, "device": 0.0}
-
-        def residual(*xs):
-            t0 = time.perf_counter()
-            rs = host.residual(*xs)
-            seconds["host"] += time.perf_counter() - t0
-            return rs
-
-        def correct(rs):
-            t0 = time.perf_counter()
-            x, info = corr(*(torch.as_tensor(r, dtype=dt, device=dev)
-                             for r in rs))
-            parts = [p.double().cpu().numpy() for p in self.layout.split(x)]
-            self.stats["host_syncs"] += 1      # the correction's copy back
-            seconds["device"] += time.perf_counter() - t0
-            return parts, int(info.iterations)
-
-        reset_solve_stats(self.stats)
-        t0 = time.perf_counter()
-        (u, u2, lam), history, total_iters, converged = guarded_refinement(
-            residual, correct, self.layout.sizes, tol_abs, max_refine)
-        elapsed = time.perf_counter() - t0
-        self.u = torch.as_tensor(u, dtype=dt, device=dev)
-        self.u2 = torch.as_tensor(u2, dtype=dt, device=dev)
-        self.lam = torch.as_tensor(lam, dtype=dt, device=dev)
-        self.results.update(
-            dofs_background=self.space.n_dofs,
-            dofs_immersed=self.fg_space.n_dofs,
-            outer_iterations=total_iters,
-            refined_residual=history[-1],
-            refine_steps=len(history) - 1,
-            converged=converged,
-            refined_seconds=elapsed,
-            correction_seconds=seconds["device"],
-            host_residual_seconds=seconds["host"],
-            **solve_stats(self.stats))
+        (u, u2, lam), history = self.session.refine(
+            HostEllipticSystem,
+            lambda: split_correction(self.layout,
+                                     self.build_correction_solver()),
+            self.layout.sizes, torch.float64, ("u", "u2", "lam"), tol_abs,
+            max_refine)
+        self.results.update(dofs_background=self.space.n_dofs,
+                            dofs_immersed=self.fg_space.n_dofs)
         return u, u2, lam, history
 
     # -- diagnostics --------------------------------------------------------

@@ -79,6 +79,7 @@ truncation, the transfers tabulate the folded basis).
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 
@@ -102,15 +103,15 @@ from ..parallel.lattice import LatticeOps
 from ..precond.al import al_preconditioner, block_solve
 from ..precond.gmg import (FusedSmoother, build_gmg, build_gmg_flat,
                            build_gmg_flat_sharded, build_gmg_sharded,
-                           level_spaces, reset_solve_stats, solve_stats)
+                           level_spaces)
 from ..precond.rational import rational_preconditioner
 from ..precond.weights import (inv_diag, inv_diag_squared, inv_exact,
                                inv_squared_exact)
-from ..tracer import span
 from ..utils.expressions import ParsedFunction
 from ..utils.prm import Params, parse_prm
-from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
+from ..utils.refine import CORRECTION_MAX_OUTER
 from ..utils.timer import TimerOutput
+from .session import SolveSession
 
 __all__ = ["SolverControlConfig", "ImmersedLaplaceConfig",
            "ImmersedLaplaceProblem"]
@@ -120,6 +121,31 @@ __all__ = ["SolverControlConfig", "ImmersedLaplaceConfig",
 _PLANES = ((1, 1), (1, 2), (2, 1), (2, 2), (2, 0))
 
 SOLVERS = ("augmented", "CG", "ELMAN_triang", "rational")
+
+
+def _k2(mode, st, *ext, **kw):
+    # the kernel's entry looked up at each call, where the benchmark's call
+    # wrappers (``fdal_bench/trace.py::KernelCalls``) patch it
+    return fused_augmented_2d(mode, st, *ext, **kw)
+
+
+def _k2_smoother(st, lam, degree, eig_ratio, run=_k2):
+    """K2's fused Chebyshev smoother on the stencil ``st``: its ``smooth``,
+    ``pre`` and ``post`` modes, each one call ``run(mode, st, b[, x0],
+    **kw)`` (the kernel's entry, or a wrapper of it)."""
+    kw = dict(lam_max=lam, degree=degree, eig_ratio=eig_ratio)
+    return FusedSmoother(
+        lambda b: run("smooth", st, b, **kw),
+        pre=lambda b: run("pre", st, b, **kw),
+        post=lambda b, x0: run("post", st, b, x0, **kw))
+
+
+def _fgmres_restart(cfg, total: int) -> int:
+    """The FGMRES restart of a layout of ``total`` dofs.  FGMRES keeps the
+    V and Z bases, 2*restart+1 vectors: the restart is capped so that they
+    fit about 6 GB on very large layouts (never engaged at the ~4-30 outer
+    iterations of the augmented solve)."""
+    return min(cfg.fgmres_restart, max(12, int(6e9 / (8 * max(total, 1)))))
 
 
 @dataclass
@@ -222,8 +248,7 @@ class ImmersedLaplaceProblem:
         self.stats = {"host_syncs": 0, "inner_iterations": 0}
         self.lanczos_start = None
         self.compact_blocks = []
-        self._solvers = {}
-        self._refine_cache = None
+        self.session = SolveSession(self, "immersed_laplace")
 
     def _element_form_triggers(self) -> list:
         """The settings that put the background in element form (no
@@ -319,8 +344,7 @@ class ImmersedLaplaceProblem:
                                     cfg.coupling_quadrature_order, device=dev,
                                     dtype=dt)
         self.layout = BlockLayout((self.space.n_dofs, self.imm_space.n_dofs))
-        self._solvers = {}
-        self._refine_cache = None
+        self.session.reset()
         self.results["setup_seconds"] = time.perf_counter() - t0
         return self
 
@@ -336,8 +360,7 @@ class ImmersedLaplaceProblem:
         if state.lanczos_starts is not None:
             starts = state.lanczos_starts
             self.lanczos_start = lambda i, n: starts[i]
-        self._solvers = {}
-        self._refine_cache = None
+        self.session.reset()
         return self
 
     # -- solve ----------------------------------------------------------------
@@ -347,35 +370,20 @@ class ImmersedLaplaceProblem:
         Returns ``(u, lam, SolveInfo)``; ``results`` records the outer
         iterations, convergence, solve seconds, host syncs and inner CG
         iterations (``inner_iterations``) of this solve."""
-        with span("solve", family="immersed_laplace",
-                  solver=self.cfg.solver):
-            key = self.cfg.solver
-            if key not in self._solvers:
-                builder = {"augmented": self._augmented_run,
-                           "CG": self._build_schur_cg,
-                           "ELMAN_triang": self._build_elman,
-                           "rational": self._build_rational}[key]
-                t0 = time.perf_counter()
-                with self.timer.scope("Build solver"):
-                    self._solvers[key] = builder()
-                self.results["build_seconds"] = time.perf_counter() - t0
-            reset_solve_stats(self.stats)
-            t0 = time.perf_counter()
-            with self.timer.scope("Solve system"):
-                u, lam, info = self._solvers[key](self.rhs_f, self.rhs_g,
-                                                  self.bc_values)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-            self.u, self.lam = u, lam
-            self.results.update(
-                outer_iterations=int(info.iterations),
-                residual=float(info.residual),
-                converged=bool(info.converged),
-                solve_seconds=time.perf_counter() - t0,
-                **solve_stats(self.stats),
-                dofs_background=self.space.n_dofs,
-                dofs_immersed=self.imm_space.n_dofs)
-            return u, lam, info
+        key = self.cfg.solver
+        build = {"augmented": self._augmented_run,
+                 "CG": self._build_schur_cg,
+                 "ELMAN_triang": self._build_elman,
+                 "rational": self._build_rational}[key]
+        u, lam, info = self.session.solve(key, key, build, self.rhs_f,
+                                          self.rhs_g, self.bc_values)
+        self.u, self.lam = u, lam
+        self.results.update(
+            outer_iterations=int(info.iterations),
+            residual=float(info.residual), converged=bool(info.converged),
+            dofs_background=self.space.n_dofs,
+            dofs_immersed=self.imm_space.n_dofs)
+        return u, lam, info
 
     def _level_operator(self, sp, coupling, gamma, dtype=None, w_diag=None):
         """Masked augmented operator of one lattice level: ``(op, diag,
@@ -406,15 +414,8 @@ class ImmersedLaplaceProblem:
             def op(x2):
                 return fused_augmented_2d("op", st, x2)
 
-            def smoother_builder(lam, degree, eig_ratio):
-                kw = dict(lam_max=lam, degree=degree, eig_ratio=eig_ratio)
-                return FusedSmoother(
-                    lambda b: fused_augmented_2d("smooth", st, b, **kw),
-                    pre=lambda b: fused_augmented_2d("pre", st, b, **kw),
-                    post=lambda b, x0: fused_augmented_2d("post", st, b, x0,
-                                                          **kw))
-
-            return (op, k_diag + al_diag, smoother_builder), st
+            return (op, k_diag + al_diag,
+                    functools.partial(_k2_smoother, st)), st
 
         # the explicit form, or a (coarse) level whose Γ-band touches ∂Ω:
         # the compact AL block
@@ -494,11 +495,7 @@ class ImmersedLaplaceProblem:
 
         AA = block_operator(layout, layout, [[Aug, Ct_lin], [C_lin, None]])
         prec = al_preconditioner(layout, aug_inv, Ct_lin, inv_w, gamma)
-        # FGMRES keeps the V and Z bases, 2*restart+1 vectors: the restart is
-        # capped so that they fit about 6 GB on very large layouts (never
-        # engaged at the ~4-30 outer iterations of this method)
-        restart = min(cfg.fgmres_restart,
-                      max(12, int(6e9 / (8 * max(layout.total, 1)))))
+        restart = _fgmres_restart(cfg, layout.total)
 
         def solve_core(b):
             return fgmres(AA, b, prec, tol=cfg.schur.tolerance,
@@ -817,16 +814,11 @@ class ImmersedLaplaceProblem:
                         raise ValueError(f"a degree-{degree} sweep needs a "
                                          f"halo of {degree + 1} rows, not "
                                          f"{depth}")
-                    kw = dict(lam_max=lam, degree=degree, eig_ratio=eig_ratio)
                     rec["lam_max"] = lam
-                    return FusedSmoother(
-                        lambda b: on_block(mesh, bl, depth,
-                                           k2("smooth", sts[depth], **kw), b),
-                        pre=lambda b: on_block(
-                            mesh, bl, depth, k2("pre", sts[depth], **kw), b),
-                        post=lambda b, x0: on_block(
-                            mesh, bl, depth, k2("post", sts[depth], **kw), b,
-                            x0))
+                    return _k2_smoother(
+                        sts[depth], lam, degree, eig_ratio,
+                        run=lambda mode, s, *ext, **kw: on_block(
+                            mesh, bl, depth, k2(mode, s, **kw), *ext))
 
                 return (op, k_diag + al_diag, smoother_builder), rec
             ext = ext_rows(mesh, bl, HALO["op"])
@@ -992,8 +984,7 @@ class ImmersedLaplaceProblem:
             [C_lin, None]])
         prec = al_preconditioner(layout, aug_inv, Ct_lin, inv_w, gamma)
         # the serial solve's restart, from the whole layout
-        restart = min(cfg.fgmres_restart,
-                      max(12, int(6e9 / (8 * max(self.layout.total, 1)))))
+        restart = _fgmres_restart(cfg, self.layout.total)
         inner = inner_product(mesh, n_own)
 
         def run(rhs_f, rhs_g, bc_values):
@@ -1058,51 +1049,27 @@ class ImmersedLaplaceProblem:
         Returns ``(u, lam, history)``: float64 NumPy iterates and the
         accepted true residual norms.  ``results`` records the total outer
         iterations, the final residual, the accepted steps, convergence,
-        the seconds of the whole loop, of the device correction solves and
-        of the host residuals, and the host syncs.  The host system and the
+        the seconds of the whole loop (``refined_seconds``), of the device
+        correction solves and of the host residuals, and the host syncs
+        (:meth:`.session.SolveSession.refine`).  The host system and the
         correction solver are built once per :meth:`setup`.  Operator form
         with W = diag(M) only (else ``NotImplementedError``)."""
         self._check_refinable()
-        if self._refine_cache is None:
-            t0 = time.perf_counter()
-            self._refine_cache = (HostAugmentedSystem(self),
-                                  self.build_correction_solver())
-            self.results["refine_build_seconds"] = time.perf_counter() - t0
-        host, corr = self._refine_cache
-        dev, dt = self.device, self.dtype
-        seconds = {"host": 0.0, "device": 0.0}
 
-        def residual(*xs):
-            t0 = time.perf_counter()
-            rs = host.residual(*xs)
-            seconds["host"] += time.perf_counter() - t0
-            return rs
+        def correction():
+            corr = self.build_correction_solver()
 
-        def correct(rs):
-            t0 = time.perf_counter()
-            du, dlam, info = corr(*(torch.as_tensor(r, dtype=dt, device=dev)
-                                    for r in rs))
-            parts = [du.double().cpu().numpy(), dlam.double().cpu().numpy()]
-            self.stats["host_syncs"] += 1      # the correction's copy back
-            seconds["device"] += time.perf_counter() - t0
-            return parts, int(info.iterations)
+            def run(b0, b1):
+                du, dlam, info = corr(b0, b1)
+                return (du, dlam), info
 
-        reset_solve_stats(self.stats)
-        t0 = time.perf_counter()
-        (u, lam), history, total_iters, converged = guarded_refinement(
-            residual, correct, (self.space.n_dofs, self.imm_space.n_dofs),
-            tol_abs, max_refine)
-        elapsed = time.perf_counter() - t0
-        self.u = torch.as_tensor(u, dtype=dt, device=dev)
-        self.lam = torch.as_tensor(lam, dtype=dt, device=dev)
-        self.results.update(
-            outer_iterations=total_iters, refined_residual=history[-1],
-            refine_steps=len(history) - 1, converged=converged,
-            solve_seconds=elapsed, correction_seconds=seconds["device"],
-            host_residual_seconds=seconds["host"],
-            **solve_stats(self.stats),
-            dofs_background=self.space.n_dofs,
-            dofs_immersed=self.imm_space.n_dofs)
+            return run
+
+        (u, lam), history = self.session.refine(
+            HostAugmentedSystem, correction, self.layout.sizes, self.dtype,
+            ("u", "lam"), tol_abs, max_refine)
+        self.results.update(dofs_background=self.space.n_dofs,
+                            dofs_immersed=self.imm_space.n_dofs)
         return u, lam, history
 
     def _k_mv(self):
@@ -1141,15 +1108,8 @@ class ImmersedLaplaceProblem:
             def op(x2):
                 return masked_laplace_2d(x2, lat.h)
 
-            def smoother_builder(lam, degree, eig_ratio):
-                kw = dict(lam_max=lam, degree=degree, eig_ratio=eig_ratio)
-                return FusedSmoother(
-                    lambda b: fused_augmented_2d("smooth", st, b, **kw),
-                    pre=lambda b: fused_augmented_2d("pre", st, b, **kw),
-                    post=lambda b, x0: fused_augmented_2d("post", st, b, x0,
-                                                          **kw))
-
-            return op, lat.laplace_diag(), smoother_builder
+            return op, lat.laplace_diag(), functools.partial(_k2_smoother,
+                                                             st)
 
         gmg = build_gmg(self.space, factory, free_mask=self.free,
                         lanczos_start=self.lanczos_start, dtype=dt,

@@ -47,14 +47,14 @@ from ..ops.krylov import fgmres
 from ..ops.linop import LinOp
 from ..ops.operators import CellMatrix
 from ..precond.al import al_preconditioner, block_solve
-from ..precond.gmg import build_gmg_flat, reset_solve_stats, solve_stats
+from ..precond.gmg import build_gmg_flat
 from ..precond.weights import inv_exact
-from ..tracer import span
 from ..utils.expressions import ParsedFunction
 from ..utils.prm import Params, parse_prm
-from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
+from ..utils.refine import CORRECTION_MAX_OUTER
 from ..utils.report import ConvergenceTable
 from ..utils.timer import TimerOutput
+from .session import SolveSession, split_correction
 
 __all__ = ["ControlConfig", "NitscheConfig", "NitscheProblem",
            "manufactured_solution", "manufactured_gradient",
@@ -180,9 +180,8 @@ class NitscheProblem:
         self.results = {}
         self.stats = {"host_syncs": 0, "inner_iterations": 0}
         self.lanczos_start = None
-        self._solver = None
         self._parts = None
-        self._refine_cache = None
+        self.session = SolveSession(self, "nitsche_bcs")
 
     # -- setup --------------------------------------------------------------
 
@@ -235,9 +234,8 @@ class NitscheProblem:
                              "boundary measure")
         self.layout = BlockLayout((self.space.n_dofs,
                                    self.mult_space.n_dofs))
-        self._solver = None
         self._parts = None
-        self._refine_cache = None
+        self.session.reset()
         self.results["setup_seconds"] = time.perf_counter() - t0
         return self
 
@@ -250,9 +248,8 @@ class NitscheProblem:
         self.C, self.M = state.coupling, state.M
         if state.lanczos_starts is not None:
             self.lanczos_start = (lambda i, n, s=state.lanczos_starts: s[i])
-        self._solver = None
         self._parts = None
-        self._refine_cache = None
+        self.session.reset()
         return self
 
     # -- the solver -----------------------------------------------------------
@@ -369,10 +366,6 @@ class NitscheProblem:
 
         return run
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     # -- solve ----------------------------------------------------------------
 
     def solve(self) -> int:
@@ -380,27 +373,16 @@ class NitscheProblem:
         iterations.  ``results`` records them with the inner CG total and
         per outer iteration (also as ``inner_iterations``), convergence,
         the solve and build seconds and the host syncs."""
-        with span("solve", family="nitsche_bcs", solver="dlm"):
-            if self._solver is None:
-                t0 = time.perf_counter()
-                with self.timer.scope("Build solver"):
-                    self._solver = self._build_solver()
-                self.results["build_seconds"] = time.perf_counter() - t0
-            reset_solve_stats(self.stats)
-            t0 = time.perf_counter()
-            with self.timer.scope("Solve system"):
-                x, info, inner_total = self._solver(self.rhs_f, self.rhs_g)
-                self._sync()
-            self.u, self.lam = self.layout.split(x)
-            outer = int(info.iterations)
-            self.results.update(
-                dofs_u=self.space.n_dofs, dofs_lambda=self.mult_space.n_dofs,
-                outer_its=outer, inner_cg_total=int(inner_total),
-                inner_cg_per_outer=float(inner_total) / max(outer, 1),
-                converged=bool(info.converged), residual=float(info.residual),
-                solve_seconds=time.perf_counter() - t0,
-                **solve_stats(self.stats))
-            return outer
+        x, info, inner_total = self.session.solve(
+            "dlm", "dlm", self._build_solver, self.rhs_f, self.rhs_g)
+        self.u, self.lam = self.layout.split(x)
+        outer = int(info.iterations)
+        self.results.update(
+            dofs_u=self.space.n_dofs, dofs_lambda=self.mult_space.n_dofs,
+            outer_its=outer, inner_cg_total=int(inner_total),
+            inner_cg_per_outer=float(inner_total) / max(outer, 1),
+            converged=bool(info.converged), residual=float(info.residual))
+        return outer
 
     def build_correction_solver(self):
         """``(r0, r1) -> (x, info, inner_total)``: one AL-preconditioned
@@ -422,50 +404,24 @@ class NitscheProblem:
         accepted true residual norms.  ``results`` records the total outer
         and inner CG iterations, the final residual, the accepted steps,
         convergence, the seconds of the loop, of the device corrections and
-        of the host residuals, and the host syncs.  The host system and the
-        correction solver are built once per :meth:`setup`."""
-        if self._refine_cache is None:
-            t0 = time.perf_counter()
-            self._refine_cache = (HostNitscheSystem(self),
-                                  self.build_correction_solver())
-            self.results["refine_build_seconds"] = time.perf_counter() - t0
-        host, corr = self._refine_cache
-        dev, dt = self.device, self.OP_DTYPE
-        seconds = {"host": 0.0, "device": 0.0}
-        inner_total = [0]
-
-        def residual(*xs):
-            t0 = time.perf_counter()
-            rs = host.residual(*xs)
-            seconds["host"] += time.perf_counter() - t0
-            return rs
-
-        def correct(rs):
-            t0 = time.perf_counter()
-            x, info, inner = corr(*(torch.as_tensor(r, dtype=dt, device=dev)
-                                    for r in rs))
-            inner_total[0] += int(inner)
-            parts = [p.double().cpu().numpy() for p in self.layout.split(x)]
-            self.stats["host_syncs"] += 1      # the correction's copy back
-            seconds["device"] += time.perf_counter() - t0
-            return parts, int(info.iterations)
-
-        reset_solve_stats(self.stats)
-        t0 = time.perf_counter()
-        (u, lam), history, total_outer, converged = guarded_refinement(
-            residual, correct, self.layout.sizes, tol_abs, max_refine)
-        elapsed = time.perf_counter() - t0
-        self.u = torch.as_tensor(u, dtype=dt, device=dev)
-        self.lam = torch.as_tensor(lam, dtype=dt, device=dev)
-        self.results.update(
+        of the host residuals, and the host syncs
+        (:meth:`.session.SolveSession.refine`, its ``outer_iterations`` as
+        ``outer_its``).  The host system and the correction solver are built
+        once per :meth:`setup`."""
+        (u, lam), history = self.session.refine(
+            HostNitscheSystem,
+            lambda: split_correction(self.layout,
+                                     self.build_correction_solver()),
+            self.layout.sizes, self.OP_DTYPE, ("u", "lam"), tol_abs,
+            max_refine)
+        res = self.results
+        total_outer = res.pop("outer_iterations")
+        # every inner CG iteration of the loop is one of a correction's
+        inner_total = res["inner_iterations"]
+        res.update(
             dofs_u=self.space.n_dofs, dofs_lambda=self.mult_space.n_dofs,
-            outer_its=total_outer, inner_cg_total=inner_total[0],
-            inner_cg_per_outer=float(inner_total[0]) / max(total_outer, 1),
-            refined_residual=history[-1], refine_steps=len(history) - 1,
-            converged=converged, refined_seconds=elapsed,
-            correction_seconds=seconds["device"],
-            host_residual_seconds=seconds["host"],
-            **solve_stats(self.stats))
+            outer_its=total_outer, inner_cg_total=inner_total,
+            inner_cg_per_outer=float(inner_total) / max(total_outer, 1))
         return u, lam, history
 
     # -- diagnostics --------------------------------------------------------

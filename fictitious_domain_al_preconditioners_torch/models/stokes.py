@@ -63,12 +63,12 @@ from ..ops.operators import CellMatrix, constrain, dirichlet_rhs
 from ..ops.sparse_band import vector_al_level
 from ..precond.al import (al_preconditioner_diagonal, al_preconditioner_stokes,
                           block_solve)
-from ..precond.gmg import build_gmg_flat, reset_solve_stats, solve_stats
-from ..tracer import span
+from ..precond.gmg import build_gmg_flat
 from ..utils.expressions import ParsedFunction
 from ..utils.prm import Params, parse_prm
-from ..utils.refine import CORRECTION_MAX_OUTER, guarded_refinement
+from ..utils.refine import CORRECTION_MAX_OUTER
 from ..utils.timer import TimerOutput
+from .session import SolveSession, split_correction
 
 __all__ = ["ALControl", "OuterControl", "StokesConfig", "StokesProblem"]
 
@@ -197,9 +197,8 @@ class StokesProblem:
         self.results = {}
         self.stats = {"host_syncs": 0, "inner_iterations": 0}
         self.lanczos_start = None
-        self._solver = None
         self._parts = None
-        self._refine_cache = None
+        self.session = SolveSession(self, "stokes")
 
     def _check_supported(self):
         cfg = self.cfg
@@ -299,9 +298,8 @@ class StokesProblem:
 
         self.layout = BlockLayout((nu * sd, self.p_space.n_dofs,
                                    self.mult_space.n_dofs * sd))
-        self._solver = None
         self._parts = None
-        self._refine_cache = None
+        self.session.reset()
         self.results["setup_seconds"] = time.perf_counter() - t0
         return self
 
@@ -318,9 +316,8 @@ class StokesProblem:
         self.M_imm_s, self.Mp = state.M_imm, state.Mp
         if state.lanczos_starts is not None:
             self.lanczos_start = (lambda i, n, s=state.lanczos_starts: s[i])
-        self._solver = None
         self._parts = None
-        self._refine_cache = None
+        self.session.reset()
         return self
 
     # -- blocks ---------------------------------------------------------------
@@ -676,10 +673,6 @@ class StokesProblem:
 
         return run
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     # -- solve ----------------------------------------------------------------
 
     def solve(self):
@@ -687,30 +680,19 @@ class StokesProblem:
         ``(u, p, λ, info)``.  ``results`` records the outer iterations,
         convergence, the solve and build seconds, the host syncs and the
         inner CG iterations (``inner_iterations``)."""
-        with span("solve", family="stokes", solver=self.cfg.solver):
-            if self._solver is None:
-                t0 = time.perf_counter()
-                with self.timer.scope("Build solver"):
-                    build = {"Stokes": self._build_stokes_schur,
-                             "IBStokes": self._build_ibstokes,
-                             "IBStokesAL": self._build_ibstokes_al}
-                    self._solver = build[self.cfg.solver]()
-                self.results["build_seconds"] = time.perf_counter() - t0
-            reset_solve_stats(self.stats)
-            t0 = time.perf_counter()
-            with self.timer.scope("Solve system"):
-                x, info = self._solver(self.rhs_u, self.rhs_g, self.bc_values)
-                self._sync()
-            self.u, self.p, self.lam = self.layout.split(x)
-            self.results.update(
-                dofs_background=self.layout.sizes[0] + self.layout.sizes[1],
-                dofs_immersed=self.layout.sizes[2],
-                outer_iterations=int(info.iterations),
-                converged=bool(info.converged),
-                residual=float(info.residual),
-                solve_seconds=time.perf_counter() - t0,
-                **solve_stats(self.stats))
-            return self.u, self.p, self.lam, info
+        solver = self.cfg.solver
+        build = {"Stokes": self._build_stokes_schur,
+                 "IBStokes": self._build_ibstokes,
+                 "IBStokesAL": self._build_ibstokes_al}[solver]
+        x, info = self.session.solve(solver, solver, build, self.rhs_u,
+                                     self.rhs_g, self.bc_values)
+        self.u, self.p, self.lam = self.layout.split(x)
+        self.results.update(
+            dofs_background=self.layout.sizes[0] + self.layout.sizes[1],
+            dofs_immersed=self.layout.sizes[2],
+            outer_iterations=int(info.iterations),
+            converged=bool(info.converged), residual=float(info.residual))
+        return self.u, self.p, self.lam, info
 
     def build_correction_solver(self):
         """``(r0, r1, r2) -> (x, info)``: one AL-preconditioned solve of the
@@ -735,52 +717,19 @@ class StokesProblem:
         accepted true residual norms.  ``results`` records the total outer
         iterations, the final residual, the accepted steps, convergence, the
         seconds of the loop, of the device corrections and of the host
-        residuals, and the host syncs.  The host system and the correction
-        solver are built once per :meth:`setup`, on the operator and
-        preconditioner :meth:`solve` built."""
-        if self._refine_cache is None:
-            t0 = time.perf_counter()
-            self._refine_cache = (HostStokesSystem(self),
-                                  self.build_correction_solver())
-            self.results["refine_build_seconds"] = time.perf_counter() - t0
-        host, corr = self._refine_cache
-        dev, dt = self.device, self.OP_DTYPE
-        seconds = {"host": 0.0, "device": 0.0}
-
-        def residual(*xs):
-            t0 = time.perf_counter()
-            rs = host.residual(*xs)
-            seconds["host"] += time.perf_counter() - t0
-            return rs
-
-        def correct(rs):
-            t0 = time.perf_counter()
-            x, info = corr(*(torch.as_tensor(r, dtype=dt, device=dev)
-                             for r in rs))
-            parts = [p.double().cpu().numpy() for p in self.layout.split(x)]
-            self.stats["host_syncs"] += 1      # the correction's copy back
-            seconds["device"] += time.perf_counter() - t0
-            return parts, int(info.iterations)
-
-        reset_solve_stats(self.stats)
-        t0 = time.perf_counter()
-        (u, p, lam), history, total_iters, converged = guarded_refinement(
-            residual, correct, self.layout.sizes, tol_abs, max_refine)
-        elapsed = time.perf_counter() - t0
-        self.u = torch.as_tensor(u, dtype=dt, device=dev)
-        self.p = torch.as_tensor(p, dtype=dt, device=dev)
-        self.lam = torch.as_tensor(lam, dtype=dt, device=dev)
+        residuals, and the host syncs
+        (:meth:`.session.SolveSession.refine`).  The host system and the
+        correction solver are built once per :meth:`setup`, on the operator
+        and preconditioner :meth:`solve` built."""
+        (u, p, lam), history = self.session.refine(
+            HostStokesSystem,
+            lambda: split_correction(self.layout,
+                                     self.build_correction_solver()),
+            self.layout.sizes, self.OP_DTYPE, ("u", "p", "lam"), tol_abs,
+            max_refine)
         self.results.update(
             dofs_background=self.layout.sizes[0] + self.layout.sizes[1],
-            dofs_immersed=self.layout.sizes[2],
-            outer_iterations=total_iters,
-            refined_residual=history[-1],
-            refine_steps=len(history) - 1,
-            converged=converged,
-            refined_seconds=elapsed,
-            correction_seconds=seconds["device"],
-            host_residual_seconds=seconds["host"],
-            **solve_stats(self.stats))
+            dofs_immersed=self.layout.sizes[2])
         return u, p, lam, history
 
     # -- diagnostics ----------------------------------------------------------

@@ -40,6 +40,7 @@ in the first V-cycle, which runs them eagerly and captures them.
 from __future__ import annotations
 
 import collections
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -55,7 +56,6 @@ from .chebyshev import chebyshev
 
 __all__ = ["FusedSmoother", "LatticeTransfer2D", "Prolongation",
            "ProlongationRows", "VectorProlongation", "make_prolongation",
-           "SOLVE_COUNTERS", "reset_solve_stats", "solve_stats",
            "graph_eligible",
            "GMG", "ShardedGMG",
            "build_gmg", "build_gmg_sharded", "build_gmg_flat",
@@ -174,13 +174,12 @@ class LatticeTransfer2D:
 
 
 class FusedSmoother:
-    """Smoother with optionally fused V-cycle stages: ``__call__(b) -> x``
-    is the plain sweep, ``pre(b) -> (x, b - A x)`` emits the residual from the
-    same pass and ``post(b, x0) -> x0 + cheb(b - A x0)`` folds the
-    post-smooth after the coarse correction.  The V-cycle uses them when
-    present."""
+    """Smoother with fused V-cycle stages: ``__call__(b) -> x`` is the plain
+    sweep, ``pre(b) -> (x, b - A x)`` emits the residual from the same pass
+    and ``post(b, x0) -> x0 + cheb(b - A x0)`` folds the post-smooth after
+    the coarse correction."""
 
-    def __init__(self, smooth, pre=None, post=None):
+    def __init__(self, smooth, pre, post):
         self._smooth = smooth
         self.pre = pre
         self.post = post
@@ -189,34 +188,55 @@ class FusedSmoother:
         return self._smooth(b)
 
 
-@dataclass
 class _Level:
-    space: object
-    op: object               # masked lattice apply
-    diag_inv: torch.Tensor
-    mask: torch.Tensor       # free-dof mask, float 0/1, level vector shape
-    smoother: object
-    prolong: object          # from the next-coarser level, or None
-    lam_max: float
+    """One level of a hierarchy: ``op`` the masked level operator,
+    ``mask`` the free-dof mask (float 0/1, level vector shape), ``prolong``
+    the transfer from the next-coarser level (None on the first).
 
+    The smoother's form is fixed when the smoother is set: a
+    :class:`FusedSmoother` gives its own ``pre(b) -> (x, b - op(x))`` and
+    ``post(b, x) -> x + S(b - op(x))``, any other smoother ``S`` (a plain
+    callable, :func:`chebyshev`) the unfused pair over ``op``."""
 
-#: the counters of one solve in a family's ``stats``, reset at its start and
-#: reported in its ``results``: the Krylov solvers' host reads and inner
-#: iterations, and the V-cycle graphs' replays, captures, failed captures
-#: and the device bytes their captures reserved
-SOLVE_COUNTERS = ("host_syncs", "inner_iterations", "vcycle_graph_replays",
-                  "vcycle_graph_captures", "vcycle_graph_failures",
-                  "vcycle_graph_pool_bytes")
+    def __init__(self, space, op, diag_inv, mask, smoother, prolong,
+                 lam_max):
+        self.space = space
+        self.op = op
+        self.diag_inv = diag_inv
+        self.mask = mask
+        self.smoother = smoother
+        self.prolong = prolong
+        self.lam_max = lam_max
 
+    @property
+    def smoother(self):
+        return self._smoother
 
-def reset_solve_stats(stats: dict):
-    """Set every :data:`SOLVE_COUNTERS` of ``stats`` to 0."""
-    stats.update(dict.fromkeys(SOLVE_COUNTERS, 0))
+    @smoother.setter
+    def smoother(self, sm):
+        self._smoother = sm
+        if isinstance(sm, FusedSmoother):
+            self.pre, self.post = sm.pre, sm.post
+        else:
+            self.pre, self.post = self._unfused_pre, self._unfused_post
 
+    def _unfused_pre(self, b):
+        x = self._smoother(b)
+        return x, b - self.op(x)
 
-def solve_stats(stats: dict) -> dict:
-    """The :data:`SOLVE_COUNTERS` of ``stats``."""
-    return {k: stats[k] for k in SOLVE_COUNTERS}
+    def _unfused_post(self, b, x):
+        return x + self._smoother(b - self.op(x))
+
+    def step(self, b, restrict, prolong, coarse_mask, below, dtype):
+        """One visit of the V-cycle on ``b``: pre-smooth, the masked
+        restriction of the residual to the next level cast to the cycle's
+        ``dtype``, ``below`` on it (the cycle below this level), the masked
+        prolongation of its correction, post-smooth."""
+        x, r = self.pre(b)
+        rc = (coarse_mask * restrict(r)).to(dtype)
+        xc = below(rc)
+        x = x + (self.mask * prolong(xc)).to(dtype)
+        return self.post(b, x)
 
 
 def graph_eligible(device, n_levels: int) -> bool:
@@ -241,8 +261,8 @@ class GMG:
     the kernel-entry calls the capture recorded to ``ops.kernels.LAUNCHES``
     and ``ops.kernels.GRAPH_CALLS``; ``stats`` counts replays, captures,
     failed captures and the bytes the captures reserved
-    (:data:`SOLVE_COUNTERS`).  A capture that fails leaves the cycle eager
-    for good."""
+    (``models.session.SOLVE_COUNTERS``).  A capture that fails leaves the
+    cycle eager for good."""
 
     def __init__(self, levels, coarse_inv, dtype, stats: dict | None):
         self.levels = levels
@@ -328,26 +348,14 @@ class GMG:
 
     def _vcycle(self, li: int, b):
         with span("gmg.level", level=li, shape=b.shape):
-            level = self.levels[li]
             if li == len(self.levels) - 1:
                 return self._coarse_solve(b)
-            sm = level.smoother
-            pre = getattr(sm, "pre", None)
-            if pre is not None:
-                x, r = pre(b)
-            else:
-                x = sm(b)
-                r = b - level.op(x)
             coarse = self.levels[li + 1]
-            rc = (coarse.mask * coarse.prolong.rmv(r)).to(self.dtype)
-            xc = self._below(rc) if li == 0 else self._vcycle(li + 1, rc)
-            x = x + (level.mask * coarse.prolong.mv(xc)).to(self.dtype)
-            post = getattr(sm, "post", None)
-            if post is not None:
-                x = post(b, x)
-            else:
-                x = x + sm(b - level.op(x))
-            return x
+            below = (self._below if li == 0
+                     else functools.partial(self._vcycle, li + 1))
+            return self.levels[li].step(b, coarse.prolong.rmv,
+                                        coarse.prolong.mv, coarse.mask,
+                                        below, self.dtype)
 
     def apply(self, b):
         with span("gmg.vcycle", levels=len(self.levels)):
@@ -433,43 +441,66 @@ def _work_dtype(dtype):
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
+def _level(i, sp, n, own, mask, op, diag, smoother_builder=None,
+           prolong=None, *, smoother_degree, lanczos_start, dtype, stats,
+           inner=None):
+    """Level ``i`` of a hierarchy, of ``n`` dofs, held on the rows ``own``
+    (a slice of the flat level vector; all of them where serial): ``op``
+    on level vectors of ``mask``'s shape (bool, the free dofs of those
+    rows), its diagonal inverse from the whole flat assembled ``diag``
+    (float64 NumPy or a tensor) cut to ``own``, its Lanczos bound from
+    those rows of the start vector (``lanczos_start(i, n)`` or
+    ``default_rng(0)``, the products ``inner``: all-reduced where
+    sharded), smoothed by the fused smoother of ``smoother_builder`` or the
+    unfused Chebyshev over ``op``."""
+    device = mask.device
+    shape = tuple(mask.shape)
+    work_dt = _work_dtype(dtype)
+    diag = np.asarray(diag.cpu() if torch.is_tensor(diag) else diag,
+                      dtype=np.float64)
+    diag = torch.as_tensor(diag.reshape(-1)[own].reshape(shape),
+                           device=device)
+    diag_inv = torch.where(mask, 1.0 / diag, 1.0).to(dtype)
+
+    def lanc_mv(v):
+        return (diag_inv * op(v.reshape(shape).to(dtype))).reshape(-1).to(
+            work_dt)
+
+    v0 = block_lanczos_start(lanczos_start, i, n, own.start, own.stop, 1)
+    lam = lanczos_max_eig(lanc_mv, own.stop - own.start, steps=LANCZOS_STEPS,
+                          v0=v0, dtype=work_dt, device=device, stats=stats,
+                          inner=inner)
+    if smoother_builder is not None:
+        smoother = smoother_builder(lam, degree=smoother_degree,
+                                    eig_ratio=EIG_RATIO)
+    else:
+        smoother = chebyshev(op, diag_inv, lam, degree=smoother_degree,
+                             eig_ratio=EIG_RATIO)
+    return _Level(sp, op, diag_inv, mask.to(dtype), smoother, prolong, lam)
+
+
 def _lattice_levels(spaces, first, op_factory, *, free_mask, smoother_degree,
                     lanczos_start, dtype, stats, fine_space=None):
     """The :class:`_Level` list of the lattice levels ``spaces``, the first
     of which is level ``first`` of the hierarchy of ``fine_space`` (default
     ``spaces[0]``); the first one has no transfer."""
     level_mask = _level_masks(fine_space or spaces[0], free_mask)
-    device = free_mask.device
-    work_dt = _work_dtype(dtype)
     levels = []
     for j, sp in enumerate(spaces):
         i = first + j
         lat = tuple(reversed(sp.n_points_1d))
-        mask = torch.as_tensor(level_mask(sp, i).reshape(lat), device=device)
+        mask = torch.as_tensor(level_mask(sp, i).reshape(lat),
+                               device=free_mask.device)
         op, diag, smoother_builder = op_factory(sp)
-        diag = torch.as_tensor(np.asarray(diag, dtype=np.float64).reshape(lat),
-                               device=device)
-        maskf = mask.to(dtype)
-        diag_inv = torch.where(mask, 1.0 / diag, 1.0).to(dtype)
-
-        def lanc_mv(v, op=op, di=diag_inv, lat=lat):
-            return (di * op(v.reshape(lat).to(dtype))).reshape(-1).to(work_dt)
-
-        v0 = lanczos_start(i, sp.n_dofs) if lanczos_start is not None else None
-        lam = lanczos_max_eig(lanc_mv, sp.n_dofs, steps=LANCZOS_STEPS, v0=v0,
-                              dtype=work_dt, device=device, stats=stats)
-        if smoother_builder is not None:
-            smoother = smoother_builder(lam, degree=smoother_degree,
-                                        eig_ratio=EIG_RATIO)
-        else:
-            smoother = chebyshev(op, diag_inv, lam, degree=smoother_degree,
-                                 eig_ratio=EIG_RATIO)
         prolong = None
         if j > 0:
             finer = spaces[j - 1]
             prolong = LatticeTransfer2D(tuple(reversed(finer.n_points_1d)),
                                         lat, (finer.n_dofs, sp.n_dofs))
-        levels.append(_Level(sp, op, diag_inv, maskf, smoother, prolong, lam))
+        levels.append(_level(
+            i, sp, sp.n_dofs, slice(0, sp.n_dofs), mask, op, diag,
+            smoother_builder, prolong, smoother_degree=smoother_degree,
+            lanczos_start=lanczos_start, dtype=dtype, stats=stats))
     return levels
 
 
@@ -517,55 +548,18 @@ class ShardedGMG:
         if self.direct:
             gather, cut = self.transfers[0]
             return cut(self.tail._coarse_solve(gather(b)))
-        level = self.levels[li]
-        sm = level.smoother
-        if getattr(sm, "pre", None) is not None:
-            x, r = sm.pre(b)
-        else:
-            x = sm(b)
-            r = b - level.op(x)
         restrict, prolong = self.transfers[li]
-        last = li + 1 == len(self.levels)
-        coarse = self.tail.levels[0] if last else self.levels[li + 1]
-        rc = (coarse.mask * restrict(r)).to(self.dtype)
-        xc = self.tail._vcycle(0, rc) if last else self._vcycle(li + 1, rc)
-        x = x + (level.mask * prolong(xc)).to(self.dtype)
-        if getattr(sm, "post", None) is not None:
-            return sm.post(b, x)
-        return x + sm(b - level.op(x))
+        if li + 1 == len(self.levels):
+            coarse = self.tail.levels[0]
+            below = functools.partial(self.tail._vcycle, 0)
+        else:
+            coarse = self.levels[li + 1]
+            below = functools.partial(self._vcycle, li + 1)
+        return self.levels[li].step(b, restrict, prolong, coarse.mask, below,
+                                    self.dtype)
 
     def apply(self, b):
         return self._vcycle(0, b.to(self.dtype)).to(b.dtype)
-
-
-def _sharded_level(i, sp, n, own, shape, op, diag, mask, smoother_builder, *,
-                   mesh, smoother_degree, lanczos_start, dtype, stats):
-    """A distributed level: ``op`` on this rank's rows (``shape``), the
-    level's ``mask`` and whole flat assembled ``diag`` (NumPy) cut to the
-    rows of the flat slice ``own``; its Lanczos bound from this rank's rows
-    of the serial start vector with all-reduced products; the fused
-    smoother of ``smoother_builder`` or the unfused Chebyshev."""
-    device = mask.device
-    work_dt = _work_dtype(dtype)
-    diag = torch.as_tensor(np.asarray(diag, dtype=np.float64).reshape(-1)
-                           [own].reshape(shape), device=device)
-    diag_inv = torch.where(mask, 1.0 / diag, 1.0).to(dtype)
-
-    def lanc_mv(v):
-        return (diag_inv * op(v.reshape(shape).to(dtype))).reshape(-1).to(
-            work_dt)
-
-    v0 = block_lanczos_start(lanczos_start, i, n, own.start, own.stop, 1)
-    lam = lanczos_max_eig(lanc_mv, own.stop - own.start, steps=LANCZOS_STEPS,
-                          v0=v0, dtype=work_dt, device=device, stats=stats,
-                          inner=inner_product(mesh))
-    if smoother_builder is not None:
-        smoother = smoother_builder(lam, degree=smoother_degree,
-                                    eig_ratio=EIG_RATIO)
-    else:
-        smoother = chebyshev(op, diag_inv, lam, degree=smoother_degree,
-                             eig_ratio=EIG_RATIO)
-    return _Level(sp, op, diag_inv, mask.to(dtype), smoother, None, lam)
 
 
 def build_gmg_sharded(fine_space, block_factory, op_factory, *, mesh,
@@ -594,15 +588,14 @@ def build_gmg_sharded(fine_space, block_factory, op_factory, *, mesh,
     levels, transfers = [], []
     for i, (sp, bl) in enumerate(zip(spaces, blocks)):
         lo, hi = bl.rows(mesh.rank)
-        shape = (hi - lo, bl.nx)
         mask = torch.as_tensor(level_mask(sp, i).reshape(bl.ny, bl.nx)[lo:hi],
                                device=free_mask.device)
         op, diag, smoother_builder = block_factory(i, sp, bl)
-        levels.append(_sharded_level(
-            i, sp, sp.n_dofs, slice(lo * bl.nx, hi * bl.nx), shape, op, diag,
-            mask, smoother_builder, mesh=mesh,
-            smoother_degree=smoother_degree, lanczos_start=lanczos_start,
-            dtype=dtype, stats=stats))
+        levels.append(_level(
+            i, sp, sp.n_dofs, slice(lo * bl.nx, hi * bl.nx), mask, op, diag,
+            smoother_builder, smoother_degree=smoother_degree,
+            lanczos_start=lanczos_start, dtype=dtype, stats=stats,
+            inner=inner_product(mesh)))
         if direct:
             transfers.append((
                 lambda r, f=bl: mesh.all_gather_rows(r, f.counts),
@@ -662,38 +655,26 @@ def _flat_levels(spaces, first, op_factory, *, free_mask, n_comp,
     ``spaces[0]``); the first one has no transfer."""
     device = free_mask.device
     level_mask = _level_masks(fine_space or spaces[0], free_mask, n_comp)
-    work_dt = _work_dtype(dtype)
     levels = []
     for j, sp in enumerate(spaces):
         i = first + j
         n = n_comp * sp.n_dofs
         mask = torch.as_tensor(level_mask(sp, i), device=device)
         mv_raw, diag = op_factory(sp)
-        diag = torch.as_tensor(np.asarray(diag.cpu() if torch.is_tensor(diag)
-                                          else diag, dtype=np.float64),
-                               device=device)
 
         def op(x, mv_raw=mv_raw, mask=mask):
             return torch.where(mask, mv_raw(torch.where(mask, x, 0.0)), x)
 
-        diag_inv = torch.where(mask, 1.0 / diag, 1.0).to(dtype)
-
-        def lanc_mv(v, op=op, di=diag_inv):
-            return (di * op(v.to(dtype))).to(work_dt)
-
-        v0 = lanczos_start(i, n) if lanczos_start is not None else None
-        lam = lanczos_max_eig(lanc_mv, n, steps=LANCZOS_STEPS, v0=v0,
-                              dtype=work_dt, device=device, stats=stats)
-        smoother = chebyshev(op, diag_inv, lam, degree=smoother_degree,
-                             eig_ratio=EIG_RATIO)
         prolong = None
         if j > 0:
             prolong = make_prolongation(spaces[j - 1], sp, device=device,
                                         dtype=dtype)
             if n_comp > 1:
                 prolong = VectorProlongation(prolong, n_comp)
-        levels.append(_Level(sp, op, diag_inv, mask.to(dtype), smoother,
-                             prolong, lam))
+        levels.append(_level(
+            i, sp, n, slice(0, n), mask, op, diag, None, prolong,
+            smoother_degree=smoother_degree, lanczos_start=lanczos_start,
+            dtype=dtype, stats=stats))
     return levels
 
 
@@ -732,10 +713,10 @@ def build_gmg_flat_sharded(fine_space, block_factory, op_factory, *, mesh,
             return torch.where(m_own, mv_own(torch.where(m_full, x_full,
                                                          0.0)), x)
 
-        levels.append(_sharded_level(
-            i, sp, sp.n_dofs, slice(lo, hi), (hi - lo,), op, diag, m_own,
-            None, mesh=mesh, smoother_degree=smoother_degree,
-            lanczos_start=lanczos_start, dtype=dtype, stats=stats))
+        levels.append(_level(
+            i, sp, sp.n_dofs, slice(lo, hi), m_own, op, diag,
+            smoother_degree=smoother_degree, lanczos_start=lanczos_start,
+            dtype=dtype, stats=stats, inner=inner_product(mesh)))
         if direct:
             transfers.append((
                 lambda r, f=bl: mesh.all_gather_rows(r, f.counts),

@@ -17,7 +17,8 @@ events with, so spans can be laid over a profiler trace.  While it is off,
 call and a global read.
 
 The spans, each where its work happens: ``solve`` (each model's
-``solve()``; attributes ``family``, ``solver``), the phase scopes of
+``solve()``, opened by ``models.session.SolveSession.solve``; attributes
+``family``, ``solver``), the phase scopes of
 ``utils.timer.TimerOutput`` (named as in its table), ``krylov.outer_step``
 (one FGMRES/GMRES or MINRES step), ``krylov.sync`` (one device-to-host read
 of a Krylov solver), ``al.apply`` (one application of an AL preconditioner;

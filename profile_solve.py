@@ -134,8 +134,7 @@ def profile_mode(solver, refinement, device, top, elliptic_cycle,
             cfg = mode_config(solver, refinement)
         prob = ImmersedLaplaceProblem(cfg, device=device).setup()
     refined = solver.endswith("refined")
-    seconds_key = ("refined_seconds"
-                   if refined and solver != "refined" else "solve_seconds")
+    seconds_key = "refined_seconds" if refined else "solve_seconds"
 
     def solve():
         if refined:

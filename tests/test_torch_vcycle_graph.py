@@ -20,10 +20,12 @@ from fictitious_domain_al_preconditioners_torch.models import (
     ImmersedLaplaceProblem, NitscheProblem, StokesProblem)
 from fictitious_domain_al_preconditioners_torch.models import \
     elliptic_interface
+from fictitious_domain_al_preconditioners_torch.models.session import (
+    SOLVE_COUNTERS, reset_solve_stats, solve_stats)
 from fictitious_domain_al_preconditioners_torch.ops import kernels as K
 from fictitious_domain_al_preconditioners_torch.precond import gmg as G
 
-GRAPH_COUNTERS = [k for k in G.SOLVE_COUNTERS
+GRAPH_COUNTERS = [k for k in SOLVE_COUNTERS
                   if k.startswith("vcycle_graph")]
 ZERO = dict.fromkeys(GRAPH_COUNTERS, 0)
 
@@ -184,14 +186,14 @@ def test_every_family_reports_the_graph_counters(family):
 
 def test_solve_stats_are_reset_and_reported_together():
     stats = {"host_syncs": 7, "vcycle_graph_replays": 3, "other": 1}
-    G.reset_solve_stats(stats)
-    assert stats == dict(dict.fromkeys(G.SOLVE_COUNTERS, 0), other=1)
+    reset_solve_stats(stats)
+    assert stats == dict(dict.fromkeys(SOLVE_COUNTERS, 0), other=1)
     stats["inner_iterations"] += 5
-    assert G.solve_stats(stats) == dict(
-        dict.fromkeys(G.SOLVE_COUNTERS, 0), inner_iterations=5)
+    assert solve_stats(stats) == dict(
+        dict.fromkeys(SOLVE_COUNTERS, 0), inner_iterations=5)
     assert {"host_syncs", "inner_iterations", "vcycle_graph_replays",
             "vcycle_graph_captures", "vcycle_graph_failures",
-            "vcycle_graph_pool_bytes"} == set(G.SOLVE_COUNTERS)
+            "vcycle_graph_pool_bytes"} == set(SOLVE_COUNTERS)
 
 
 def _stencil(shape=(9, 11), box=(2, 3, 4, 5)):
@@ -238,6 +240,32 @@ def test_call_record_is_the_benchmark_record(entry):
         calls.calls[0])
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_the_benchmark_wrappers_see_every_fused_smoother_call(bf16):
+    """Each K2 ``pre`` and ``post`` of a V-cycle calls the kernel's entry
+    as its module holds it at the call, where the benchmark's call wrappers
+    (``fdal_bench/trace.py::KernelCalls``) put themselves: one of each a
+    visit of a fused level."""
+    from fdal_bench.trace import KernelCalls
+
+    gmg = laplace(bf16)._last_gmg
+    fused = [tuple(lv.mask.shape) for lv in gmg.levels[:-1]
+             if isinstance(lv.smoother, G.FusedSmoother)]
+    assert fused
+    fine = gmg.levels[0].mask
+    b = torch.ones(tuple(fine.shape), dtype=torch.float32) * fine.float()
+    calls = KernelCalls().install()
+    try:
+        gmg.apply(b)
+    finally:
+        calls.uninstall()
+    seen = collections.Counter(
+        (c["mode"], tuple(c["shape"])) for c in calls.calls
+        if c["kernel"] == "fused_augmented_2d")
+    assert {k: n for k, n in seen.items() if k[0] in ("pre", "post")} == {
+        (mode, shape): 1 for shape in fused for mode in ("pre", "post")}
+
+
 def test_a_capture_records_its_launches_instead_of_counting_them():
     K.reset_launch_counts()
     rec = K.call_record("masked_laplace_2d", torch.zeros(5, 5))
@@ -278,7 +306,7 @@ def test_a_replay_adds_its_capture_record(replays):
     and ``GRAPH_CALLS``, and counts one replay in the solve's stats."""
     K.reset_launch_counts()
     stats = {}
-    G.reset_solve_stats(stats)
+    reset_solve_stats(stats)
     gmg = G.GMG([None, None], torch.eye(4), torch.float64, stats)
     static = (torch.zeros(2, 2, dtype=torch.float64),
               torch.zeros(2, 2, dtype=torch.float64))
@@ -298,5 +326,5 @@ def test_a_replay_adds_its_capture_record(replays):
     assert K.LAUNCHES["masked_laplace_2d"] == 2 * replays
     assert K.LAUNCHES["fused_augmented_2d:pre:no_patch"] == replays
     assert K.GRAPH_CALLS == {k1: 2 * replays, k2: replays}
-    assert G.solve_stats(stats)["vcycle_graph_replays"] == replays
+    assert solve_stats(stats)["vcycle_graph_replays"] == replays
     K.reset_launch_counts()
